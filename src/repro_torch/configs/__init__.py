@@ -1,0 +1,6 @@
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import (ARCH_IDS, PORTED, get_config,
+                                          get_smoke_config)
+
+__all__ = ["ARCH_IDS", "ModelConfig", "PORTED", "get_config",
+           "get_smoke_config"]

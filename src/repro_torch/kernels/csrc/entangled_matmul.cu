@@ -1,0 +1,360 @@
+// Fused entangled integer GEMM for Hopper (sm_90a), CUDA cores.
+//
+// Replaces the Pallas TPU kernel repro/kernels/entangled_matmul.py
+// (entangled_matmul_pallas, body _emm_kernel). For c [M, B, K] int32 and
+// g [K, N] int32 (or [ceil(K/4), N] int8 lanes packed 4 per int32 word
+// along K, lane j in bits [8j, 8j+8)) it computes, exactly mod 2^32:
+//
+//   prologue  eps[m] = (c[(m-1) mod M] << l) + c[m]     (modes True/False)
+//             eps = c                                    (chain modes)
+//   body      acc[m] += eps[m] @ g                       (uint32 multiply-add)
+//   epilogue  out = disentangle(acc, r)                  (modes True/'chain_final')
+//             out = acc                                  (modes False/'chain')
+//
+// The epilogue is eq. (16-19) of the paper: Horner telescoping of the M-1
+// accumulators other than stream r (in one 32-bit word, or in a native
+// 64-bit word for the dual-word plans), the sign-extended bit-field split
+// of d_r and d_q, and the eq. (19) chain. In the extracting modes stream r
+// is not computed at all: the block stages and accumulates only the M-1
+// other streams, in the rotated order (r+1, ..., r+M-1) mod M that the
+// telescoping consumes, so those modes do (M-1)/M of the multiply-adds.
+//
+// What bounds it on an H100: the product has no tensor-core form (eps is
+// 14-20 bits wide, the tensor cores take s8), so it runs as 32-bit integer
+// multiply-adds on the CUDA cores, about half the fp32 issue rate. At the
+// serving shapes (a few rows per stream, K x N weights streamed once) the
+// int32 MACs take longer than reading the packed weights, so the kernel is
+// bound by operations, not bytes. The design follows from that:
+//   * one thread owns TN columns of N and the M x BB accumulators of them
+//     in registers, so every packed weight word is loaded once from device
+//     memory (coalesced across the warp) and feeds 4 x M x BB MACs;
+//   * the [M, BB, BK] slice of c is entangled while it is staged in shared
+//     memory, and read back as 16-byte broadcasts (every thread of a warp
+//     reads the same address);
+//   * a packed word becomes its four sign-extended lanes with one PRMT each;
+//   * narrow-N shapes split K over gridDim.z so the card has enough blocks;
+//     the partial sums meet by 32-bit atomic adds (exact and
+//     order-independent mod 2^32), and the last block of a tile to arrive
+//     runs the epilogue.
+// The ragged edges of B, K and N are masked here, so callers pass any
+// shape unpadded. This simple design does not reach the MAC bound: the
+// weight loads are not pipelined, and with up to 168 registers per thread
+// few blocks fit an SM to hide their latency (PERF.md has its times
+// against the bound).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 128;          // threads per block
+constexpr int TN = 2;                 // columns per thread, THREADS apart
+constexpr int BN = THREADS * TN;      // columns per block
+constexpr int BK = 32;                // contraction depth per staged tile
+
+struct Params {
+  const int32_t* c;        // [M, B, K]
+  const int32_t* g;        // [K, N], or [ceil(K/4), N] packed
+  int32_t* out;            // [M, B, N]
+  int32_t* ws;             // split-K partial sums [M-1, B, N], zeroed (extract modes)
+  unsigned int* counters;  // split-K arrivals, one per (n, b) tile, zeroed
+  int B, K, N;
+  int l, r;
+  int entangle, extract, dualword;
+  int k_chunk;             // contraction length of one split, multiple of BK
+};
+
+// Sign-extended int8 lane j of a packed word: PRMT copies byte j into the
+// low byte and replicates its sign bit over the three upper bytes.
+__device__ __forceinline__ uint32_t lane_s8(uint32_t w, int j) {
+  uint32_t d;
+  const uint32_t sel = j | ((8 | j) << 4) | ((8 | j) << 8) | ((8 | j) << 12);
+  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(d) : "r"(w), "r"(sel));
+  return d;
+}
+
+// Disentangle one output position from the M-1 surviving accumulators in
+// rotated order, rot[j] = stream (r + 1 + j) mod M; o_rot[i] receives the
+// recovered value of stream (r + i) mod M.
+template <int M>
+__device__ __forceinline__ void disentangle_one(const uint32_t (&rot)[M],
+                                                uint32_t (&o_rot)[M], int l,
+                                                int dualword) {
+  const int B = (M - 1) * l;  // d_r sits above bit B of d_temp; B <= 31
+  uint32_t d_r, d_q;
+  if (dualword) {
+    uint64_t t = (uint64_t)(int64_t)(int32_t)rot[0];
+#pragma unroll
+    for (int i = 1; i < M - 1; ++i) {
+      const uint64_t d = (uint64_t)(int64_t)(int32_t)rot[i];
+      t = (t << l);
+      t = (i & 1) ? t - d : t + d;  // sign (-1)^i of the telescoping sum
+    }
+    const int64_t t_lo = ((int64_t)(t << (64 - B))) >> (64 - B);
+    d_q = (M & 1) ? (uint32_t)(0ull - (uint64_t)t_lo) : (uint32_t)t_lo;
+    d_r = (uint32_t)((t - (uint64_t)t_lo) >> B);  // bits [B, B+32)
+  } else {
+    uint32_t t = rot[0];
+#pragma unroll
+    for (int i = 1; i < M - 1; ++i) {
+      t = (t << l);
+      t = (i & 1) ? t - rot[i] : t + rot[i];
+    }
+    const int sh = 32 - B;
+    const int32_t t_lo = ((int32_t)(t << sh)) >> sh;
+    d_q = (M & 1) ? 0u - (uint32_t)t_lo : (uint32_t)t_lo;
+    d_r = (uint32_t)(((int32_t)(t - (uint32_t)t_lo)) >> B);
+  }
+  // eq. (19) chain from d_r
+  uint32_t prev = d_r;
+  o_rot[0] = d_r;
+  o_rot[M - 1] = d_q;
+#pragma unroll
+  for (int i = 1; i < M - 1; ++i) {
+    prev = rot[i - 1] - (prev << l);
+    o_rot[i] = prev;
+  }
+}
+
+// Accumulator slot j holds stream j, or in the extracting modes stream
+// (r + 1 + j) mod M, and slot M-1 is then unused.
+__device__ __forceinline__ int slot_stream(const Params& p, int M, int j) {
+  return p.extract ? (p.r + 1 + j) % M : j;
+}
+
+template <int M, int BB>
+__device__ __forceinline__ void store_tile(const Params& p,
+                                           uint32_t (&acc)[M][BB][TN],
+                                           int b0, int n0) {
+#pragma unroll
+  for (int b = 0; b < BB; ++b) {
+    const int gb = b0 + b;
+    if (gb >= p.B) continue;
+#pragma unroll
+    for (int t = 0; t < TN; ++t) {
+      const int n = n0 + t * THREADS;
+      if (n >= p.N) continue;
+      uint32_t a[M], o[M];
+#pragma unroll
+      for (int j = 0; j < M; ++j) a[j] = acc[j][b][t];
+      if (p.extract) {
+        disentangle_one<M>(a, o, p.l, p.dualword);
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+          p.out[((size_t)((p.r + i) % M) * p.B + gb) * p.N + n] =
+              (int32_t)o[i];
+      } else {
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          p.out[((size_t)m * p.B + gb) * p.N + n] = (int32_t)a[m];
+      }
+    }
+  }
+}
+
+template <int M, int BB, bool PACKED>
+__global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
+  __shared__ __align__(16) uint32_t s_eps[M][BB][BK];
+  __shared__ int s_last;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN + tid;
+  const int b0 = blockIdx.y * BB;
+  const int kbeg = blockIdx.z * p.k_chunk;
+  const int kend = min(p.K, kbeg + p.k_chunk);
+
+  uint32_t acc[M][BB][TN];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int b = 0; b < BB; ++b)
+#pragma unroll
+      for (int t = 0; t < TN; ++t) acc[m][b][t] = 0u;
+
+  // accumulator slots in use: the extracting modes skip stream r
+  const int ns = M - p.extract;
+  for (int kt = kbeg; kt < kend; kt += BK) {
+    // prologue: stage the [ns, BB, BK] slice of c, entangled on load;
+    // rows past B and depths past the split's end stage as zeros
+    for (int i = tid; i < ns * BB * BK; i += THREADS) {
+      const int j = i / (BB * BK);
+      const int m = slot_stream(p, M, j);
+      const int b = (i / BK) % BB;
+      const int k = i % BK;
+      const int gb = b0 + b, gk = kt + k;
+      uint32_t v = 0;
+      if (gb < p.B && gk < kend) {
+        v = (uint32_t)p.c[((size_t)m * p.B + gb) * p.K + gk];
+        if (p.entangle) {
+          const int pm = (m + M - 1) % M;
+          const uint32_t cp = (uint32_t)p.c[((size_t)pm * p.B + gb) * p.K + gk];
+          v = (cp << p.l) + v;
+        }
+      }
+      s_eps[j][b][k] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      uint32_t w[TN][4];
+#pragma unroll
+      for (int t = 0; t < TN; ++t) {
+        const int n = n0 + t * THREADS;
+        if (PACKED) {
+          uint32_t word = 0;
+          if (n < p.N && kt + kk < kend)
+            word = (uint32_t)p.g[(size_t)((kt + kk) >> 2) * p.N + n];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) w[t][j] = lane_s8(word, j);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = kt + kk + j;
+            w[t][j] = (n < p.N && k < kend)
+                          ? (uint32_t)p.g[(size_t)k * p.N + n] : 0u;
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (m == M - 1 && p.extract) continue;  // no slot for stream r
+#pragma unroll
+        for (int b = 0; b < BB; ++b) {
+          const uint4 e = *reinterpret_cast<const uint4*>(&s_eps[m][b][kk]);
+#pragma unroll
+          for (int t = 0; t < TN; ++t) {
+            uint32_t s = acc[m][b][t];
+            s += e.x * w[t][0];
+            s += e.y * w[t][1];
+            s += e.z * w[t][2];
+            s += e.w * w[t][3];
+            acc[m][b][t] = s;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (gridDim.z == 1) {
+    store_tile<M, BB>(p, acc, b0, n0);
+    return;
+  }
+
+  // split-K: add the partial sums where they meet, mod 2^32 (the
+  // extracting modes meet in the [M-1, B, N] workspace, slot by slot)
+  int32_t* dst = p.extract ? p.ws : p.out;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int b = 0; b < BB; ++b)
+#pragma unroll
+      for (int t = 0; t < TN; ++t) {
+        const int gb = b0 + b, n = n0 + t * THREADS;
+        if (m < ns && gb < p.B && n < p.N)
+          atomicAdd(reinterpret_cast<unsigned int*>(
+                        &dst[((size_t)m * p.B + gb) * p.N + n]),
+                    acc[m][b][t]);
+      }
+  if (!p.extract) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    s_last = atomicAdd(&p.counters[tile], 1u) == gridDim.z - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the last split of this tile: read the finished sums from L2 and run
+  // the epilogue
+  __threadfence();
+#pragma unroll
+  for (int m = 0; m < M - 1; ++m)
+#pragma unroll
+    for (int b = 0; b < BB; ++b)
+#pragma unroll
+      for (int t = 0; t < TN; ++t) {
+        const int gb = b0 + b, n = n0 + t * THREADS;
+        acc[m][b][t] = (gb < p.B && n < p.N)
+            ? (uint32_t)__ldcg(&p.ws[((size_t)m * p.B + gb) * p.N + n]) : 0u;
+      }
+  store_tile<M, BB>(p, acc, b0, n0);
+}
+
+template <int M, int BB>
+void launch_mb(const Params& p, int packed, dim3 grid, cudaStream_t s) {
+  if (packed)
+    emm_kernel<M, BB, true><<<grid, THREADS, 0, s>>>(p);
+  else
+    emm_kernel<M, BB, false><<<grid, THREADS, 0, s>>>(p);
+}
+
+// bb (rows per block) is 1, 2, 4, or 8 (8 only for M <= 4, which keeps the
+// M x BB x TN accumulators at <= 64 registers)
+template <int M>
+int launch_m(const Params& p, int bb, int packed, dim3 grid, cudaStream_t s) {
+  switch (bb) {
+    case 1: launch_mb<M, 1>(p, packed, grid, s); return 0;
+    case 2: launch_mb<M, 2>(p, packed, grid, s); return 0;
+    case 4: launch_mb<M, 4>(p, packed, grid, s); return 0;
+    case 8:
+      if constexpr (M <= 4) {
+        launch_mb<M, 8>(p, packed, grid, s);
+        return 0;
+      }
+      return -2;
+    default: return -2;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Geometry the Python wrapper needs to size the grid and split K.
+int emm_threads() { return THREADS; }
+int emm_block_n() { return BN; }
+int emm_block_k() { return BK; }
+
+const char* emm_error_string(int code) {
+  if (code == -1) return "unsupported stream count M (need 3 <= M <= 8)";
+  if (code == -2) return "unsupported rows per block bb";
+  if (code == -3) return "invalid shape or split";
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Launch the kernel on `stream`. Returns 0, a negative code for a
+// configuration the kernel does not take, or the cudaError_t of the launch.
+int emm_launch(const void* c, const void* g, void* out, void* ws,
+               void* counters, int M, int B, int K, int N, int packed,
+               int entangle, int extract, int dualword, int l, int r, int bb,
+               int splits, int k_chunk, void* stream) {
+  if (B < 1 || K < 1 || N < 1 || splits < 1 || k_chunk < BK ||
+      k_chunk % BK != 0 || (long long)k_chunk * (splits - 1) >= K)
+    return -3;
+  Params p;
+  p.c = static_cast<const int32_t*>(c);
+  p.g = static_cast<const int32_t*>(g);
+  p.out = static_cast<int32_t*>(out);
+  p.ws = static_cast<int32_t*>(ws);
+  p.counters = static_cast<unsigned int*>(counters);
+  p.B = B; p.K = K; p.N = N;
+  p.l = l; p.r = r;
+  p.entangle = entangle; p.extract = extract; p.dualword = dualword;
+  p.k_chunk = k_chunk;
+  const dim3 grid((N + BN - 1) / BN, (B + bb - 1) / bb, splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  switch (M) {
+    case 3: rc = launch_m<3>(p, bb, packed, grid, s); break;
+    case 4: rc = launch_m<4>(p, bb, packed, grid, s); break;
+    case 5: rc = launch_m<5>(p, bb, packed, grid, s); break;
+    case 6: rc = launch_m<6>(p, bb, packed, grid, s); break;
+    case 7: rc = launch_m<7>(p, bb, packed, grid, s); break;
+    case 8: rc = launch_m<8>(p, bb, packed, grid, s); break;
+    default: return -1;
+  }
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

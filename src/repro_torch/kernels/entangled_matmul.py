@@ -1,0 +1,269 @@
+"""Fused entangled integer GEMM: the CUDA kernel's wrapper, its plain
+PyTorch version, and the kernel's launch counter.
+
+Replaces the Pallas TPU kernel ``repro/kernels/entangled_matmul.py``
+(``entangled_matmul_pallas``, body ``_emm_kernel``): entangle-on-load
+``eps = (roll(c, 1) << l) + c``, int32 accumulation ``acc[m] += eps[m] @
+g``, and extraction at the flush without reading stream ``failed``
+(the kernel does not even compute that stream's accumulator). The
+four ``fuse_epilogue`` modes select which codec halves run:
+
+  ================  =================  ================
+  fuse_epilogue     entangle prologue  extract at flush
+  ================  =================  ================
+  ``True``          yes                yes
+  ``False``         yes                no
+  ``'chain'``       no                 no
+  ``'chain_final'`` no                 yes
+  ================  =================  ================
+
+``packed=True`` reads ``g`` as ``[ceil(K/4), N]`` int8 lanes packed 4 per
+int32 word along K (:func:`repro_torch.kernels.codec.pack_int8`).
+
+The kernel (``csrc/entangled_matmul.cu``) is CUDA C++ for ``sm_90a``. What
+bounds it on an H100: the product runs as int32 multiply-adds on the CUDA
+cores (eps is 14-20 bits wide, so the s8 tensor cores cannot take it
+directly), and at the serving shapes those MACs take longer than reading
+the packed weights. The design therefore loads each weight word once into
+registers and reuses it for every stream and row of the tile, entangles
+c while staging it in shared memory, and splits K across blocks when N is
+too narrow to fill the card (see the source's header). It is built with
+``nvcc`` at first use into ``_build/`` (listed in ``.gitignore``) and bound
+with ``ctypes``.
+
+:func:`entangled_matmul_cuda` launches the kernel on a CUDA tensor and
+raises on anything it does not take; :func:`entangled_matmul_plain` is the
+plain version, used for CPU tensors and as the kernel's yardstick on the
+card. ``launches`` counts kernel launches (never plain-version calls).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.core.plan import EntanglePlan
+from repro_torch.kernels.codec import (PACK_LANES, disentangle_block,
+                                       entangle_block, unpack_int8, wrap_i32)
+
+# fuse_epilogue values whose prologue entangles / whose flush extracts
+ENTANGLE_MODES = (False, True)
+EXTRACT_MODES = (True, "chain_final")
+FUSE_MODES = (False, True, "chain", "chain_final")
+
+# kernel launches since import (or the last reset by the caller)
+launches = 0
+
+_SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "entangled_matmul.cu"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+_lib = None
+
+
+def _check_mode(fuse_epilogue) -> None:
+    if fuse_epilogue not in FUSE_MODES:
+        raise ValueError(
+            f"fuse_epilogue must be one of {FUSE_MODES}, got {fuse_epilogue!r}")
+
+
+def _matmul_mod32(a: torch.Tensor, g: torch.Tensor, *,
+                  g_int8: bool) -> torch.Tensor:
+    """``a @ g`` for int32 ``a [R, K]``, ``g [K, N]``, exact mod 2**32.
+
+    Neither the CPU nor the GPU has an int32 matmul in torch, so the
+    operands are split into 16-bit limbs (``x = hi * 2**16 + lo``, ``lo``
+    in [0, 2**16)) and each limb product runs as a float64 matmul. Every
+    limb product is below 2**32 in magnitude, so every partial sum stays
+    below 2**53 — and float64 is exact — for any int32 inputs with
+    K < 2**21. The ``hi @ hi`` term is a multiple of 2**32 and drops out;
+    ``g_int8`` (values in [-128, 127]) skips the ``lo @ g_hi`` term, which
+    is then zero. The limb sums combine in int64 and wrap to int32.
+    """
+    if a.shape[-1] >= (1 << 21):
+        raise ValueError(f"K={a.shape[-1]} too deep for the exact float64 path")
+    a64 = a.to(torch.int64)
+    a_lo = (a64 & 0xFFFF).to(torch.float64)
+    a_hi = (a64 >> 16).to(torch.float64)
+    g64 = g.to(torch.int64)
+    if g_int8:
+        ll = (a_lo @ g64.to(torch.float64)).to(torch.int64)
+        mid = (a_hi @ g64.to(torch.float64)).to(torch.int64)
+    else:
+        g_lo = (g64 & 0xFFFF).to(torch.float64)
+        g_hi = (g64 >> 16).to(torch.float64)
+        ll = (a_lo @ g_lo).to(torch.int64)
+        mid = ((a_hi @ g_lo).to(torch.int64) + (a_lo @ g_hi).to(torch.int64))
+    return wrap_i32(ll + ((mid & 0xFFFF) << 16))
+
+
+def entangled_matmul_plain(c: torch.Tensor, g: torch.Tensor,
+                           plan: EntanglePlan, *, fuse_epilogue=False,
+                           failed: Optional[int] = None,
+                           packed: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device.
+
+    c ``[M, B, K]`` int, g ``[K, N]`` int or packed ``[ceil(K/4), N]``;
+    returns ``[M, B, N]`` int32, bit-identical to the kernel and to the
+    reference's Pallas kernel. The GEMM is exact mod 2**32 for any int32
+    operands with K < 2**21 (float64 limb products, see
+    :func:`_matmul_mod32`); the codec runs in int32/int64 torch ops.
+    """
+    _check_mode(fuse_epilogue)
+    M, B, K = c.shape
+    if M != plan.M:
+        raise ValueError(f"c has {M} streams, plan.M={plan.M}")
+    c = c.to(torch.int32)
+    eps = entangle_block(c, plan.l) if fuse_epilogue in ENTANGLE_MODES else c
+    g = unpack_int8(g, axis=0, n=K) if packed else g.to(torch.int32)
+    if g.shape[0] != K:
+        raise ValueError(f"g has depth {g.shape[0]}, c has K={K}")
+    out = _matmul_mod32(eps.reshape(M * B, K), g, g_int8=packed)
+    out = out.reshape(M, B, g.shape[1])
+    if fuse_epilogue in EXTRACT_MODES:
+        out = disentangle_block(out, plan, 0 if failed is None else failed)
+    return out
+
+
+# ------------------------------------------------------------- the kernel --
+
+def build(verbose: bool = False) -> tuple:
+    """Compile ``csrc/entangled_matmul.cu`` into ``_build/`` if needed.
+
+    The library's name carries a hash of the source, so an edited source
+    rebuilds. Returns ``(path, seconds, compiler_log)``; ``seconds`` is 0
+    when the library was already built. ``verbose`` adds ``-Xptxas -v``
+    (registers, shared memory and spills per kernel) to the log.
+    """
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    so = BUILD_DIR / f"libentangled_matmul_{digest}.so"
+    if so.exists() and not verbose:
+        return so, 0.0, ""
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            f"nvcc not found (looked on PATH and at {nvcc}); the CUDA "
+            f"kernel needs the CUDA toolkit to build")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), str(_SRC)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}) building {_SRC}:\n"
+            f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, so)
+    return so, secs, res.stdout + res.stderr
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        so, _, _ = build()
+        lib = ctypes.CDLL(str(so))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.emm_launch.argtypes = [p, p, p, p, p] + [i] * 13 + [p]
+        lib.emm_launch.restype = i
+        lib.emm_error_string.argtypes = [i]
+        lib.emm_error_string.restype = ctypes.c_char_p
+        for fn in ("emm_threads", "emm_block_n", "emm_block_k"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        _lib = lib
+    return _lib
+
+
+def _rows_per_block(B: int, M: int) -> int:
+    """Smallest power of two covering B, capped at 8 (4 when M > 4)."""
+    cap = 8 if M <= 4 else 4
+    bb = 1
+    while bb < min(B, cap):
+        bb *= 2
+    return bb
+
+
+def _split_k(n_tiles: int, K: int, block_k: int, sms: int) -> tuple:
+    """(splits, k_chunk): split K until about two blocks per SM exist."""
+    k_tiles = -(-K // block_k)
+    want = max(1, -(-2 * sms // n_tiles))
+    splits = min(k_tiles, want)
+    per = -(-k_tiles // splits)
+    k_chunk = per * block_k
+    return -(-K // k_chunk), k_chunk
+
+
+def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
+                          plan: EntanglePlan, *, fuse_epilogue=False,
+                          failed: Optional[int] = None,
+                          packed: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel: c ``[M, B, K]`` int32, g ``[K, N]`` int32 or
+    packed ``[ceil(K/4), N]``, both contiguous on one CUDA device. Returns
+    ``[M, B, N]`` int32 on ``torch.cuda.current_stream()``; raises on any
+    input the kernel does not take and on a failed launch."""
+    global launches
+    _check_mode(fuse_epilogue)
+    for name, t in (("c", c), ("g", g)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if c.device != g.device:
+        raise ValueError(f"c on {c.device}, g on {g.device}")
+    if c.dim() != 3 or g.dim() != 2:
+        raise ValueError(f"need c [M, B, K] and g [K', N], got "
+                         f"{tuple(c.shape)} and {tuple(g.shape)}")
+    M, B, K = c.shape
+    Kg, N = g.shape
+    if M != plan.M or not 3 <= M <= 8:
+        raise ValueError(f"c has {M} streams; need plan.M={plan.M} in 3..8")
+    if Kg != (-(-K // PACK_LANES) if packed else K):
+        raise ValueError(f"g depth {Kg} does not match K={K} "
+                         f"(packed={packed})")
+    if min(B, K, N) < 1:
+        raise ValueError(f"empty GEMM: B={B}, K={K}, N={N}")
+    lib = _load()
+    bb = _rows_per_block(B, M)
+    n_tiles = -(-N // lib.emm_block_n()) * -(-B // bb)
+    sms = torch.cuda.get_device_properties(c.device).multi_processor_count
+    splits, k_chunk = _split_k(n_tiles, K, lib.emm_block_k(), sms)
+    extract = fuse_epilogue in EXTRACT_MODES
+    if splits == 1:
+        out = torch.empty((M, B, N), dtype=torch.int32, device=c.device)
+        ws = counters = None
+    elif extract:  # partial sums of the M-1 computed streams, then counters
+        out = torch.empty((M, B, N), dtype=torch.int32, device=c.device)
+        ws_n = (M - 1) * B * N
+        scratch = torch.zeros(ws_n + n_tiles, dtype=torch.int32,
+                              device=c.device)
+        ws, counters = scratch, scratch[ws_n:]
+    else:  # partial sums meet in the (zeroed) output itself
+        out = torch.zeros((M, B, N), dtype=torch.int32, device=c.device)
+        ws = counters = None
+    r = 0 if failed is None else int(failed) % M
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream(c.device).cuda_stream
+        rc = lib.emm_launch(
+            c.data_ptr(), g.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            M, B, K, N, int(packed), int(fuse_epilogue in ENTANGLE_MODES),
+            int(extract), int(plan.temp == "dualword"), plan.l, r, bb,
+            splits, k_chunk, stream)
+    if rc != 0:
+        raise RuntimeError(f"entangled_matmul kernel launch failed: "
+                           f"{lib.emm_error_string(rc).decode()}")
+    launches += 1
+    return out

@@ -1,0 +1,39 @@
+"""Dispatch over the port's kernels (the serving slice of
+:mod:`repro.kernels.ops`).
+
+The device of the operands picks the implementation, and nothing else
+does: a CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
+hand-written kernel, which launches or raises — there is no quiet fallback
+from one to the other. The CUDA kernel masks ragged edges itself, so no
+padding happens here (the reference pads to its block sizes), and there is
+no block-size or autotune argument in this slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.plan import EntanglePlan
+from repro_torch.kernels import entangled_matmul as emm
+
+
+def entangled_matmul(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *,
+                     fuse_epilogue=False, failed: Optional[int] = None,
+                     packed: bool = False) -> torch.Tensor:
+    """Fused entangle + GEMM [+ extract]: c ``[M, B, K]``, g ``[K, N]``
+    (packed: ``[ceil(K/4), N]``) -> ``[M, B, N]`` int32, for any B, K, N.
+
+    ``fuse_epilogue`` is one of True / False / 'chain' / 'chain_final'
+    (see :mod:`repro_torch.kernels.entangled_matmul`); ``failed`` is the
+    stream the extraction never reads (None means stream 0).
+    """
+    kw = dict(fuse_epilogue=fuse_epilogue, failed=failed, packed=packed)
+    if c.device.type == "cpu" and g.device.type == "cpu":
+        return emm.entangled_matmul_plain(c, g, plan, **kw)
+    if c.is_cuda and g.is_cuda:
+        return emm.entangled_matmul_cuda(
+            c.to(torch.int32).contiguous(), g.to(torch.int32).contiguous(),
+            plan, **kw)
+    raise ValueError(f"entangled_matmul needs both operands on the CPU or "
+                     f"both on CUDA, got {c.device} and {g.device}")

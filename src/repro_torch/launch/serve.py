@@ -1,0 +1,188 @@
+"""Serving launcher of the port:
+``python -m repro_torch.launch.serve --arch llama3.2-1b --smoke``
+
+Boots the batched serving engine with random weights (from a seeded
+``torch.Generator``) on ``--device`` (default ``cuda``) and runs a
+synthetic request wave. ``--ft-mode entangle`` runs the vocab projection
+of every decode step and admission batch as the fused entangled int8 GEMM
+(slot -> group = slot % ft_M); ``--ft-scope`` widens protection to the
+in-model projections; ``--failed-group r`` fail-stops group r on every
+step. With ``--smoke`` and entanglement on, the launcher prints a
+per-scope recovery summary (the head scope and the configured scope;
+healthy and injected tokens compared request by request), ending in
+``EXACT ROLL-FORWARD`` or ``RECOVERY FAILED``; a mismatch exits 1.
+
+Flags of the reference's launcher that belong to later slices of the port
+(fleet, token budget, chunked prefill, autotuned blocks, open-loop
+arrivals, checkpoints) are rejected at parse time with "not ported yet".
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.ft import SCOPES
+from repro_torch.models import get_model
+from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+MAX_WAVE_STEPS = 10_000
+
+# flag -> its "off" value; any other value is a later slice's feature
+_NOT_PORTED = {
+    "replicas": 1, "kill_replica_at": -1, "kill_replica": 0,
+    "max_replicas": 0, "scale_up_depth": 4, "token_budget": 0,
+    "prefill_chunk": 0, "blocks": "", "arrival_rate": 0.0,
+    "deadline_ms": None, "no_refill": False, "ckpt_dir": "",
+}
+
+
+def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
+          failed_group) -> dict:
+    rng = np.random.default_rng(0)
+    for r in range(n_requests):
+        eng.submit(Request(rid=r, max_new=max_new, prompt=rng.integers(
+            0, vocab, size=8).astype(np.int32)))
+    done = eng.run_to_completion(max_steps=MAX_WAVE_STEPS,
+                                 failed_group=failed_group)
+    return {r.rid: np.asarray(r.out) for r in done}
+
+
+def _validate_args(ap: argparse.ArgumentParser, args):
+    """Fail misconfigurations at parse time; returns the bucket tuple."""
+    for flag, off in _NOT_PORTED.items():
+        if getattr(args, flag) != off:
+            ap.error(f"--{flag.replace('_', '-')} is not ported yet")
+    if args.ft_mode == "entangle":
+        if args.ft_M < 3:
+            ap.error(f"--ft-M must be >= 3 (the paper's minimum stream "
+                     f"count), got {args.ft_M}")
+        if args.max_batch % args.ft_M:
+            ap.error(f"--max-batch ({args.max_batch}) must be divisible by "
+                     f"--ft-M ({args.ft_M}): slots map round-robin onto "
+                     f"the M entangled request groups")
+    if args.failed_group >= 0:
+        if args.ft_mode != "entangle":
+            ap.error("--failed-group requires --ft-mode entangle")
+        if args.failed_group >= args.ft_M:
+            ap.error(f"--failed-group must be < --ft-M ({args.ft_M})")
+    buckets = None
+    if args.prefill_buckets:
+        try:
+            buckets = tuple(int(b) for b in args.prefill_buckets.split(","))
+        except ValueError:
+            ap.error(f"--prefill-buckets must be comma-separated ints, got "
+                     f"{args.prefill_buckets!r}")
+        if any(b < 1 or b > args.max_seq for b in buckets):
+            ap.error(f"--prefill-buckets {list(buckets)} must lie in "
+                     f"[1, max-seq={args.max_seq}]")
+    return buckets
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.serve",
+        description="Serve a synthetic request wave with the port's engine.")
+    ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--ft-mode", default="none", choices=["none", "entangle"])
+    ap.add_argument("--ft-M", type=int, default=4)
+    ap.add_argument("--ft-scope", default="head", choices=sorted(SCOPES))
+    ap.add_argument("--failed-group", type=int, default=-1)
+    ap.add_argument("--prefill-buckets", default="")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda)")
+    # later slices' flags: accepted by the parser so that using one gives
+    # a clear "not ported yet" error
+    ap.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--blocks", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--no-refill", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--replicas", type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--kill-replica-at", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--kill-replica", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--max-replicas", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--scale-up-depth", type=int, default=4,
+                    help=argparse.SUPPRESS)
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    buckets = _validate_args(ap, args)
+    try:
+        cfg = (get_smoke_config(args.arch) if args.smoke
+               else get_config(args.arch))
+    except NotImplementedError as e:
+        ap.error(str(e))
+    dev = resolve_device(args.device)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev)
+    params = model.init(gen.manual_seed(0), cfg,
+                        max_seq=args.max_seq, device=dev)
+    scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
+                       ft_mode=args.ft_mode, ft_M=args.ft_M,
+                       ft_scope=args.ft_scope, prefill_buckets=buckets)
+    failed = args.failed_group if args.failed_group >= 0 else None
+
+    eng = ServeEngine(cfg, scfg, params, device=dev)
+    outs = _wave(eng, args.requests, cfg.vocab_size, args.max_new, failed)
+    first = outs[0][:8].tolist() if 0 in outs else "<request 0 not completed>"
+    print(f"[launch.serve] {len(outs)}/{args.requests} requests completed in "
+          f"{eng.decode_calls} batched decode calls; first output: {first}")
+    print(f"[launch.serve] shape census: {eng.census}")
+
+    if args.smoke and args.ft_mode == "entangle":
+        # per-scope recovery summary: the head scope and the configured
+        # scope; for the configured scope the wave above is one side of
+        # the comparison and only the other side runs
+        inj = failed if failed is not None else 0
+        any_mismatch = False
+        for scope in dict.fromkeys(["head", args.ft_scope]):
+            sc = dataclasses.replace(scfg, ft_scope=scope)
+
+            def wave(fg):
+                return _wave(ServeEngine(cfg, sc, params, device=dev),
+                             args.requests, cfg.vocab_size, args.max_new, fg)
+
+            if scope == args.ft_scope:
+                other = wave(inj if failed is None else None)
+                healthy, injected = ((outs, other) if failed is None
+                                     else (other, outs))
+            else:
+                healthy, injected = wave(None), wave(inj)
+            mismatches = sum(not np.array_equal(healthy[r], injected[r])
+                             for r in healthy)
+            tokens = sum(len(v) for v in healthy.values())
+            verdict = ("EXACT ROLL-FORWARD" if mismatches == 0
+                       else "RECOVERY FAILED")
+            print(f"[launch.serve] recovery summary [scope={scope}]: "
+                  f"failed_group={inj} injected on every step; "
+                  f"{len(healthy)} requests / {tokens} tokens compared; "
+                  f"mismatching requests: {mismatches} ({verdict})")
+            any_mismatch |= bool(mismatches)
+        if any_mismatch:
+            raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,113 @@
+"""Decoder assembly: stacked layer params, embedding and head (port of the
+dense-decoder part of :mod:`repro.models.transformer`).
+
+Params keep the reference's stacked layout — a list over pattern units,
+each a tuple (one entry per block of the unit) of dicts whose leaves carry
+a leading ``[repeat]`` axis — so that the reference's params bridge over
+leaf for leaf. The reference runs a unit with ``lax.scan``; here a Python
+loop walks the stack, handing each layer views of its slice of the params
+and of the cache.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+BLOCKS = ("attn_dense",)
+
+
+def tree_map(fn, node):
+    """Apply ``fn`` to every tensor leaf of nested dicts / lists / tuples."""
+    if isinstance(node, dict):
+        return {k: tree_map(fn, v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(tree_map(fn, v) for v in node)
+    return fn(node)
+
+
+def _check_pattern(cfg: ModelConfig):
+    pat = cfg.layer_pattern()
+    for blocks, _ in pat:
+        for b in blocks:
+            if b not in BLOCKS:
+                raise NotImplementedError(
+                    f"block {b!r} ({cfg.name}) is not ported yet")
+    return pat
+
+
+def init_stack(gen, cfg: ModelConfig) -> list:
+    units = []
+    for blocks, repeat in _check_pattern(cfg):
+        units.append(tuple({"attn": L.init_attention(gen, cfg, repeat),
+                            "mlp": L.init_mlp(gen, cfg, repeat)}
+                           for _ in blocks))
+    return units
+
+
+def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     device) -> list:
+    return [tuple(L.init_attn_cache(cfg, repeat, batch, max_seq, device)
+                  for _ in blocks)
+            for blocks, repeat in _check_pattern(cfg)]
+
+
+def _apply_attn_dense(p, x, *, cfg, cache, pos, mode, ft):
+    a, _ = L.apply_attention(p["attn"], x, cfg=cfg, cache=cache, pos=pos,
+                             mode=mode, rope_theta=cfg.rope_theta, ft=ft)
+    x = x + a
+    return x + L.apply_mlp(p["mlp"], x, cfg=cfg, ft=ft)
+
+
+def apply_stack(units_params, x, *, cfg: ModelConfig, caches, pos, mode,
+                ft=None):
+    """Run every layer of every pattern unit in order; the caches are
+    written in place. Returns the hidden states."""
+    for u, (blocks, repeat) in enumerate(_check_pattern(cfg)):
+        for i in range(repeat):
+            for b in range(len(blocks)):
+                p_i = tree_map(lambda t: t[i], units_params[u][b])
+                c_i = tree_map(lambda t: t[i], caches[u][b])
+                x = _apply_attn_dense(p_i, x, cfg=cfg, cache=c_i, pos=pos,
+                                      mode=mode, ft=ft)
+    return x
+
+
+# ---- embeddings / head ------------------------------------------------------
+
+def init_embed(gen, cfg: ModelConfig) -> dict:
+    p = {"tok": L.he_init(gen, (cfg.vocab_size, cfg.d_model), cfg.d_model),
+         "final_norm": {"scale": torch.ones((cfg.d_model,), device=gen.device)}}
+    if not cfg.tie_embeddings:
+        p["head"] = L.he_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model)
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return p["tok"][tokens].to(L.ACT_DTYPE)
+
+
+def final_hidden(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Final-norm'd hidden states — what the protected head quantizes."""
+    return L.apply_norm(p["final_norm"], x, cfg)
+
+
+def readout_scale(cfg: ModelConfig) -> float:
+    """muP-style readout temperature shared by the plain and FT heads."""
+    return 1.0 / math.sqrt(cfg.d_model)
+
+
+def head_weights(p, cfg: ModelConfig) -> torch.Tensor:
+    """The [D, V] head matrix (the embedding's transpose when tied)."""
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return w.to(torch.float32)
+
+
+def head_project(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Project final-norm'd hidden states [..., D] to float32 logits."""
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    logits = torch.matmul(h.to(L.ACT_DTYPE), w.to(L.ACT_DTYPE))
+    return (logits * readout_scale(cfg)).to(torch.float32)

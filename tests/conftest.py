@@ -32,6 +32,13 @@ def _reclaim_jax_caches():
 
     jax.clear_caches()
 
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs a CUDA device (the port's hand-"
+        "written kernels have no CPU mode); skips without one")
+
+
 try:  # pragma: no cover - environment-dependent
     import hypothesis  # noqa: F401
 except ImportError:
