@@ -3,31 +3,38 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Phases, each printing its results on lines of its own; any failed check
-raises and the script exits nonzero:
+It drives the port's two serving paths, each at its model's published
+widths with random weights from a seeded ``torch.Generator``: llama3.2-1b
+(dense decoder, 16 layers) and deepseek-v2-lite-16b (MLA attention, a
+dense first layer and 64-expert top-6 MoE layers; cut to 8 of its 27
+layers, since its float32 masters and int8 copies at all 27 layers do not
+fit one 80 GB card). Phases, each printing its results on lines of its
+own; any failed check raises and the script exits nonzero:
 
-  1. build   — compile every CUDA kernel of the serving path from the
-               checkout's sources (one ``nvcc`` per source, all started
-               together), report the build seconds and the card's
-               ``nvidia-smi`` name and power limit;
-  2. kernels — hold each kernel bit for bit against its plain PyTorch
-               version on the card: every shape the full-width llama3.2-1b
+  1. build   — compile every CUDA source of the serving paths from the
+               checkout (one ``nvcc`` per source, all started together),
+               report the build seconds and the card's ``nvidia-smi`` name
+               and power limit;
+  2. kernels — per path, hold each kernel bit for bit against its plain
+               PyTorch version on the card, at every shape the full-width
                engine can send it (the vocab head plus the engine's own
-               startup census of protected sites, decode and every prefill
-               bucket) and ragged small ones, all ``fuse_epilogue`` modes,
+               startup census of protected sites at scope all: decode and
+               every prefill bucket, dense 4-tuples and grouped 5-tuples)
+               and at ragged small ones: every ``fuse_epilogue`` mode,
                packed and unpacked weights, every failed stream, int32 and
-               dual-word plans; plus the poison check (the fused kernel with
-               ``failed=r`` equals the plain disentangle of the unfused
+               dual-word plans; plus the poison check (the fused kernel
+               with ``failed=r`` equals the plain disentangle of the unfused
                kernel's output with stream r overwritten by GARBAGE);
-  3. serve   — the port's ``ServeEngine`` serving llama3.2-1b at its
-               published width (random weights from a seeded
-               ``torch.Generator``): per ``ft_scope`` in (head, all), a
-               healthy wave and a wave with ``failed_group=1`` must give
-               equal tokens (EXACT ROLL-FORWARD); the kernels' launch counts
-               are set to 0 just before the waves and read just after;
-  4. timings — each kernel, its plain version and its bound at the
-               main-path shapes: device time from a profiler trace after
-               warm-up.
+  3. serve   — the port's ``ServeEngine`` serving the path's model: per
+               protected ``ft_scope`` (llama: head, all; deepseek: moe,
+               all) a healthy wave and a wave with ``failed_group=1`` must
+               give equal tokens (EXACT ROLL-FORWARD), then ``ft_mode
+               none`` once and a profiler window; the kernels' launch
+               counts are set to 0 just before each path's waves and read
+               just after;
+  4. timings — each kernel, its plain version and its bound at its
+               main-path decode shapes: device time from a profiler trace
+               after warm-up.
 
 The line before the last is one JSON object with a record per kernel;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -37,8 +44,11 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -54,7 +64,9 @@ INT32_LANES_PER_SM = 64
 BOOST_HZ = 1.98e9
 L2_BYTES = 50 * 2**20
 
-ARCH = "llama3.2-1b"
+LLAMA = "llama3.2-1b"
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_LAYERS = 8  # 1 dense + 7 MoE layers at published widths
 SERVE = dict(max_batch=8, ft_M=4, max_seq=256, requests=8, prompt_len=8,
              max_new=8)
 
@@ -70,25 +82,34 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def free_cuda() -> None:
+    gc.collect()
+    import torch
+
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ build --
 
 def phase_build(kernels):
-    """Build every kernel library at once, one nvcc per source."""
+    """Build every CUDA source at once, one nvcc per source (kernels that
+    share a source share its library)."""
     import concurrent.futures as cf
 
+    builds = {k["source"]: k["module"].build for k in kernels}
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(max_workers=len(kernels)) as ex:
-        futs = {k["name"]: ex.submit(k["module"].build, True) for k in kernels}
-        built = {name: f.result() for name, f in futs.items()}
+    with cf.ThreadPoolExecutor(max_workers=len(builds)) as ex:
+        futs = {src: ex.submit(fn, True) for src, fn in builds.items()}
+        built = {src: f.result() for src, f in futs.items()}
     wall = time.perf_counter() - t0
-    for name, (so, secs, text) in built.items():
-        regs = [ln.strip() for ln in text.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: nvcc {secs:.1f} s -> {so.name}")
-        for ln in regs[:6]:
-            log(f"[build]   {ln}")
-        if len(regs) > 6:
-            log(f"[build]   ... {len(regs) - 6} more ptxas lines")
+    for src, (so, secs, text) in built.items():
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill", text)]
+        users = [k["name"] for k in kernels if k["source"] == src]
+        log(f"[build] {src} ({', '.join(users)}): nvcc {secs:.1f} s -> "
+            f"{so.name}; ptxas: {len(regs)} kernel instances, "
+            f"{min(regs)}-{max(regs)} registers, largest spill "
+            f"{max(spills)} bytes")
     log(f"[build] all kernels built in {wall:.1f} s wall")
     return wall
 
@@ -102,46 +123,48 @@ def _rand(gen, lo, hi, shape, dev):
                          device=dev).to(torch.int32)
 
 
-def phase_kernels(dev, shapes):
-    """Kernel == plain version, bit for bit, plus the poison check, on
-    ragged small shapes and on the main path's ``shapes`` (a list of
-    ``(B, K, N, site)``). Returns the largest |kernel - plain| seen (0
-    when all agree)."""
-    import torch
+class Checker:
+    """Kernel-vs-plain comparisons and poison checks of one kernel; keeps
+    the largest |kernel - plain| seen (0 when all agree) and the count."""
 
-    from repro_torch.core.entangle import disentangle
-    from repro_torch.core.failstop import GARBAGE
-    from repro_torch.core.plan import make_plan
-    from repro_torch.ft.quantize import activation_budget
-    from repro_torch.kernels import entangled_matmul as emm
-    from repro_torch.kernels.codec import pack_int8
+    def __init__(self, cuda_fn, plain_fn):
+        self.cuda_fn, self.plain_fn = cuda_fn, plain_fn
+        self.worst = 0
+        self.n = 0
 
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    worst = 0
-    n_cmp = 0
+    def compare(self, c, g, plan, mode, r, packed, what):
+        import torch
 
-    def compare(c, g, plan, mode, r, packed, what):
-        nonlocal worst, n_cmp
-        k = emm.entangled_matmul_cuda(c, g, plan, fuse_epilogue=mode,
-                                      failed=r, packed=packed)
-        p = emm.entangled_matmul_plain(c, g, plan, fuse_epilogue=mode,
-                                       failed=r, packed=packed)
+        kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
+        k = self.cuda_fn(c, g, plan, **kw)
+        p = self.plain_fn(c, g, plan, **kw)
         torch.cuda.synchronize()
         err = int((k.to(torch.int64) - p.to(torch.int64)).abs().max())
-        worst = max(worst, err)
-        n_cmp += 1
+        self.worst = max(self.worst, err)
+        self.n += 1
         if err:
             raise AssertionError(
                 f"kernel != plain for {what} mode={mode!r} failed={r} "
                 f"packed={packed}: max |diff| {err}")
-        return k
 
-    def poison(c, g, plan, packed, what):
-        delta = emm.entangled_matmul_cuda(c, g, plan, fuse_epilogue=False,
-                                          packed=packed)
+    def sweep(self, c, g, plan, packed, what, modes):
+        """Every mode of ``modes``, every failed stream where it extracts."""
+        for mode in modes:
+            rs = ([None] + list(range(plan.M))
+                  if mode in (True, "chain_final") else [None])
+            for r in rs:
+                self.compare(c, g, plan, mode, r, packed, what)
+
+    def poison(self, c, g, plan, packed, what):
+        import torch
+
+        from repro_torch.core.entangle import disentangle
+        from repro_torch.core.failstop import GARBAGE
+
+        delta = self.cuda_fn(c, g, plan, fuse_epilogue=False, packed=packed)
         for r in range(plan.M):
-            fused = emm.entangled_matmul_cuda(c, g, plan, fuse_epilogue=True,
-                                              failed=r, packed=packed)
+            fused = self.cuda_fn(c, g, plan, fuse_epilogue=True, failed=r,
+                                 packed=packed)
             bad = delta.clone()
             bad[r] = GARBAGE
             ref = disentangle(bad, plan, failed=r)
@@ -149,92 +172,181 @@ def phase_kernels(dev, shapes):
             if not torch.equal(fused, ref):
                 raise AssertionError(f"poison check failed for {what}, r={r}")
 
-    # ragged small shapes, every plan / mode / packing / failed stream;
-    # values over the whole int32 range (the GEMM is exact mod 2**32)
-    plans = [make_plan(3, 16), make_plan(4, 16)] + [
-        make_plan(M, 32) for M in range(3, 9)]
-    small = [(6, 13, 9), (1, 1, 1), (17, 70, 300), (3, 2049, 257)]
-    for plan in plans:
-        for (B, K, N) in small:
-            c = _rand(gen, -2**31, 2**31, (plan.M, B, K), dev)
-            g32 = _rand(gen, -2**31, 2**31, (K, N), dev)
-            g8 = _rand(gen, -128, 128, (K, N), dev)
-            gp = pack_int8(g8, axis=0).contiguous()
-            what = f"plan(M={plan.M},l={plan.l},{plan.temp}) B={B} K={K} N={N}"
-            for packed, g in ((False, g32), (True, gp)):
-                for mode in (False, "chain"):
-                    compare(c, g, plan, mode, None, packed, what)
-                for mode in (True, "chain_final"):
-                    for r in [None] + list(range(plan.M)):
-                        compare(c, g, plan, mode, r, packed, what)
-            poison(c, gp, plan, True, what)
-    log(f"[kernels] ragged shapes: {n_cmp} kernel-vs-plain comparisons "
-        f"bit-identical; poison check passed")
 
-    # the full-width main-path shapes: activations on the eq.-13 budget
-    # grid, int8 weights packed 4 per word (what the serving path sends)
+DENSE_MODES = (False, True, "chain", "chain_final")
+GROUPED_MODES = (False, True)
+
+
+def _all_plans():
+    from repro_torch.core.plan import make_plan
+
+    return [make_plan(3, 16), make_plan(4, 16)] + [
+        make_plan(M, 32) for M in range(3, 9)]
+
+
+def check_dense(dev, chk, shapes, ragged: bool):
+    """The dense kernel: ragged small shapes (every plan, full-range int32
+    values) when ``ragged``, then the main path's ``shapes`` (a list of
+    ``(B, K, N, sites)``) with activations on the eq.-13 budget grid and
+    int8 weights packed 4 per word, as the serving path sends them."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.quantize import activation_budget
+    from repro_torch.kernels.codec import pack_int8
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    if ragged:
+        n0 = chk.n
+        for plan in _all_plans():
+            for (B, K, N) in [(6, 13, 9), (1, 1, 1), (17, 70, 300),
+                              (3, 2049, 257)]:
+                c = _rand(gen, -2**31, 2**31, (plan.M, B, K), dev)
+                g32 = _rand(gen, -2**31, 2**31, (K, N), dev)
+                gp = pack_int8(_rand(gen, -128, 128, (K, N), dev), axis=0)
+                what = (f"plan(M={plan.M},l={plan.l},{plan.temp}) B={B} K={K}"
+                        f" N={N}")
+                for packed, g in ((False, g32), (True, gp)):
+                    chk.sweep(c, g, plan, packed, what, DENSE_MODES)
+                chk.poison(c, gp, plan, True, what)
+        log(f"[kernels] entangled_matmul ragged shapes: {chk.n - n0} "
+            f"kernel-vs-plain comparisons bit-identical; poison check passed")
     plan = make_plan(SERVE["ft_M"], 32)
-    before = n_cmp
+    n0 = chk.n
     for (B, K, N, site) in shapes:
         bud = activation_budget(plan, K)
         c = _rand(gen, -bud, bud + 1, (plan.M, B, K), dev)
-        gp = pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0).contiguous()
+        gp = pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
         what = f"{site} [{plan.M},{B},{K}]x[{K // 4},{N}]"
-        for mode in (False, "chain"):
-            compare(c, gp, plan, mode, None, True, what)
-        for mode in (True, "chain_final"):
-            for r in [None] + list(range(plan.M)):
-                compare(c, gp, plan, mode, r, True, what)
-        poison(c, gp, plan, True, what)
+        chk.sweep(c, gp, plan, True, what, DENSE_MODES)
+        chk.poison(c, gp, plan, True, what)
         del c, gp
         torch.cuda.empty_cache()
-    log(f"[kernels] full-width shapes: {len(shapes)} main-path shapes, "
-        f"{n_cmp - before} comparisons bit-identical; poison check passed")
-    return worst
+    log(f"[kernels] entangled_matmul full-width shapes: {len(shapes)} "
+        f"main-path shapes, {chk.n - n0} comparisons bit-identical; poison "
+        f"check passed")
+
+
+def check_grouped(dev, chk, shapes):
+    """The grouped kernel: ragged small shapes for every plan, then the
+    main path's ``shapes`` (a list of ``(E, Cg, K, N, sites)``) under the
+    serving plan (dual-word) and an int32 plan, packed int8 and unpacked
+    full-range int32 weights, both modes, every failed stream; the poison
+    check on every shape."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.quantize import activation_budget
+    from repro_torch.kernels.codec import pack_int8
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    n0 = chk.n
+    for plan in _all_plans():
+        for (E, Cg, K, N) in [(3, 5, 13, 9), (1, 1, 1, 1), (4, 17, 70, 300),
+                              (2, 3, 2049, 257)]:
+            c = _rand(gen, -2**31, 2**31, (plan.M, E, Cg, K), dev)
+            g32 = _rand(gen, -2**31, 2**31, (E, K, N), dev)
+            gp = pack_int8(_rand(gen, -128, 128, (E, K, N), dev), axis=1)
+            what = (f"plan(M={plan.M},l={plan.l},{plan.temp}) E={E} Cg={Cg} "
+                    f"K={K} N={N}")
+            for packed, g in ((False, g32), (True, gp)):
+                chk.sweep(c, g, plan, packed, what, GROUPED_MODES)
+            chk.poison(c, gp, plan, True, what)
+    log(f"[kernels] entangled_matmul_grouped ragged shapes: {chk.n - n0} "
+        f"kernel-vs-plain comparisons bit-identical; poison check passed")
+    n0 = chk.n
+    for (E, Cg, K, N, site) in shapes:
+        for plan in (make_plan(SERVE["ft_M"], 32), make_plan(SERVE["ft_M"],
+                                                             16)):
+            bud = activation_budget(plan, K)
+            c = _rand(gen, -bud, bud + 1, (plan.M, E, Cg, K), dev)
+            gp = pack_int8(_rand(gen, -127, 128, (E, K, N), dev), axis=1)
+            g32 = _rand(gen, -2**31, 2**31, (E, K, N), dev)
+            what = f"{site} [{plan.M},{E},{Cg},{K}]x[{E},{K // 4},{N}]"
+            for packed, g in ((True, gp), (False, g32)):
+                chk.sweep(c, g, plan, packed, what + f" {plan.temp}",
+                          GROUPED_MODES)
+            chk.poison(c, gp, plan, True, what)
+            del c, gp, g32
+            torch.cuda.empty_cache()
+    log(f"[kernels] entangled_matmul_grouped full-width shapes: "
+        f"{len(shapes)} main-path shapes x 2 plans, {chk.n - n0} comparisons "
+        f"bit-identical; poison check passed")
 
 
 # ------------------------------------------------------------------ serve --
 
-def init_model(dev):
-    """The published llama3.2-1b config with random weights from a seeded
-    ``torch.Generator``; returns (cfg, model, params)."""
+def model_config(arch):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == DEEPSEEK:
+        cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_LAYERS)
+    return cfg
+
+
+def init_model(dev, arch):
+    """The published config (deepseek cut to DEEPSEEK_LAYERS layers) with
+    random weights from a seeded ``torch.Generator``; returns (cfg, model,
+    params)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models.api import get_model
 
-    cfg = get_config(ARCH)
+    cfg = model_config(arch)
     model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
                         max_seq=SERVE["max_seq"], device=dev)
     torch.cuda.synchronize()
-    log(f"[serve] {ARCH} full width: {cfg.n_layers} layers, d_model "
+    n = sum(t.numel() for t in _leaves(params))
+    extra = ""
+    if cfg.moe:
+        extra = (f", MLA kv_lora {cfg.mla.kv_lora_rank}, {cfg.moe.n_experts}"
+                 f" experts top-{cfg.moe.top_k} (d_ff {cfg.moe.d_ff_expert},"
+                 f" {cfg.moe.n_shared} shared), dense first layer d_ff "
+                 f"{cfg.d_ff}")
+    log(f"[serve] {arch} full width: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab_size}; random init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}{extra}; {n / 1e9:.3f} G float32 "
+        f"params; random init {time.perf_counter() - t0:.1f} s")
     return cfg, model, params
 
 
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _leaves(v)
+    else:
+        yield node
+
+
 def main_path_shapes(cfg, params, dev):
-    """Every entangled-GEMM shape the serving engine can launch, as
-    ``(B, K, N, sites)``: the vocab head (decode and admission both send
-    max_batch / M rows per group) and the engine's own startup census of
-    the in-model sites at ft_scope 'all' (the decode step and one
-    whole-bucket prefill per bucket)."""
+    """Every entangled-GEMM shape the serving engine can launch: dense
+    ``(B, K, N, sites)`` — the vocab head (decode and admission both send
+    max_batch / M rows per group) plus the 4-tuples of the engine's own
+    startup census at ft_scope 'all' (the decode step and one whole-bucket
+    prefill per bucket) — and grouped ``(E, Cg, K, N, sites)`` from the
+    census's 5-tuples."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     eng = ServeEngine(cfg, ServeConfig(
         max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
         ft_mode="entangle", ft_M=SERVE["ft_M"], ft_scope="all"), params,
         device=dev)
-    by_shape = {(SERVE["max_batch"] // SERVE["ft_M"], cfg.d_model,
-                 cfg.vocab_size): ["head"]}
-    for site, (_, Bg, K, N) in sorted(eng.protected_census):
-        by_shape.setdefault((Bg, K, N), []).append(site)
+    dense = {(SERVE["max_batch"] // SERVE["ft_M"], cfg.d_model,
+              cfg.vocab_size): ["head"]}
+    grouped = {}
+    for site, shape in sorted(eng.protected_census):
+        (dense if len(shape) == 4 else grouped).setdefault(
+            shape[1:], []).append(site)
     del eng
-    return [(B, K, N, "/".join(sites)) for (B, K, N), sites in
-            sorted(by_shape.items())]
+    free_cuda()
+    flat = lambda d: [(*k, "/".join(v)) for k, v in sorted(d.items())]  # noqa: E731
+    return flat(dense), flat(grouped)
 
 
 def _wave_submit(eng, cfg):
@@ -254,19 +366,22 @@ def _wave_submit(eng, cfg):
 
 def _wave(eng, cfg, failed_group, kernels):
     """Serve the 8-request wave; returns (tokens by rid, step seconds,
-    kernel launches per step)."""
+    {kernel: launches per step})."""
     import numpy as np
     import torch
 
     reqs = _wave_submit(eng, cfg)
-    steps, launched = [], []
+    steps = []
+    launched = {k["name"]: [] for k in kernels}
     while not eng.idle():
-        before = sum(k["module"].launches for k in kernels)
+        before = {k["name"]: k["module"].launches for k in kernels}
         t0 = time.perf_counter()
         eng.step(failed_group=failed_group)
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
-        launched.append(sum(k["module"].launches for k in kernels) - before)
+        for k in kernels:
+            launched[k["name"]].append(k["module"].launches
+                                       - before[k["name"]])
         if len(steps) > 10 * SERVE["max_new"]:
             raise AssertionError("wave failed to drain")
     outs = {r.rid: np.asarray(r.out) for r in reqs}
@@ -277,14 +392,18 @@ def _wave(eng, cfg, failed_group, kernels):
     return outs, steps, launched
 
 
-def phase_serve(dev, kernels, cfg, model, params):
+def phase_serve(dev, kernels, path_kernels, cfg, model, params, scopes):
+    """Serve the wave per protected scope, healthy and with failed_group=1;
+    every kernel's count is set to 0 just before and read just after, and
+    each of ``path_kernels`` must have launched. Returns (counts, results
+    by scope, breakdown)."""
     import numpy as np
     import torch
 
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     # small-input sanity of the float path: finite hidden states of the
-    # expected shape from a batched prefill
+    # expected shape from a batched prefill with a padded row
     cache = model.init_cache(cfg, 2, 16, device=dev)
     toks = torch.randint(0, cfg.vocab_size, (2, 8), device=dev)
     h, _ = model.prefill_chunk(params, toks, cfg, cache, pos0=0,
@@ -300,7 +419,7 @@ def phase_serve(dev, kernels, cfg, model, params):
     torch.cuda.reset_peak_memory_stats(dev)
     results = {}
     t_serve = time.perf_counter()
-    for scope in ("head", "all"):
+    for scope in scopes:
         scfg = ServeConfig(ft_scope=scope, **base)
         eng = ServeEngine(cfg, scfg, params, device=dev)
         healthy, st_h, ln_h = _wave(eng, cfg, None, kernels)
@@ -310,45 +429,50 @@ def phase_serve(dev, kernels, cfg, model, params):
                   for r in healthy)
         ntok = sum(len(v) for v in healthy.values())
         verdict = "EXACT ROLL-FORWARD" if bad == 0 else "RECOVERY FAILED"
-        log(f"[serve] recovery summary [scope={scope}]: failed_group=1 "
-            f"injected on every step; {len(healthy)} requests / {ntok} "
-            f"tokens compared; mismatching requests: {bad} ({verdict})")
+        log(f"[serve] {cfg.name} recovery summary [scope={scope}]: "
+            f"failed_group=1 injected on every step; {len(healthy)} requests"
+            f" / {ntok} tokens compared; mismatching requests: {bad} "
+            f"({verdict})")
         if bad:
-            raise AssertionError(f"scope {scope}: {verdict}")
+            raise AssertionError(f"{cfg.name} scope {scope}: {verdict}")
         if eng.plans is not None and (eng.plans.misses or eng2.plans.misses):
             raise AssertionError("compiled plans missed a shape")
         dec = st_h[1:] + st_i[1:]  # steps after the admission step
         wall = sum(st_h) + sum(st_i)
+        per_step = {name: sorted(set(ln_h[name][1:] + ln_i[name][1:]))
+                    for name in ln_h}
         results[scope] = dict(
             decode_calls=eng.decode_calls + eng2.decode_calls,
             step_ms=1e3 * sum(dec) / len(dec),
             tok_s=2 * ntok / wall,
             first_step_ms=1e3 * (st_h[0] + st_i[0]) / 2,
-            launches_per_decode_step=sorted(set(ln_h[1:] + ln_i[1:])),
-            launches_first_step=ln_h[0])
-        log(f"[serve] scope={scope}: decode_calls {results[scope]['decode_calls']}"
-            f", mean decode-step {results[scope]['step_ms']:.3f} ms, "
-            f"admission+first step {results[scope]['first_step_ms']:.3f} ms, "
+            launches_per_decode_step=per_step,
+            launches_first_step={n: v[0] for n, v in ln_h.items()})
+        log(f"[serve] {cfg.name} scope={scope}: decode_calls "
+            f"{results[scope]['decode_calls']}, mean decode-step "
+            f"{results[scope]['step_ms']:.3f} ms, admission+first step "
+            f"{results[scope]['first_step_ms']:.3f} ms, "
             f"{results[scope]['tok_s']:.1f} tokens/s; kernel launches per "
-            f"decode step {results[scope]['launches_per_decode_step']} "
-            f"(admission step {results[scope]['launches_first_step']}); "
-            f"first output {healthy[0].tolist()}")
+            f"decode step {per_step} (admission step "
+            f"{results[scope]['launches_first_step']}); first output "
+            f"{healthy[0].tolist()}")
         del eng, eng2
+        free_cuda()
     serve_s = time.perf_counter() - t_serve
     counts = {k["name"]: k["module"].launches for k in kernels}
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"[serve] kernel launches over the 4 waves: {counts}; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB; {serve_s:.1f} s")
-    for name, n in counts.items():
-        if n <= 0:
+    log(f"[serve] {cfg.name} kernel launches over the {2 * len(scopes)} "
+        f"waves: {counts}; max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"{serve_s:.1f} s")
+    for name in path_kernels:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched by the "
-                                 f"main path")
-    _breakdown(dev, cfg, params, base)
-    return counts, results
+                                 f"{cfg.name} path")
+    return counts, results, _breakdown(dev, cfg, params, base)
 
 
 def _breakdown(dev, cfg, params, base):
-    """After the main path: the unprotected baseline (ft_mode none) and a
+    """After the path's waves: the unprotected baseline (ft_mode none) and a
     profiler window over two decode steps at scope all, for PERF.md's
     "where the time goes". A measurement, not a check: if the profiler
     cannot trace the card, the share is reported as not measured."""
@@ -360,8 +484,9 @@ def _breakdown(dev, cfg, params, base):
                       device=dev)
     _, st, _ = _wave(eng, cfg, None, [])
     none_ms = 1e3 * sum(st[1:]) / len(st[1:])
-    log(f"[serve] ft_mode=none: mean decode-step {none_ms:.3f} ms, "
-        f"admission+first step {1e3 * st[0]:.3f} ms")
+    log(f"[serve] {cfg.name} ft_mode=none: mean decode-step {none_ms:.3f} "
+        f"ms, admission+first step {1e3 * st[0]:.3f} ms")
+    del eng
     eng = ServeEngine(cfg, ServeConfig(**dict(base, ft_scope="all")), params,
                       device=dev)
     _wave_submit(eng, cfg)
@@ -386,10 +511,14 @@ def _breakdown(dev, cfg, params, base):
     except RuntimeError as err:
         log(f"[profile] not measured: {err}")
         return dict(step_ms=none_ms)
+    finally:
+        del eng
+        free_cuda()
     busy = sum(r[0] for r in rows) / 1e3
     rows.sort(reverse=True)
-    log(f"[profile] scope=all, 2 decode steps: wall {1e3 * wall:.3f} ms, "
-        f"device busy {busy:.3f} ms ({100 * busy / (1e3 * wall):.1f}%; idle "
+    log(f"[profile] {cfg.name} scope=all, 2 decode steps: wall "
+        f"{1e3 * wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / (1e3 * wall):.1f}%; idle "
         f"{100 - 100 * busy / (1e3 * wall):.1f}%)")
     for dev_us, key, count in rows[:8]:
         log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:160]}")
@@ -422,67 +551,117 @@ def _device_ms(fn, iters, match=None):
     return us / 1e3 / iters
 
 
-def phase_timings(dev):
-    """Kernel, plain version and bound at the decode-head and largest MLP
-    shapes (weights rotated through enough copies to exceed the L2, as
-    the decode loop finds them cold)."""
+def _timing_row(dev, site, c, gs, plan, cuda_fn, plain_fn, macs, nbytes,
+                wbytes, iters):
+    """Kernel (with and without its scratch fill), plain version and bound
+    of one shape; ``gs`` holds enough weight copies to exceed the L2."""
     import torch
 
-    from repro_torch.configs import get_config
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kw = dict(fuse_epilogue=True, failed=1, packed=True)
+    copies = len(gs)
+
+    def kernel(i):
+        return cuda_fn(c, gs[i % copies], plan, **kw)
+
+    ms = _device_ms(kernel, iters)
+    kernel_only = _device_ms(kernel, iters, match="emm_kernel")
+    plain_ms = _device_ms(lambda i: plain_fn(c, gs[i % copies], plan, **kw),
+                          max(3, iters // 5))
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * macs / (sms * INT32_LANES_PER_SM * BOOST_HZ)
+    row = dict(site=site, shape=list(c.shape) + [list(gs[0].shape)], ms=ms,
+               kernel_only_ms=kernel_only, plain_ms=plain_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes_ms=t_bytes, ops_ms=t_ops, weight_copies=copies,
+               weight_bytes=wbytes)
+    log(f"[timing] {site} c{list(c.shape)} x g{list(gs[0].shape)} packed: "
+        f"kernel {ms:.4f} ms (emm_kernel alone {kernel_only:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; bytes {t_bytes:.4f} ms, int32 MACs of the M-1 "
+        f"streams {t_ops:.4f} ms), {ms / row['bound_ms']:.2f}x bound; no "
+        f"single PyTorch call computes this function")
+    return row
+
+
+def phase_timings(dev):
+    """The dense kernel at the llama decode head and largest MLP shapes,
+    and the grouped kernel at the deepseek decode MoE shapes (weights
+    rotated through enough copies to exceed the L2, as the decode loop
+    finds them cold)."""
+    import torch
+
     from repro_torch.core.plan import make_plan
     from repro_torch.ft.quantize import activation_budget
     from repro_torch.kernels import entangled_matmul as emm
+    from repro_torch.kernels import entangled_matmul_grouped as emmg
     from repro_torch.kernels.codec import pack_int8
 
-    cfg = get_config(ARCH)
     plan = make_plan(SERVE["ft_M"], 32)
+    M = plan.M
     gen = torch.Generator(device=dev).manual_seed(7)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    int32_rate = sms * INT32_LANES_PER_SM * BOOST_HZ
-    gsz = SERVE["max_batch"] // plan.M
-    rows = []
+    gsz = SERVE["max_batch"] // M
+    rows = {"entangled_matmul": [], "entangled_matmul_grouped": []}
+    cfg = model_config(LLAMA)
     for site, (B, K, N) in (("head", (gsz, cfg.d_model, cfg.vocab_size)),
                             ("mlp.down", (gsz, cfg.d_ff, cfg.d_model)),
                             ("mlp.gate/up", (gsz, cfg.d_model, cfg.d_ff))):
         bud = activation_budget(plan, K)
-        c = _rand(gen, -bud, bud + 1, (plan.M, B, K), dev)
+        c = _rand(gen, -bud, bud + 1, (M, B, K), dev)
         wbytes = (K // 4) * N * 4
-        copies = max(1, -(-2 * L2_BYTES // wbytes))
         gs = [pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
-              .contiguous() for _ in range(copies)]
-        kw = dict(fuse_epilogue=True, failed=1, packed=True)
-        iters = 20 if N > 100_000 else 50
-
-        def kernel(i):
-            return emm.entangled_matmul_cuda(c, gs[i % copies], plan, **kw)
-
-        ms = _device_ms(kernel, iters)  # the kernel plus its scratch fill
-        kernel_only = _device_ms(kernel, iters, match="emm_kernel")
-        plain_ms = _device_ms(lambda i: emm.entangled_matmul_plain(
-            c, gs[i % copies], plan, **kw), max(3, iters // 5))
-        nbytes = 4 * (plan.M * B * K + (K // 4) * N + plan.M * B * N)
-        # the extracting modes need the M-1 streams other than r only
-        macs = (plan.M - 1) * B * K * N
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * macs / int32_rate
-        rows.append(dict(site=site, shape=[plan.M, B, K, N], ms=ms,
-                         kernel_only_ms=kernel_only,
-                         plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         bytes_ms=t_bytes, ops_ms=t_ops))
-        log(f"[timing] {site} [{plan.M},{B},{K}]x[{K // 4},{N}] packed: kernel "
-            f"{ms:.4f} ms (emm_kernel alone {kernel_only:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f}"
-            f" ms ({rows[-1]['bound_by']}; bytes {t_bytes:.4f} ms, int32 MACs "
-            f"of the M-1 streams {t_ops:.4f} ms), "
-            f"{ms / max(t_bytes, t_ops):.2f}x bound; no single PyTorch call "
-            f"computes this function")
+              for _ in range(max(1, -(-2 * L2_BYTES // wbytes)))]
+        rows["entangled_matmul"].append(_timing_row(
+            dev, f"{LLAMA} {site}", c, gs, plan, emm.entangled_matmul_cuda,
+            emm.entangled_matmul_plain, macs=(M - 1) * B * K * N,
+            nbytes=4 * (M * B * K + (K // 4) * N + M * B * N), wbytes=wbytes,
+            iters=20 if N > 100_000 else 50))
         del c, gs
-        torch.cuda.empty_cache()
+        free_cuda()
+    cfg = model_config(DEEPSEEK)
+    E, F, D = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
+    from repro_torch.models.layers import _moe_capacity
+
+    Cg = -(-_moe_capacity(SERVE["max_batch"], cfg) // M)  # decode rows
+    for site, (K, N) in (("moe.gate/up", (D, F)), ("moe.down", (F, D))):
+        bud = activation_budget(plan, K)
+        c = _rand(gen, -bud, bud + 1, (M, E, Cg, K), dev)
+        wbytes = E * (K // 4) * N * 4
+        gs = [pack_int8(_rand(gen, -127, 128, (E, K, N), dev), axis=1)
+              for _ in range(max(1, -(-2 * L2_BYTES // wbytes)))]
+        rows["entangled_matmul_grouped"].append(_timing_row(
+            dev, f"{DEEPSEEK} decode {site}", c, gs, plan,
+            emmg.entangled_matmul_grouped_cuda,
+            emmg.entangled_matmul_grouped_plain,
+            macs=(M - 1) * E * Cg * K * N,
+            nbytes=4 * (M * E * Cg * K + E * (K // 4) * N + M * E * Cg * N),
+            wbytes=wbytes, iters=50))
+        del c, gs
+        free_cuda()
     return rows
 
 
 # ------------------------------------------------------------------- main --
+
+def run_path(dev, kernels, arch, path_kernels, scopes):
+    """One serving path: init, the census shapes' kernel checks, the
+    serving waves. Frees the model before returning."""
+    cfg, model, params = init_model(dev, arch)
+    dense, grouped = main_path_shapes(cfg, params, dev)
+    by_name = {k["name"]: k for k in kernels}
+    check_dense(dev, by_name["entangled_matmul"]["checker"], dense,
+                ragged=arch == LLAMA)
+    if grouped:
+        check_grouped(dev, by_name["entangled_matmul_grouped"]["checker"],
+                      grouped)
+    counts, results, breakdown = phase_serve(dev, kernels, path_kernels, cfg,
+                                             model, params, scopes)
+    del params, model
+    free_cuda()
+    return dict(counts=counts, results=results, breakdown=breakdown,
+                n_dense_shapes=len(dense), n_grouped_shapes=len(grouped))
+
 
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
@@ -493,10 +672,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.kernels import entangled_matmul as emm
+    from repro_torch.kernels import entangled_matmul_grouped as emmg
 
-    kernels = [dict(name="entangled_matmul", module=emm, route="cuda",
-                    source="src/repro_torch/kernels/csrc/entangled_matmul.cu",
-                    replaces="src/repro/kernels/entangled_matmul.py:102")]
+    src = "src/repro_torch/kernels/csrc/entangled_matmul.cu"
+    kernels = [
+        dict(name="entangled_matmul", module=emm, route="cuda", source=src,
+             replaces="src/repro/kernels/entangled_matmul.py:102",
+             checker=Checker(emm.entangled_matmul_cuda,
+                             emm.entangled_matmul_plain)),
+        dict(name="entangled_matmul_grouped", module=emmg, route="cuda",
+             source=src,
+             replaces="src/repro/kernels/entangled_matmul_grouped.py:77",
+             checker=Checker(emmg.entangled_matmul_grouped_cuda,
+                             emmg.entangled_matmul_grouped_plain))]
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_all = time.perf_counter()
@@ -504,22 +692,33 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}; nvidia-smi: {smi}")
     phase_build(kernels)
-    cfg, model, params = init_model(dev)
-    shapes = main_path_shapes(cfg, params, dev)
-    worst = phase_kernels(dev, shapes)
-    counts, serve = phase_serve(dev, kernels, cfg, model, params)
+    paths = {
+        LLAMA: run_path(dev, kernels, LLAMA, ["entangled_matmul"],
+                        ("head", "all")),
+        DEEPSEEK: run_path(dev, kernels, DEEPSEEK,
+                           ["entangled_matmul", "entangled_matmul_grouped"],
+                           ("moe", "all")),
+    }
     rows = phase_timings(dev)
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
-    head = rows[0]
-    record = dict(kernels=[dict(
-        name=k["name"], route=k["route"], source=k["source"],
-        replaces=k["replaces"], launches=counts[k["name"]],
-        launches_per_decode_step={
-            scope: r["launches_per_decode_step"] for scope, r in serve.items()},
-        max_abs_err=worst, ms=head["ms"], plain_ms=head["plain_ms"],
-        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=None, shape=head["shape"], timings=rows)
-        for k in kernels])
+    record = dict(kernels=[])
+    for k in kernels:
+        head = rows[k["name"]][0]
+        record["kernels"].append(dict(
+            name=k["name"], route=k["route"], source=k["source"],
+            replaces=k["replaces"],
+            # this slice's main path (deepseek) launches both kernels
+            launches=paths[DEEPSEEK]["counts"][k["name"]],
+            launches_by_path={a: p["counts"][k["name"]]
+                              for a, p in paths.items()},
+            launches_per_decode_step={
+                a: {s: r["launches_per_decode_step"][k["name"]]
+                    for s, r in p["results"].items()}
+                for a, p in paths.items()},
+            max_abs_err=k["checker"].worst, comparisons=k["checker"].n,
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=None, shape=head["shape"], timings=rows[k["name"]]))
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,14 +17,19 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` if given, else CUDA.
+    """The device an entry point runs on: ``device`` if given, else CUDA;
+    a CUDA device without an index is the current card, with its index —
+    the device that tensors made on ``"cuda"`` report.
 
     Raises when CUDA is asked for (explicitly or by default) and no GPU is
     present — an entry point never falls back to the CPU quietly.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch entry points run on CUDA by default and no CUDA "
-            "device is available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch entry points run on CUDA by default and no CUDA "
+                "device is available; pass device='cpu' to run on the CPU")
+        if dev.index is None:  # the current card, so that devices compare
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

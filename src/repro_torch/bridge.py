@@ -11,12 +11,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 
-def params_from_numpy(tree, device="cpu"):
+
+def params_from_numpy(tree, device=None):
     """Nested dicts / lists / tuples of numpy arrays -> the same structure
-    of torch tensors on ``device`` (dtype and values unchanged)."""
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    of torch tensors on ``device`` (dtype and values unchanged). Like every
+    entry point it runs on CUDA unless ``device`` says otherwise, and
+    raises when no GPU is present."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return torch.from_numpy(np.array(node, copy=True)).to(dev)
+
+    return walk(tree)

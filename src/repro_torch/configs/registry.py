@@ -20,6 +20,7 @@ ARCH_IDS = (
 
 _MODULES: Dict[str, str] = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 PORTED = tuple(_MODULES)

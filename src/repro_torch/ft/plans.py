@@ -4,11 +4,12 @@
                           into an immutable :class:`CompiledPlans`; the
                           forward pass then only looks plans up.
   :func:`prepare_params`  quantizes every in-scope protected site's
-                          weights ONCE (per layer, via
+                          weights ONCE (per layer and per expert, via
                           :func:`~repro_torch.ft.quantize.quantize_weight_stacked`)
-                          and installs the int8 copies as a ``q8`` entry
-                          beside each site's float master, packed 4 per
-                          int32 word.
+                          and installs the int8 copies, packed 4 per int32
+                          word: a ``q8`` entry beside each dense site's
+                          float master, a ``<key>_q8`` sibling beside each
+                          raw array (the MoE expert stacks, the router).
 """
 from __future__ import annotations
 
@@ -20,12 +21,16 @@ from repro_torch.ft.quantize import quantize_weight_stacked
 from repro_torch.ft.registry import PlanRegistry, ProtectionPlan
 
 # param-tree key -> scope category, for every protectable projection of
-# the dense decoder (the reference's table also names MLA, Mamba, RG-LRU
-# and MoE keys, which belong to later slices)
+# the ported blocks (the reference's table also names the Mamba and RG-LRU
+# keys, which belong to later slices). Dense sites are dicts holding a
+# float "w"; raw sites (MoE expert stacks, the router) are bare arrays.
 PROTECTED_WEIGHT_KEYS: dict[str, str] = {
-    "wq": "qkv", "wk": "qkv", "wv": "qkv",
-    "gate": "mlp", "up": "mlp", "down": "mlp",
-    "wo": "out",
+    "wq": "qkv", "wk": "qkv", "wv": "qkv",          # GQA attention
+    "wq_a": "qkv", "wq_b": "qkv", "wkv_a": "qkv",   # MLA low-rank q / kv
+    "gate": "mlp", "up": "mlp", "down": "mlp",      # MLP, MoE shared expert
+    "router": "mlp",                                # raw [D, E] array
+    "wo": "out",                                    # attention / MLA
+    "we_gate": "moe", "we_up": "moe", "we_down": "moe",  # raw [E, D, F]
 }
 
 
@@ -35,9 +40,12 @@ def _is_float_weight(v) -> bool:
 
 
 def prepare_params(params, *, scope: str):
-    """Copy of ``params`` with a ``q8`` entry ({"w", "scale"}) beside the
-    float master of every protected site in ``scope``'s categories. Float
-    masters and all other leaves are shared, not copied."""
+    """Copy of ``params`` with int8 copies ({"w", "scale"}, packed) of
+    every protected site in ``scope``'s categories: a ``q8`` entry inside a
+    dense site's dict, a ``<key>_q8`` sibling beside a raw array. Stacked
+    weights get one scale per leading index (``[repeat]``, or ``[repeat,
+    E]`` for the expert stacks). Float masters and all other leaves are
+    shared, not copied."""
     from repro_torch.ft.protected import SCOPES  # protected imports us
 
     cats = SCOPES[scope]
@@ -47,10 +55,14 @@ def prepare_params(params, *, scope: str):
             out = {}
             for k, v in node.items():
                 cat = PROTECTED_WEIGHT_KEYS.get(k)
-                if (cat in cats and isinstance(v, dict)
-                        and _is_float_weight(v.get("w"))):
+                if cat not in cats:
+                    out[k] = walk(v)
+                elif isinstance(v, dict) and _is_float_weight(v.get("w")):
                     out[k] = dict(v, q8=quantize_weight_stacked(
                         v["w"], packed=True))
+                elif _is_float_weight(v):
+                    out[k] = v
+                    out[k + "_q8"] = quantize_weight_stacked(v, packed=True)
                 else:
                     out[k] = walk(v)
             return out

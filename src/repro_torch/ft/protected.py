@@ -1,5 +1,5 @@
 """Protected GEMMs — the paper's entangled roll-forward around the serving
-path's projections (port of the dense part of :mod:`repro.ft.protected`).
+path's projections (port of the serving part of :mod:`repro.ft.protected`).
 
 :func:`protected_matmul` is the one code path every protected projection
 runs through: float activations of any leading shape are flattened to
@@ -12,6 +12,12 @@ A fail-stopped group's accumulator is excluded from the extraction
 (``failed=r``), so its outputs are rolled forward from the other M-1
 streams and the recovered integers equal a healthy run's bit for bit.
 
+:func:`protected_matmul_grouped` is the grouped (per-expert) twin for MoE:
+activations ``[..., E, C, K]`` against per-expert weights ``[E, K, N]``
+run as ONE grouped entangled kernel call — rows map round-robin onto the M
+streams *within each expert*, so recovery holds independently and
+identically for every expert.
+
 :class:`FTContext` is threaded through the model (``models/api.py ->
 transformer.apply_stack -> layers``): it decides which site categories the
 configured ``ft_scope`` protects, resolves each site's plan, and carries
@@ -19,9 +25,11 @@ the ``failed_group`` of the current step. Site names are
 ``"<category>.<proj>"``:
 
   ``head``  the vocab projection (always protected when FT is on)
-  ``qkv``   attention Q/K/V
-  ``mlp``   MLP gate/up/down
-  ``out``   the attention output projection
+  ``qkv``   mixer input projections: attention Q/K/V, MLA q and kv_a
+  ``mlp``   FFN projections: MLP gate/up/down (dense and MoE-shared) and
+            the MoE router
+  ``out``   the attention / MLA output projection
+  ``moe``   MoE per-expert gate/up/down GEMMs (the grouped kernel)
 """
 from __future__ import annotations
 
@@ -35,14 +43,13 @@ import torch
 from repro_torch.core.entangle import disentangle as core_disentangle
 from repro_torch.core.failstop import GARBAGE
 from repro_torch.core.plan import EntanglePlan
-from repro_torch.ft.quantize import quantize_acts, quantize_weight
+from repro_torch.ft.quantize import (quantize_acts, quantize_weight,
+                                     quantize_weight_stacked)
 from repro_torch.ft.registry import PlanRegistry, ProtectionPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.codec import unpack_int8
 
-# scope -> protected site categories (cumulative; head is always in). The
-# reference's "moe" category has no site on the dense decoder; the scope
-# name is kept so that the scope set matches.
+# scope -> protected site categories (cumulative; head is always in)
 SCOPES: dict[str, frozenset] = {
     "head": frozenset({"head"}),
     "qkv": frozenset({"head", "qkv"}),
@@ -78,9 +85,10 @@ def _is_packed(wq: torch.Tensor, K: int) -> bool:
 
 
 def _unpacked_f32(wq: torch.Tensor, K: int) -> torch.Tensor:
-    """Float view of a maybe-packed weight (the census only needs shapes)."""
+    """Float view of a maybe-packed weight [..., K, N] (the census only
+    needs shapes)."""
     if _is_packed(wq, K):
-        wq = unpack_int8(wq, axis=0, n=K)
+        wq = unpack_int8(wq, axis=-2, n=K)
     return wq.to(torch.float32)
 
 
@@ -148,6 +156,69 @@ def protected_matmul(
     return _dequant(rec, inv, _rows(x), a_scale, w_scale, lead)
 
 
+def protected_matmul_grouped(
+    x: torch.Tensor,  # [..., E, C, K] float activations (C rows per expert)
+    w: Weight,  # [E, K, N] float, or (wq [E, K, N], w_scale scalar or [E])
+    *,
+    plan: EntanglePlan,
+    failed_group: Optional[int] = None,
+    fuse_epilogue: bool = True,
+) -> torch.Tensor:
+    """Grouped (per-expert) entangled int8 GEMM — the MoE form.
+
+    Expert e's C rows (times any leading batch axes) multiply expert e's
+    [K, N] weights; all E GEMMs run in ONE grouped kernel call. Rows map
+    round-robin onto the M streams within each expert, zero rows pad each
+    expert's bucket to a multiple of M (exact), and ``failed_group``
+    excludes that stream's accumulators from the extraction, so every
+    expert's outputs roll forward at once. A float ``w`` is quantized per
+    expert. ``fuse_epilogue=False`` is the unfused path, as in
+    :func:`protected_matmul`. Returns dequantized float32 ``[..., E, C,
+    N]``.
+    """
+    if isinstance(w, tuple):
+        wq, w_scale = w
+    else:
+        q8 = quantize_weight_stacked(w)  # per-expert grids
+        wq, w_scale = q8["w"], q8["scale"]
+    E, N = wq.shape[0], wq.shape[2]
+    K = x.shape[-1]
+    lead, C = tuple(x.shape[:-3]), x.shape[-2]
+    if x.shape[-3] != E:
+        raise ValueError(f"activations {tuple(x.shape)} do not match "
+                         f"{E} experts")
+    L = math.prod(lead)
+    R = L * C  # rows per expert
+    M = plan.M
+    # [..., E, C, K] -> [E, R, K]: expert-major rows, leading axes folded
+    xf = x.reshape(L, E, C, K).transpose(0, 1).reshape(E, R, K)
+    xq, a_scale = quantize_acts(xf, plan, K)
+    pad = (-R) % M
+    if pad:
+        xq = torch.cat([xq, xq.new_zeros((E, pad, K))], dim=1)
+    Rp = R + pad
+    order, inv = group_order(Rp, M, device=x.device)
+    # per-expert round-robin onto streams: [E, Rp, K] -> [M, E, Rp/M, K]
+    xg = xq[:, order].reshape(E, M, Rp // M, K).transpose(0, 1).contiguous()
+    packed = _is_packed(wq, K)
+    if fuse_epilogue:
+        rec = kops.entangled_matmul_grouped(
+            xg, wq, plan, fuse_epilogue=True, failed=failed_group,
+            packed=packed)
+    else:
+        delta = kops.entangled_matmul_grouped(xg, wq, plan, packed=packed)
+        if failed_group is not None:
+            delta = delta.clone()
+            delta[failed_group] = GARBAGE
+        rec = core_disentangle(delta, plan, failed=failed_group)
+    y = rec.transpose(0, 1).reshape(E, Rp, N).to(torch.float32)
+    y = y[:, inv][:, :R]
+    w_s = torch.as_tensor(w_scale)
+    scale = a_scale * (w_s if w_s.dim() == 0 else w_s[:, None, None])
+    y = y / scale
+    return y.reshape(E, L, C, N).transpose(0, 1).reshape(*lead, E, C, N)
+
+
 @dataclasses.dataclass(frozen=True)
 class FTContext:
     """Protection context threaded through the model forward pass.
@@ -181,9 +252,10 @@ class FTContext:
     def with_plans(self, plans) -> "FTContext":
         return dataclasses.replace(self, plans=plans)
 
-    def _resolve(self, site: str, rows: int, K: int, N: int) -> ProtectionPlan:
+    def _resolve(self, site: str, rows: int, K: int, N: int,
+                 groups: Optional[int] = None) -> ProtectionPlan:
         if self.plans is not None:
-            shape = self.registry.shape_for(rows, K, N)
+            shape = self.registry.shape_for(rows, K, N, groups)
             p = self.plans.lookup(site, shape)
             if p is not None:
                 return p
@@ -191,7 +263,7 @@ class FTContext:
                 f"protected site {site!r} shape {shape} is missing from the "
                 f"compiled plans (startup census gap); creating a lazy "
                 f"registry entry", RuntimeWarning)
-        return self.registry.entry(site, rows, K, N)
+        return self.registry.entry(site, rows, K, N, groups=groups)
 
     def matmul(self, site: str, x: torch.Tensor, w: Weight) -> torch.Tensor:
         """Run (or, census-only, record) one protected GEMM site."""
@@ -230,3 +302,20 @@ class FTContext:
             outs.append(_dequant(rec, inv, rows, a_scale, w_scale,
                                  tuple(x.shape[:-1])))
         return outs
+
+    def matmul_grouped(self, site: str, x: torch.Tensor,
+                       w: Weight) -> torch.Tensor:
+        """Run (or, census-only, record) one grouped per-expert protected
+        GEMM site: x ``[..., E, C, K]`` against per-expert weights
+        ``[E, K, N]``."""
+        wq = w[0] if isinstance(w, tuple) else w
+        E, N = wq.shape[-3], wq.shape[-1]
+        K = x.shape[-1]
+        rows = math.prod(x.shape[:-3]) * x.shape[-2]
+        if self.census_only:
+            self.registry.entry(site, rows, K, N, groups=E)
+            return torch.einsum("...eck,ekn->...ecn", x.to(torch.float32),
+                                _unpacked_f32(wq, K))
+        p = self._resolve(site, rows, K, N, groups=E)
+        return protected_matmul_grouped(x, w, plan=p.plan,
+                                        failed_group=self.failed_group)

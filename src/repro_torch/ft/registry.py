@@ -7,14 +7,17 @@ single :class:`~repro_torch.core.plan.EntanglePlan`. The engine's
 census-only forward pass populates it, and
 :func:`repro_torch.ft.plans.compile_plans` then freezes it.
 
-A site's shape is ``(M, Bg, K, N)``: ``Bg`` rows per stream (the flattened
-row count padded to a multiple of M, divided by M). The reference also
+A plain site's shape is ``(M, Bg, K, N)``: ``Bg`` rows per stream (the
+flattened row count padded to a multiple of M, divided by M). A grouped
+(MoE per-expert) site's shape is ``(M, E, Bg, K, N)`` with ``grouped=True``;
+``Bg`` then counts per-expert rows per stream. The reference also
 keys plans by kernel backend and carries TPU block sizes; the port's only
 kernel picks its own tiling from the shape, so neither exists here.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from repro_torch.core.plan import EntanglePlan
 
@@ -29,8 +32,9 @@ class ProtectionPlan:
     """Immutable protection parameters of one GEMM site at one call shape."""
 
     site: str
-    shape: tuple  # (M, Bg, K, N)
+    shape: tuple  # (M, Bg, K, N), or (M, E, Bg, K, N) when grouped
     plan: EntanglePlan
+    grouped: bool = False
 
 
 class PlanRegistry:
@@ -43,17 +47,23 @@ class PlanRegistry:
         # activations, which share one quantize/permute pass
         self._chains: set[tuple] = set()
 
-    def shape_for(self, rows: int, K: int, N: int) -> tuple:
+    def shape_for(self, rows: int, K: int, N: int,
+                  groups: Optional[int] = None) -> tuple:
         """The kernel-call shape key of a site invocation over ``rows``
-        flattened samples."""
-        return (self.plan.M, group_rows(rows, self.plan.M), K, N)
+        flattened samples (per expert when ``groups`` is given)."""
+        Bg = group_rows(rows, self.plan.M)
+        if groups is None:
+            return (self.plan.M, Bg, K, N)
+        return (self.plan.M, groups, Bg, K, N)
 
-    def entry(self, site: str, rows: int, K: int, N: int) -> ProtectionPlan:
+    def entry(self, site: str, rows: int, K: int, N: int, *,
+              groups: Optional[int] = None) -> ProtectionPlan:
         """Resolve (creating on first use) the plan for one call site."""
-        shape = self.shape_for(rows, K, N)
+        shape = self.shape_for(rows, K, N, groups)
         e = self._entries.get((site, shape))
         if e is None:
-            e = ProtectionPlan(site=site, shape=shape, plan=self.plan)
+            e = ProtectionPlan(site=site, shape=shape, plan=self.plan,
+                               grouped=groups is not None)
             self._entries[(site, shape)] = e
         return e
 

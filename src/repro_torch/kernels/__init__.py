@@ -1,2 +1,3 @@
 """Kernel layer of the port: the codec as torch ops, the hand-written
-CUDA entangled GEMM with its plain version, and the dispatch in ``ops``."""
+CUDA entangled GEMM (dense and grouped per-expert forms) with their plain
+versions, and the dispatch in ``ops``."""

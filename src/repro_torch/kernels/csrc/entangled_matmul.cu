@@ -1,15 +1,25 @@
-// Fused entangled integer GEMM for Hopper (sm_90a), CUDA cores.
+// Fused entangled integer GEMM for Hopper (sm_90a), CUDA cores: the dense
+// form and the grouped (per-expert, MoE) form in one kernel.
 //
-// Replaces the Pallas TPU kernel repro/kernels/entangled_matmul.py
-// (entangled_matmul_pallas, body _emm_kernel). For c [M, B, K] int32 and
-// g [K, N] int32 (or [ceil(K/4), N] int8 lanes packed 4 per int32 word
-// along K, lane j in bits [8j, 8j+8)) it computes, exactly mod 2^32:
+// Replaces two Pallas TPU kernels: repro/kernels/entangled_matmul.py
+// (entangled_matmul_pallas, body _emm_kernel) and
+// repro/kernels/entangled_matmul_grouped.py (entangled_matmul_grouped_pallas,
+// body _emmg_kernel). For c [M, B, K] int32 and g [K, N] int32 (or
+// [ceil(K/4), N] int8 lanes packed 4 per int32 word along K, lane j in bits
+// [8j, 8j+8)) it computes, exactly mod 2^32:
 //
 //   prologue  eps[m] = (c[(m-1) mod M] << l) + c[m]     (modes True/False)
 //             eps = c                                    (chain modes)
 //   body      acc[m] += eps[m] @ g                       (uint32 multiply-add)
 //   epilogue  out = disentangle(acc, r)                  (modes True/'chain_final')
 //             out = acc                                  (modes False/'chain')
+//
+// The grouped form runs E such products at once, expert e's rows against
+// expert e's weights: c [M, E, Cg, K], g [E, K, N] (packed [E, ceil(K/4), N])
+// -> out [M, E, Cg, N]. The expert is one more grid coordinate: each block
+// owns rows of one expert only and reads that expert's weights, and the
+// dense form is the case E = 1, Cg = B (the two forms share
+// every line of the kernel and its one launch function).
 //
 // The epilogue is eq. (16-19) of the paper: Horner telescoping of the M-1
 // accumulators other than stream r (in one 32-bit word, or in a native
@@ -36,7 +46,7 @@
 //     the partial sums meet by 32-bit atomic adds (exact and
 //     order-independent mod 2^32), and the last block of a tile to arrive
 //     runs the epilogue.
-// The ragged edges of B, K and N are masked here, so callers pass any
+// The ragged edges of Cg (B), K and N are masked here, so callers pass any
 // shape unpadded. This simple design does not reach the MAC bound: the
 // weight loads are not pipelined, and with up to 168 registers per thread
 // few blocks fit an SM to hide their latency (PERF.md has its times
@@ -53,12 +63,15 @@ constexpr int BN = THREADS * TN;      // columns per block
 constexpr int BK = 32;                // contraction depth per staged tile
 
 struct Params {
-  const int32_t* c;        // [M, B, K]
-  const int32_t* g;        // [K, N], or [ceil(K/4), N] packed
+  const int32_t* c;        // [M, B, K], B = E * Cg rows (expert-major)
+  const int32_t* g;        // [E, K, N], or [E, ceil(K/4), N] packed
   int32_t* out;            // [M, B, N]
   int32_t* ws;             // split-K partial sums [M-1, B, N], zeroed (extract modes)
-  unsigned int* counters;  // split-K arrivals, one per (n, b) tile, zeroed
+  unsigned int* counters;  // split-K arrivals, one per (n, expert, b) tile, zeroed
   int B, K, N;
+  int Cg;                  // rows of one expert per stream (B when E = 1)
+  int row_tiles;           // blocks along one expert's rows, ceil(Cg / BB)
+  long long g_stride;      // int32 words from one expert's weights to the next
   int l, r;
   int entangle, extract, dualword;
   int k_chunk;             // contraction length of one split, multiple of BK
@@ -125,11 +138,11 @@ __device__ __forceinline__ int slot_stream(const Params& p, int M, int j) {
 template <int M, int BB>
 __device__ __forceinline__ void store_tile(const Params& p,
                                            uint32_t (&acc)[M][BB][TN],
-                                           int b0, int n0) {
+                                           int b0, int rows, int n0) {
 #pragma unroll
   for (int b = 0; b < BB; ++b) {
     const int gb = b0 + b;
-    if (gb >= p.B) continue;
+    if (b >= rows) continue;
 #pragma unroll
     for (int t = 0; t < TN; ++t) {
       const int n = n0 + t * THREADS;
@@ -158,7 +171,12 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
   __shared__ int s_last;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN + tid;
-  const int b0 = blockIdx.y * BB;
+  // blockIdx.y walks the experts, and within one expert its row tiles
+  const int e = blockIdx.y / p.row_tiles;
+  const int eb0 = (blockIdx.y % p.row_tiles) * BB;  // first row within e
+  const int b0 = e * p.Cg + eb0;                     // first row of c / out
+  const int rows = min(BB, p.Cg - eb0);              // rows of the tile
+  const int32_t* __restrict__ g = p.g + (size_t)e * p.g_stride;
   const int kbeg = blockIdx.z * p.k_chunk;
   const int kend = min(p.K, kbeg + p.k_chunk);
 
@@ -174,7 +192,8 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
   const int ns = M - p.extract;
   for (int kt = kbeg; kt < kend; kt += BK) {
     // prologue: stage the [ns, BB, BK] slice of c, entangled on load;
-    // rows past B and depths past the split's end stage as zeros
+    // rows past the expert's Cg and depths past the split's end stage as
+    // zeros
     for (int i = tid; i < ns * BB * BK; i += THREADS) {
       const int j = i / (BB * BK);
       const int m = slot_stream(p, M, j);
@@ -182,7 +201,7 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
       const int k = i % BK;
       const int gb = b0 + b, gk = kt + k;
       uint32_t v = 0;
-      if (gb < p.B && gk < kend) {
+      if (b < rows && gk < kend) {
         v = (uint32_t)p.c[((size_t)m * p.B + gb) * p.K + gk];
         if (p.entangle) {
           const int pm = (m + M - 1) % M;
@@ -202,7 +221,7 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
         if (PACKED) {
           uint32_t word = 0;
           if (n < p.N && kt + kk < kend)
-            word = (uint32_t)p.g[(size_t)((kt + kk) >> 2) * p.N + n];
+            word = (uint32_t)g[(size_t)((kt + kk) >> 2) * p.N + n];
 #pragma unroll
           for (int j = 0; j < 4; ++j) w[t][j] = lane_s8(word, j);
         } else {
@@ -210,7 +229,7 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
           for (int j = 0; j < 4; ++j) {
             const int k = kt + kk + j;
             w[t][j] = (n < p.N && k < kend)
-                          ? (uint32_t)p.g[(size_t)k * p.N + n] : 0u;
+                          ? (uint32_t)g[(size_t)k * p.N + n] : 0u;
           }
         }
       }
@@ -236,7 +255,7 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
   }
 
   if (gridDim.z == 1) {
-    store_tile<M, BB>(p, acc, b0, n0);
+    store_tile<M, BB>(p, acc, b0, rows, n0);
     return;
   }
 
@@ -250,7 +269,7 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
 #pragma unroll
       for (int t = 0; t < TN; ++t) {
         const int gb = b0 + b, n = n0 + t * THREADS;
-        if (m < ns && gb < p.B && n < p.N)
+        if (m < ns && b < rows && n < p.N)
           atomicAdd(reinterpret_cast<unsigned int*>(
                         &dst[((size_t)m * p.B + gb) * p.N + n]),
                     acc[m][b][t]);
@@ -274,10 +293,10 @@ __global__ void __launch_bounds__(THREADS) emm_kernel(Params p) {
 #pragma unroll
       for (int t = 0; t < TN; ++t) {
         const int gb = b0 + b, n = n0 + t * THREADS;
-        acc[m][b][t] = (gb < p.B && n < p.N)
+        acc[m][b][t] = (b < rows && n < p.N)
             ? (uint32_t)__ldcg(&p.ws[((size_t)m * p.B + gb) * p.N + n]) : 0u;
       }
-  store_tile<M, BB>(p, acc, b0, n0);
+  store_tile<M, BB>(p, acc, b0, rows, n0);
 }
 
 template <int M, int BB>
@@ -322,26 +341,35 @@ const char* emm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launch the kernel on `stream`. Returns 0, a negative code for a
-// configuration the kernel does not take, or the cudaError_t of the launch.
-int emm_launch(const void* c, const void* g, void* out, void* ws,
-               void* counters, int M, int B, int K, int N, int packed,
-               int entangle, int extract, int dualword, int l, int r, int bb,
-               int splits, int k_chunk, void* stream) {
-  if (B < 1 || K < 1 || N < 1 || splits < 1 || k_chunk < BK ||
-      k_chunk % BK != 0 || (long long)k_chunk * (splits - 1) >= K)
+// Launch the kernel on `stream`: c [M, E, Cg, K], g [E, K, N] (packed
+// [E, ceil(K/4), N]), out [M, E, Cg, N]; the dense form passes E = 1,
+// Cg = B. ws and counters are sized by the wrapper for split-K (null when
+// splits == 1). Returns 0, a negative code for a configuration the kernel
+// does not take, or the cudaError_t of the launch.
+int emmg_launch(const void* c, const void* g, void* out, void* ws,
+                void* counters, int M, int E, int Cg, int K, int N,
+                int packed, int entangle, int extract, int dualword, int l,
+                int r, int bb, int splits, int k_chunk, void* stream) {
+  if (E < 1 || Cg < 1 || K < 1 || N < 1 || bb < 1 || splits < 1 ||
+      k_chunk < BK || k_chunk % BK != 0 ||
+      (long long)k_chunk * (splits - 1) >= K ||
+      (long long)E * Cg > 0x7fffffff)
     return -3;
+  const int row_tiles = (Cg + bb - 1) / bb;
+  if ((long long)E * row_tiles > 65535 || splits > 65535) return -3;
   Params p;
   p.c = static_cast<const int32_t*>(c);
   p.g = static_cast<const int32_t*>(g);
   p.out = static_cast<int32_t*>(out);
   p.ws = static_cast<int32_t*>(ws);
   p.counters = static_cast<unsigned int*>(counters);
-  p.B = B; p.K = K; p.N = N;
+  p.B = E * Cg; p.K = K; p.N = N;
+  p.Cg = Cg; p.row_tiles = row_tiles;
+  p.g_stride = (long long)(packed ? (K + 3) / 4 : K) * N;
   p.l = l; p.r = r;
   p.entangle = entangle; p.extract = extract; p.dualword = dualword;
   p.k_chunk = k_chunk;
-  const dim3 grid((N + BN - 1) / BN, (B + bb - 1) / bb, splits);
+  const dim3 grid((N + BN - 1) / BN, E * row_tiles, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   switch (M) {

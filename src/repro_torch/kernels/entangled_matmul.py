@@ -20,7 +20,9 @@ four ``fuse_epilogue`` modes select which codec halves run:
 ``packed=True`` reads ``g`` as ``[ceil(K/4), N]`` int8 lanes packed 4 per
 int32 word along K (:func:`repro_torch.kernels.codec.pack_int8`).
 
-The kernel (``csrc/entangled_matmul.cu``) is CUDA C++ for ``sm_90a``. What
+The kernel (``csrc/entangled_matmul.cu``) is CUDA C++ for ``sm_90a``; the
+grouped (per-expert) form of :mod:`.entangled_matmul_grouped` is the same
+kernel with an expert axis, launched through :func:`launch`. What
 bounds it on an H100: the product runs as int32 multiply-adds on the CUDA
 cores (eps is 14-20 bits wide, so the s8 tensor cores cannot take it
 directly), and at the serving shapes those MACs take longer than reading
@@ -173,8 +175,8 @@ def _load():
         so, _, _ = build()
         lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.emm_launch.argtypes = [p, p, p, p, p] + [i] * 13 + [p]
-        lib.emm_launch.restype = i
+        lib.emmg_launch.argtypes = [p, p, p, p, p] + [i] * 14 + [p]
+        lib.emmg_launch.restype = i
         lib.emm_error_string.argtypes = [i]
         lib.emm_error_string.restype = ctypes.c_char_p
         for fn in ("emm_threads", "emm_block_n", "emm_block_k"):
@@ -203,16 +205,9 @@ def _split_k(n_tiles: int, K: int, block_k: int, sms: int) -> tuple:
     return -(-K // k_chunk), k_chunk
 
 
-def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
-                          plan: EntanglePlan, *, fuse_epilogue=False,
-                          failed: Optional[int] = None,
-                          packed: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel: c ``[M, B, K]`` int32, g ``[K, N]`` int32 or
-    packed ``[ceil(K/4), N]``, both contiguous on one CUDA device. Returns
-    ``[M, B, N]`` int32 on ``torch.cuda.current_stream()``; raises on any
-    input the kernel does not take and on a failed launch."""
-    global launches
-    _check_mode(fuse_epilogue)
+def check_operands(c: torch.Tensor, g: torch.Tensor, dims: int) -> None:
+    """Raise unless c and g are contiguous int32 tensors on one CUDA device,
+    c with ``dims`` axes and g with ``dims - 1``."""
     for name, t in (("c", c), ("g", g)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -222,24 +217,36 @@ def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if c.device != g.device:
         raise ValueError(f"c on {c.device}, g on {g.device}")
-    if c.dim() != 3 or g.dim() != 2:
-        raise ValueError(f"need c [M, B, K] and g [K', N], got "
-                         f"{tuple(c.shape)} and {tuple(g.shape)}")
-    M, B, K = c.shape
-    Kg, N = g.shape
-    if M != plan.M or not 3 <= M <= 8:
-        raise ValueError(f"c has {M} streams; need plan.M={plan.M} in 3..8")
+    if c.dim() != dims or g.dim() != dims - 1:
+        raise ValueError(f"need c with {dims} axes and g with {dims - 1}, "
+                         f"got {tuple(c.shape)} and {tuple(g.shape)}")
+
+
+def launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *, E: int,
+           Cg: int, K: int, N: int, fuse_epilogue, failed: Optional[int],
+           packed: bool) -> torch.Tensor:
+    """Launch the kernel over E experts of Cg rows per stream (E = 1 is the
+    dense form) on checked operands; returns ``[M, E * Cg, N]`` int32.
+    Sizes the grid, splits K when the card would have too few blocks,
+    allocates the output and split-K scratch, and raises on a launch the
+    kernel refuses. Counting the launch is the caller's."""
+    M = plan.M
+    if c.shape[0] != M or not 3 <= M <= 8:
+        raise ValueError(f"c has {c.shape[0]} streams; need plan.M={M} "
+                         f"in 3..8")
+    Kg = g.shape[-2]
     if Kg != (-(-K // PACK_LANES) if packed else K):
         raise ValueError(f"g depth {Kg} does not match K={K} "
                          f"(packed={packed})")
-    if min(B, K, N) < 1:
-        raise ValueError(f"empty GEMM: B={B}, K={K}, N={N}")
+    if min(E, Cg, K, N) < 1:
+        raise ValueError(f"empty GEMM: E={E}, rows={Cg}, K={K}, N={N}")
     lib = _load()
-    bb = _rows_per_block(B, M)
-    n_tiles = -(-N // lib.emm_block_n()) * -(-B // bb)
+    bb = _rows_per_block(Cg, M)
+    n_tiles = -(-N // lib.emm_block_n()) * E * -(-Cg // bb)
     sms = torch.cuda.get_device_properties(c.device).multi_processor_count
     splits, k_chunk = _split_k(n_tiles, K, lib.emm_block_k(), sms)
     extract = fuse_epilogue in EXTRACT_MODES
+    B = E * Cg
     if splits == 1:
         out = torch.empty((M, B, N), dtype=torch.int32, device=c.device)
         ws = counters = None
@@ -255,15 +262,33 @@ def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
     r = 0 if failed is None else int(failed) % M
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream(c.device).cuda_stream
-        rc = lib.emm_launch(
+        rc = lib.emmg_launch(
             c.data_ptr(), g.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(),
-            M, B, K, N, int(packed), int(fuse_epilogue in ENTANGLE_MODES),
-            int(extract), int(plan.temp == "dualword"), plan.l, r, bb,
-            splits, k_chunk, stream)
+            M, E, Cg, K, N, int(packed),
+            int(fuse_epilogue in ENTANGLE_MODES), int(extract),
+            int(plan.temp == "dualword"), plan.l, r, bb, splits, k_chunk,
+            stream)
     if rc != 0:
         raise RuntimeError(f"entangled_matmul kernel launch failed: "
                            f"{lib.emm_error_string(rc).decode()}")
+    return out
+
+
+def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
+                          plan: EntanglePlan, *, fuse_epilogue=False,
+                          failed: Optional[int] = None,
+                          packed: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel: c ``[M, B, K]`` int32, g ``[K, N]`` int32 or
+    packed ``[ceil(K/4), N]``, both contiguous on one CUDA device. Returns
+    ``[M, B, N]`` int32 on ``torch.cuda.current_stream()``; raises on any
+    input the kernel does not take and on a failed launch."""
+    global launches
+    _check_mode(fuse_epilogue)
+    check_operands(c, g, 3)
+    M, B, K = c.shape
+    out = launch(c, g, plan, E=1, Cg=B, K=K, N=g.shape[1],
+                 fuse_epilogue=fuse_epilogue, failed=failed, packed=packed)
     launches += 1
     return out

@@ -1,0 +1,111 @@
+"""Grouped (per-expert) fused entangled integer GEMM — the MoE form: the
+CUDA kernel's wrapper, its plain PyTorch version, and the launch counter.
+
+Replaces the Pallas TPU kernel ``repro/kernels/entangled_matmul_grouped.py``
+(``entangled_matmul_grouped_pallas``, body ``_emmg_kernel``). For c
+``[M, E, Cg, K]`` and g ``[E, K, N]`` (packed: ``[E, ceil(K/4), N]``) it
+computes, per expert e, the dense kernel's function on that expert's rows
+and weights::
+
+    out[m, e] = disentangle(eps[m, e] @ g[e])     fuse_epilogue=True
+    out[m, e] = eps[m, e] @ g[e]                  fuse_epilogue=False
+
+with ``eps = (roll(c, 1, axis=0) << l) + c``. Entanglement spans the M
+stream axis only, so a fail-stopped stream rolls forward for every expert
+at once. Only these two modes exist (the chain modes are dense-only, as in
+the reference).
+
+The kernel is ``csrc/entangled_matmul.cu`` with an expert axis on its grid
+(see the source's header): each block owns rows of one expert and reads
+that expert's weights, and the prologue, the uint32 body, the epilogue
+and the "skip stream r" slots are the dense kernel's. What bounds it on an
+H100: at the decode shapes (2 rows per stream per expert, 64 experts) the
+(M-1)·E·Cg·K·N int32 multiply-adds on the CUDA cores take a little longer
+than reading all E experts' packed weights once, so it is bound by
+operations; every expert's weights are read whether its bucket holds a
+token or not. It is built with the dense kernel (one library, one
+``nvcc``; :func:`build`) and bound with ``ctypes``.
+
+:func:`entangled_matmul_grouped_cuda` launches the kernel on CUDA tensors
+and raises on anything it does not take;
+:func:`entangled_matmul_grouped_plain` is the plain version, used for CPU
+tensors and as the kernel's yardstick on the card. ``launches`` counts
+kernel launches of this wrapper (never plain-version calls).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.plan import EntanglePlan
+from repro_torch.kernels import entangled_matmul as emm
+from repro_torch.kernels.codec import (disentangle_block, entangle_block,
+                                       unpack_int8)
+
+# the library is the dense kernel's (one source, one build)
+build = emm.build
+MODES = (False, True)
+
+# kernel launches since import (or the last reset by the caller)
+launches = 0
+
+
+def _check_mode(fuse_epilogue) -> None:
+    if fuse_epilogue not in MODES:
+        raise ValueError(f"the grouped kernel takes fuse_epilogue True or "
+                         f"False only, got {fuse_epilogue!r}")
+
+
+def entangled_matmul_grouped_plain(c: torch.Tensor, g: torch.Tensor,
+                                   plan: EntanglePlan, *, fuse_epilogue=False,
+                                   failed: Optional[int] = None,
+                                   packed: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device.
+
+    c ``[M, E, Cg, K]`` int, g ``[E, K, N]`` int or packed ``[E, ceil(K/4),
+    N]``; returns ``[M, E, Cg, N]`` int32, bit-identical to the kernel and
+    to the reference's Pallas kernel. Each expert's product is the dense
+    plain version's float64 limb product, batched over experts, so it is
+    exact mod 2**32 for any int32 operands with K < 2**21.
+    """
+    _check_mode(fuse_epilogue)
+    M, E, Cg, K = c.shape
+    if M != plan.M:
+        raise ValueError(f"c has {M} streams, plan.M={plan.M}")
+    if g.shape[0] != E:
+        raise ValueError(f"g has {g.shape[0]} experts, c has E={E}")
+    eps = entangle_block(c.to(torch.int32), plan.l)
+    g = unpack_int8(g, axis=1, n=K) if packed else g.to(torch.int32)
+    if g.shape[1] != K:
+        raise ValueError(f"g has depth {g.shape[1]}, c has K={K}")
+    N = g.shape[2]
+    rows = eps.transpose(0, 1).reshape(E, M * Cg, K)  # expert-major rows
+    out = emm._matmul_mod32(rows, g, g_int8=packed)
+    out = out.reshape(E, M, Cg, N).transpose(0, 1)
+    if fuse_epilogue:
+        out = disentangle_block(out, plan, 0 if failed is None else failed)
+    return out.contiguous()
+
+
+def entangled_matmul_grouped_cuda(c: torch.Tensor, g: torch.Tensor,
+                                  plan: EntanglePlan, *, fuse_epilogue=False,
+                                  failed: Optional[int] = None,
+                                  packed: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel: c ``[M, E, Cg, K]`` int32, g ``[E, K, N]``
+    int32 or packed ``[E, ceil(K/4), N]``, both contiguous on one CUDA
+    device. Returns ``[M, E, Cg, N]`` int32 on
+    ``torch.cuda.current_stream()``; raises on any input the kernel does
+    not take and on a failed launch."""
+    global launches
+    _check_mode(fuse_epilogue)
+    emm.check_operands(c, g, 4)
+    M, E, Cg, K = c.shape
+    if g.shape[0] != E:
+        raise ValueError(f"g has {g.shape[0]} experts, c has E={E}")
+    N = g.shape[2]
+    out = emm.launch(c, g, plan, E=E, Cg=Cg, K=K, N=N,
+                     fuse_epilogue=fuse_epilogue, failed=failed,
+                     packed=packed)
+    launches += 1
+    return out.reshape(M, E, Cg, N)

@@ -1,5 +1,5 @@
-"""Dispatch over the port's kernels (the serving slice of
-:mod:`repro.kernels.ops`).
+"""Dispatch over the port's kernels (the serving slices of
+:mod:`repro.kernels.ops`): the dense and the grouped entangled GEMM.
 
 The device of the operands picks the implementation, and nothing else
 does: a CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.plan import EntanglePlan
 from repro_torch.kernels import entangled_matmul as emm
+from repro_torch.kernels import entangled_matmul_grouped as emmg
 
 
 def entangled_matmul(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *,
@@ -37,3 +38,22 @@ def entangled_matmul(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *,
             plan, **kw)
     raise ValueError(f"entangled_matmul needs both operands on the CPU or "
                      f"both on CUDA, got {c.device} and {g.device}")
+
+
+def entangled_matmul_grouped(c: torch.Tensor, g: torch.Tensor,
+                             plan: EntanglePlan, *, fuse_epilogue=False,
+                             failed: Optional[int] = None,
+                             packed: bool = False) -> torch.Tensor:
+    """Grouped (per-expert) fused entangle + GEMM [+ extract], the MoE form:
+    c ``[M, E, Cg, K]``, g ``[E, K, N]`` (packed: ``[E, ceil(K/4), N]``) ->
+    ``[M, E, Cg, N]`` int32. ``fuse_epilogue`` is True or False (the chain
+    modes are dense-only and raise, as in the reference)."""
+    kw = dict(fuse_epilogue=fuse_epilogue, failed=failed, packed=packed)
+    if c.device.type == "cpu" and g.device.type == "cpu":
+        return emmg.entangled_matmul_grouped_plain(c, g, plan, **kw)
+    if c.is_cuda and g.is_cuda:
+        return emmg.entangled_matmul_grouped_cuda(
+            c.to(torch.int32).contiguous(), g.to(torch.int32).contiguous(),
+            plan, **kw)
+    raise ValueError(f"entangled_matmul_grouped needs both operands on the "
+                     f"CPU or both on CUDA, got {c.device} and {g.device}")

@@ -3,7 +3,10 @@
 
 Boots the batched serving engine with random weights (from a seeded
 ``torch.Generator``) on ``--device`` (default ``cuda``) and runs a
-synthetic request wave. ``--ft-mode entangle`` runs the vocab projection
+synthetic request wave. The ported archs are llama3.2-1b (dense) and
+deepseek-v2-lite-16b (MLA + MoE); ``--n-layers`` cuts the depth of the
+published config (deepseek-v2-lite's 27 layers of float32 masters alone
+take about 63 GB). ``--ft-mode entangle`` runs the vocab projection
 of every decode step and admission batch as the fused entangled int8 GEMM
 (slot -> group = slot % ft_M); ``--ft-scope`` widens protection to the
 in-model projections; ``--failed-group r`` fail-stops group r on every
@@ -89,6 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="Serve a synthetic request wave with the port's engine.")
     ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the config to this many layers (0 = all)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -134,6 +139,11 @@ def main(argv=None) -> None:
                else get_config(args.arch))
     except NotImplementedError as e:
         ap.error(str(e))
+    if args.n_layers:
+        first = cfg.moe.first_dense_layers if cfg.moe else 0
+        if not first < args.n_layers <= cfg.n_layers:
+            ap.error(f"--n-layers must lie in ({first}, {cfg.n_layers}]")
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     dev = resolve_device(args.device)
     model = get_model(cfg)
     gen = torch.Generator(device=dev)
@@ -150,6 +160,7 @@ def main(argv=None) -> None:
     print(f"[launch.serve] {len(outs)}/{args.requests} requests completed in "
           f"{eng.decode_calls} batched decode calls; first output: {first}")
     print(f"[launch.serve] shape census: {eng.census}")
+    del eng  # the recovery summary's engines hold their own int8 copies
 
     if args.smoke and args.ft_mode == "entangle":
         # per-scope recovery summary: the head scope and the configured

@@ -1,5 +1,5 @@
-"""Model API of the port, decoder-only (the serving part of
-:mod:`repro.models.api`)::
+"""Model API of the port, decoder-only: the dense and MoE families (the
+serving part of :mod:`repro.models.api`)::
 
     model = get_model(cfg)
     params = model.init(gen, cfg, max_seq, device=dev)  # gen: torch.Generator
@@ -56,12 +56,12 @@ def _init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 def _prefill_chunk(p, tokens, cfg: ModelConfig, cache, *, pos0: int = 0,
                    lengths=None, ft=None):
     """Batched prefill of tokens [B, C] at positions pos0..pos0+C-1.
-    ``lengths`` (the rows' true prompt lengths) only matters to
-    rolling-window and recurrent blocks, which this slice does not port;
-    the linear KV cache stores the bucket padding like the reference."""
+    ``lengths`` [B] (the rows' true prompt lengths) keep the MoE blocks'
+    pad tokens out of expert capacity; the linear KV and latent caches
+    store the bucket padding like the reference."""
     x = T.embed_tokens(p["embed"], tokens, cfg)
     h = T.apply_stack(p["stack"], x, cfg=cfg, caches=cache, pos=pos0,
-                      mode="prefill", ft=ft)
+                      mode="prefill", lengths=lengths, ft=ft)
     return T.final_hidden(p["embed"], h, cfg), cache
 
 
@@ -87,7 +87,7 @@ DECODER_MODEL = Model(init=_init, prefill_chunk=_prefill_chunk,
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet")
     return DECODER_MODEL

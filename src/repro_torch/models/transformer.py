@@ -1,5 +1,10 @@
 """Decoder assembly: stacked layer params, embedding and head (port of the
-dense-decoder part of :mod:`repro.models.transformer`).
+dense-decoder and MoE parts of :mod:`repro.models.transformer`).
+
+Blocks (``cfg.layer_pattern()`` names them):
+
+  attn_dense  GQA attention (or MLA if cfg.mla) + gated MLP
+  attn_moe    GQA attention (or MLA if cfg.mla) + MoE FFN
 
 Params keep the reference's stacked layout — a list over pattern units,
 each a tuple (one entry per block of the unit) of dicts whose leaves carry
@@ -11,13 +16,12 @@ and of the cache.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-
-BLOCKS = ("attn_dense",)
 
 
 def tree_map(fn, node):
@@ -27,6 +31,55 @@ def tree_map(fn, node):
     if isinstance(node, (list, tuple)):
         return type(node)(tree_map(fn, v) for v in node)
     return fn(node)
+
+
+def _init_attn(gen, cfg: ModelConfig, repeat: int) -> dict:
+    return (L.init_mla if cfg.mla else L.init_attention)(gen, cfg, repeat)
+
+
+def _attend(p, x, *, cfg, cache, pos, mode, ft):
+    """The block's mixer and its residual: MLA or GQA attention."""
+    if cfg.mla:
+        a, _ = L.apply_mla(p["attn"], x, cfg=cfg, cache=cache, pos=pos,
+                           mode=mode, ft=ft)
+    else:
+        a, _ = L.apply_attention(p["attn"], x, cfg=cfg, cache=cache, pos=pos,
+                                 mode=mode, rope_theta=cfg.rope_theta, ft=ft)
+    return x + a
+
+
+def _init_attn_dense(gen, cfg, repeat):
+    return {"attn": _init_attn(gen, cfg, repeat),
+            "mlp": L.init_mlp(gen, cfg, repeat)}
+
+
+def _apply_attn_dense(p, x, *, cfg, cache, pos, mode, lengths, ft):
+    x = _attend(p, x, cfg=cfg, cache=cache, pos=pos, mode=mode, ft=ft)
+    return x + L.apply_mlp(p["mlp"], x, cfg=cfg, ft=ft)
+
+
+def _init_attn_moe(gen, cfg, repeat):
+    return {"attn": _init_attn(gen, cfg, repeat),
+            "moe": L.init_moe(gen, cfg, repeat)}
+
+
+def _apply_attn_moe(p, x, *, cfg, cache, pos, mode, lengths, ft):
+    x = _attend(p, x, cfg=cfg, cache=cache, pos=pos, mode=mode, ft=ft)
+    # bucket padding: pad tokens must not take expert capacity
+    valid = (L._prefill_valid(int(pos or 0), x.shape[1], lengths)
+             if mode == "prefill" else None)
+    return x + L.apply_moe(p["moe"], x, cfg=cfg, valid=valid, ft=ft)
+
+
+class Block(NamedTuple):
+    init: Callable  # (gen, cfg, repeat) -> stacked params
+    apply: Callable  # (params, x, *, cfg, cache, pos, mode, lengths, ft) -> x
+
+
+BLOCKS = {
+    "attn_dense": Block(_init_attn_dense, _apply_attn_dense),
+    "attn_moe": Block(_init_attn_moe, _apply_attn_moe),
+}
 
 
 def _check_pattern(cfg: ModelConfig):
@@ -40,39 +93,34 @@ def _check_pattern(cfg: ModelConfig):
 
 
 def init_stack(gen, cfg: ModelConfig) -> list:
-    units = []
-    for blocks, repeat in _check_pattern(cfg):
-        units.append(tuple({"attn": L.init_attention(gen, cfg, repeat),
-                            "mlp": L.init_mlp(gen, cfg, repeat)}
-                           for _ in blocks))
-    return units
+    return [tuple(BLOCKS[b].init(gen, cfg, repeat) for b in blocks)
+            for blocks, repeat in _check_pattern(cfg)]
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      device) -> list:
-    return [tuple(L.init_attn_cache(cfg, repeat, batch, max_seq, device)
-                  for _ in blocks)
+    """Both blocks cache their attention: the latent cache under MLA, the
+    KV cache otherwise."""
+    init = L.init_mla_cache if cfg.mla else L.init_attn_cache
+    return [tuple(init(cfg, repeat, batch, max_seq, device) for _ in blocks)
             for blocks, repeat in _check_pattern(cfg)]
 
 
-def _apply_attn_dense(p, x, *, cfg, cache, pos, mode, ft):
-    a, _ = L.apply_attention(p["attn"], x, cfg=cfg, cache=cache, pos=pos,
-                             mode=mode, rope_theta=cfg.rope_theta, ft=ft)
-    x = x + a
-    return x + L.apply_mlp(p["mlp"], x, cfg=cfg, ft=ft)
-
-
 def apply_stack(units_params, x, *, cfg: ModelConfig, caches, pos, mode,
-                ft=None):
+                lengths=None, ft=None):
     """Run every layer of every pattern unit in order; the caches are
-    written in place. Returns the hidden states."""
+    written in place. ``lengths`` [B] (bucketed prefill) are the rows' true
+    prompt lengths. Each layer gets its slice of the stacked params —
+    startup-quantized q8 stacks included, so an expert stack's scales
+    ``[repeat, E]`` reach the grouped site as ``[E]``. Returns the hidden
+    states."""
     for u, (blocks, repeat) in enumerate(_check_pattern(cfg)):
         for i in range(repeat):
-            for b in range(len(blocks)):
+            for b, name in enumerate(blocks):
                 p_i = tree_map(lambda t: t[i], units_params[u][b])
                 c_i = tree_map(lambda t: t[i], caches[u][b])
-                x = _apply_attn_dense(p_i, x, cfg=cfg, cache=c_i, pos=pos,
-                                      mode=mode, ft=ft)
+                x = BLOCKS[name].apply(p_i, x, cfg=cfg, cache=c_i, pos=pos,
+                                       mode=mode, lengths=lengths, ft=ft)
     return x
 
 

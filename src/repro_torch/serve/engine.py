@@ -17,7 +17,8 @@ Fault tolerance: with ``ft_mode='entangle'`` the vocab projection of every
 decode step and of every admission batch's first token runs as the fused
 entangled int8 GEMM over M request groups (slot -> group = slot % M).
 ``ft_scope`` widens protection to the in-model projections (``qkv``,
-``mlp``, ``out``, ``all``). At startup the engine runs the forward pass on
+``mlp``, ``out``, ``moe`` — the MoE expert GEMMs, through the grouped
+kernel — and ``all``). At startup the engine runs the forward pass on
 the ``meta`` device with a census-only :class:`~repro_torch.ft.FTContext`
 to list every protected (site, shape), freezes that census into
 ``CompiledPlans`` and quantizes every protected weight once
@@ -187,10 +188,14 @@ class ServeEngine:
     # -- startup census ------------------------------------------------------
 
     def _protected_shape_census(self) -> dict:
-        """{(site, (M, Bg, K, N)): plan} for every in-model protected GEMM
-        the engine can run: the decode step and one prefill per bucket run
-        on the ``meta`` device with a census-only context, which records
-        each site's shape and runs no kernel. Empty at ft_scope='head'."""
+        """{(site, shape): plan} for every in-model protected GEMM the
+        engine can run — shape ``(M, Bg, K, N)``, or ``(M, E, Bg, K, N)``
+        for a grouped MoE site: the decode step and one prefill per bucket
+        run on the ``meta`` device with a census-only context, which
+        records each site's shape and runs no kernel. The MoE dispatch
+        (top-k, sort, gathers) runs there too: its capacity is a function
+        of the token count, so every shape is static. Empty at
+        ft_scope='head'."""
         if self.scfg.ft_mode != "entangle" or self.scfg.ft_scope == "head":
             return {}
         ctx = dataclasses.replace(self.ftx, census_only=True)
@@ -207,7 +212,8 @@ class ServeEngine:
                 mp, torch.zeros((self.Bp, C), dtype=torch.int64, device=meta),
                 self.cfg, self.model.init_cache(self.cfg, self.Bp, S,
                                                 device=meta),
-                pos0=0, ft=ctx)
+                pos0=0, lengths=torch.zeros((self.Bp,), dtype=torch.int64,
+                                            device=meta), ft=ctx)
         return self.registry.census()
 
     # -- requests -------------------------------------------------------------

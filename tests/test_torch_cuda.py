@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernel against its plain version, on the GPU.
+"""The hand-written CUDA kernels (the dense and the grouped entangled
+GEMM) against their plain versions, on the GPU.
 
-Marked ``requires_cuda``: it skips without a CUDA device (the kernel has
+Marked ``requires_cuda``: it skips without a CUDA device (the kernels have
 no CPU mode). It imports no JAX, so it also runs on a GPU machine that has
 only PyTorch (``--noconftest`` skips the suite's JAX cache fixture):
 
@@ -10,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.entangle import disentangle
+from repro_torch.core.failstop import GARBAGE
 from repro_torch.core.plan import make_plan
 from repro_torch.kernels import entangled_matmul as emm
+from repro_torch.kernels import entangled_matmul_grouped as emmg
 from repro_torch.kernels.codec import pack_int8
 
 PLANS = [(3, 16, None), (4, 32, None), (3, 32, "dualword"), (8, 32, None)]
@@ -63,3 +67,84 @@ def test_cuda_kernel_rejects_bad_inputs(cuda_device):
         emm.entangled_matmul_cuda(c.transpose(1, 2), g.T.contiguous(), plan)
     with pytest.raises(ValueError, match="depth"):
         emm.entangled_matmul_cuda(c, g, plan, packed=True)
+
+
+def _grouped_operands(rng, M, E, Cg, K, N, dev):
+    """Full-range int32 c and g, and packed int8 weights, on ``dev``."""
+    c = rng.integers(-2**31, 2**31, size=(M, E, Cg, K), dtype=np.int64)
+    g = rng.integers(-2**31, 2**31, size=(E, K, N), dtype=np.int64)
+    g8 = rng.integers(-128, 128, size=(E, K, N)).astype(np.int32)
+    return (torch.from_numpy(c.astype(np.int32)).to(dev),
+            torch.from_numpy(g.astype(np.int32)).to(dev),
+            pack_int8(torch.from_numpy(g8), axis=1).contiguous().to(dev))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M,w,temp", PLANS)
+def test_cuda_grouped_kernel_matches_plain(cuda_device, M, w, temp):
+    """Grouped kernel == plain version bit for bit for both modes, packing
+    and every failed stream, on ragged shapes (split-K among them) and the
+    deepseek-v2-lite decode shape; one launch per call; the poison check
+    (the fused kernel with failed=r equals the plain disentangle of the
+    unfused output with stream r overwritten by GARBAGE) for every r."""
+    plan = make_plan(M, w, temp=temp)
+    shapes = [(3, 5, 13, 9), (2, 17, 70, 300), (4, 1, 2049, 257),
+              (64, 2, 2048, 1408)]
+    for (E, Cg, K, N) in shapes:
+        rng = np.random.default_rng(E * Cg + K + N)
+        c, g, gp = _grouped_operands(rng, M, E, Cg, K, N, cuda_device)
+        before = emmg.launches
+        for packed, gg in ((False, g), (True, gp)):
+            for mode in (False, True):
+                for r in ([None] + list(range(M)) if mode else [None]):
+                    kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
+                    got = emmg.entangled_matmul_grouped_cuda(c, gg, plan, **kw)
+                    want = emmg.entangled_matmul_grouped_plain(c, gg, plan,
+                                                               **kw)
+                    torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert emmg.launches == before + 2 * (M + 2)
+        delta = emmg.entangled_matmul_grouped_cuda(c, gp, plan, packed=True)
+        for r in range(M):
+            fused = emmg.entangled_matmul_grouped_cuda(
+                c, gp, plan, fuse_epilogue=True, failed=r, packed=True)
+            bad = delta.clone()
+            bad[r] = GARBAGE
+            torch.testing.assert_close(fused, disentangle(bad, plan, failed=r),
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_grouped_kernel_rejects_bad_inputs(cuda_device):
+    plan = make_plan(4, 32)
+    c = torch.zeros((4, 3, 2, 8), dtype=torch.int32, device=cuda_device)
+    g = torch.zeros((3, 8, 5), dtype=torch.int32, device=cuda_device)
+    for mode in ("chain", "chain_final"):
+        with pytest.raises(ValueError, match="True or False"):
+            emmg.entangled_matmul_grouped_cuda(c, g, plan, fuse_epilogue=mode)
+    with pytest.raises(ValueError, match="experts"):
+        emmg.entangled_matmul_grouped_cuda(c, g[:2].contiguous(), plan)
+    with pytest.raises(ValueError, match="depth"):
+        emmg.entangled_matmul_grouped_cuda(c, g, plan, packed=True)
+    with pytest.raises(ValueError, match="axes"):
+        emmg.entangled_matmul_grouped_cuda(c[0], g, plan)
+
+
+@pytest.mark.requires_cuda
+def test_engine_on_the_default_device(cuda_device):
+    """Params made on the default device ("cuda") serve in an engine built
+    on the default device: both resolve to the current card's index."""
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    assert resolve_device() == resolve_device("cuda") == torch.device(
+        "cuda", torch.cuda.current_device())
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    params = get_model(cfg).init(torch.Generator("cuda").manual_seed(0), cfg,
+                                 max_seq=16)
+    eng = ServeEngine(cfg, ServeConfig(max_seq=16, ft_mode="entangle",
+                                       ft_scope="moe"), params)
+    eng.submit(Request(rid=0, prompt=np.arange(4, dtype=np.int32),
+                       max_new=3))
+    assert len(eng.run_to_completion()[0].out) == 3

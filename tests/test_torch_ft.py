@@ -143,7 +143,8 @@ def smoke_params():
 def test_prepare_params_q8_bit_exact(smoke_params, scope):
     params = smoke_params
     jprep = jplans.prepare_params(params, scope=scope, packed=True)
-    tprep = prepare_params(params_from_numpy(jax.tree.map(np.asarray, params)),
+    tprep = prepare_params(params_from_numpy(jax.tree.map(np.asarray, params),
+                                             device="cpu"),
                            scope=scope)
     jflat = jax.tree_util.tree_flatten_with_path(jprep)[0]
     tleaves = {}

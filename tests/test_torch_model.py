@@ -55,7 +55,8 @@ def ref():
 def test_prefill_and_decode_hidden_within_bf16_tolerance(ref):
     cfg = tget_smoke("llama3.2-1b")
     model = get_model(cfg)
-    params = params_from_numpy(jax.tree.map(np.asarray, ref["params"]))
+    params = params_from_numpy(jax.tree.map(np.asarray, ref["params"]),
+                               device="cpu")
     cache = model.init_cache(cfg, 4, 32, device="cpu")
     h, cache = model.prefill_chunk(
         params, torch.from_numpy(ref["tokens"]).long(), cfg, cache, pos0=0,
@@ -81,7 +82,7 @@ def test_layer_pieces_bit_identical(ref):
     rng = np.random.default_rng(1)
     x = rng.standard_normal((4, 8, 64)).astype(np.float32)
     p = jax.tree.map(lambda t: t[0], ref["params"]["stack"][0][0]["mlp"])
-    tp = params_from_numpy(jax.tree.map(np.asarray, p))
+    tp = params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
     jx = jnp.asarray(x).astype(jnp.bfloat16)
     tx = torch.from_numpy(x).to(torch.bfloat16)
     want = np.asarray(JL.apply_mlp(p, jx, cfg=cfg).astype(jnp.float32))

@@ -91,7 +91,8 @@ def ref():
         out[scope] = ({r.rid: np.asarray(r.out) for r in done},
                       set(eng.protected_census), eng.census,
                       np.stack(eng.logits_log))
-    return dict(params=params_from_numpy(jax.tree.map(np.asarray, params)),
+    return dict(params=params_from_numpy(jax.tree.map(np.asarray, params),
+                                         device="cpu"),
                 out=out)
 
 
