@@ -3,43 +3,53 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-It drives the port's two serving paths, each at its model's published
-widths with random weights from a seeded ``torch.Generator``: llama3.2-1b
-(dense decoder, 16 layers) and deepseek-v2-lite-16b (MLA attention, a
-dense first layer and 64-expert top-6 MoE layers; cut to 8 of its 27
-layers, since its float32 masters and int8 copies at all 27 layers do not
-fit one 80 GB card). Phases, each printing its results on lines of its
-own; any failed check raises and the script exits nonzero:
+It drives the port's two serving paths and its training path, each at its
+model's published widths with random weights from a seeded
+``torch.Generator``: llama3.2-1b (dense decoder, 16 layers) served and
+trained, and deepseek-v2-lite-16b (MLA attention, a dense first layer and
+64-expert top-6 MoE layers; cut to 8 of its 27 layers, since its float32
+masters and int8 copies at all 27 layers do not fit one 80 GB card)
+served. Phases, each printing its results on lines of its own; any failed
+check raises and the script exits nonzero:
 
-  1. build   — compile every CUDA source of the serving paths from the
-               checkout (one ``nvcc`` per source, all started together),
-               report the build seconds and the card's ``nvidia-smi`` name
-               and power limit;
+  1. build   — compile every CUDA source of the paths from the checkout
+               (one ``nvcc`` per source, all started together), report the
+               build seconds and the card's ``nvidia-smi`` name and power
+               limit;
   2. kernels — per path, hold each kernel bit for bit against its plain
-               PyTorch version on the card, at every shape the full-width
-               engine can send it (the vocab head plus the engine's own
-               startup census of protected sites at scope all: decode and
-               every prefill bucket, dense 4-tuples and grouped 5-tuples)
-               and at ragged small ones: every ``fuse_epilogue`` mode,
-               packed and unpacked weights, every failed stream, int32 and
-               dual-word plans; plus the poison check (the fused kernel
-               with ``failed=r`` equals the plain disentangle of the unfused
-               kernel's output with stream r overwritten by GARBAGE);
+               PyTorch version on the card: the entangled GEMMs at every
+               shape the full-width engine can send them (the vocab head
+               plus the engine's own startup census of protected sites at
+               scope all) and at ragged small ones, every
+               ``fuse_epilogue`` mode, packed and unpacked weights, every
+               failed stream, int32 and dual-word plans; the codec passes
+               at every gradient leaf of full-width llama3.2-1b as the
+               sync blocks it and at ragged widths, M = 3..8, every r;
+               plus the poison checks (stream r overwritten by GARBAGE
+               changes nothing);
   3. serve   — the port's ``ServeEngine`` serving the path's model: per
                protected ``ft_scope`` (llama: head, all; deepseek: moe,
                all) a healthy wave and a wave with ``failed_group=1`` must
                give equal tokens (EXACT ROLL-FORWARD), then ``ft_mode
-               none`` once and a profiler window; the kernels' launch
-               counts are set to 0 just before each path's waves and read
-               just after;
-  4. timings — each kernel, its plain version and its bound at its
-               main-path decode shapes: device time from a profiler trace
-               after warm-up.
+               none`` once and a profiler window;
+  4. train   — ``train_loop`` trains full-width llama3.2-1b with the
+               entangled gradient sync on the kernel codec (a fail-stopped
+               block at one step) and writes its final checkpoint; the
+               losses must be finite. EXACT ROLL-FORWARD (train): one
+               backward, synced healthy and with each of blocks 0-3 failed,
+               every synced leaf and the updated state bit-identical. Then
+               the mean step time per gradient sync and a profiler window;
+  5. timings — each kernel, its plain version and its bound at its
+               main-path shapes, after warm-up: device time per call from
+               the replay of a CUDA graph of many calls, and the kernel's
+               own time per launch from a profiler trace.
 
-The line before the last is one JSON object with a record per kernel;
-the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
-or outside a checkout of the repository, the script exits nonzero and
-prints no result.
+Every path sets the kernels' launch counts to 0 just before it is driven
+and reads them just after; each kernel of the path must have launched.
+The line before the last is one JSON object with a record per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+outside a checkout of the repository, the script exits nonzero and prints
+no result.
 """
 from __future__ import annotations
 
@@ -49,8 +59,10 @@ import gc
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -69,6 +81,11 @@ DEEPSEEK = "deepseek-v2-lite-16b"
 DEEPSEEK_LAYERS = 8  # 1 dense + 7 MoE layers at published widths
 SERVE = dict(max_batch=8, ft_M=4, max_seq=256, requests=8, prompt_len=8,
              max_new=8)
+# the training path: llama3.2-1b at published widths; the loop's steps
+# (block 1 of the entangled sync fail-stopped at FAIL_STEP), then the timed
+# steps of each gradient sync
+TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=2,
+             timed_steps=5)
 
 
 def log(msg: str) -> None:
@@ -124,28 +141,32 @@ def _rand(gen, lo, hi, shape, dev):
 
 
 class Checker:
-    """Kernel-vs-plain comparisons and poison checks of one kernel; keeps
-    the largest |kernel - plain| seen (0 when all agree) and the count."""
+    """Kernel-vs-plain comparisons of one kernel (and, for a GEMM, its
+    poison checks); keeps the largest |kernel - plain| seen (0 when all
+    agree) and the count. ``cuda_fn``/``plain_fn`` are the GEMM's pair for
+    ``compare``; the codec passes call ``equal`` with their own results."""
 
-    def __init__(self, cuda_fn, plain_fn):
+    def __init__(self, cuda_fn=None, plain_fn=None):
         self.cuda_fn, self.plain_fn = cuda_fn, plain_fn
         self.worst = 0
         self.n = 0
 
-    def compare(self, c, g, plan, mode, r, packed, what):
+    def equal(self, got, want, what):
         import torch
 
-        kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
-        k = self.cuda_fn(c, g, plan, **kw)
-        p = self.plain_fn(c, g, plan, **kw)
         torch.cuda.synchronize()
-        err = int((k.to(torch.int64) - p.to(torch.int64)).abs().max())
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         self.worst = max(self.worst, err)
         self.n += 1
         if err:
-            raise AssertionError(
-                f"kernel != plain for {what} mode={mode!r} failed={r} "
-                f"packed={packed}: max |diff| {err}")
+            raise AssertionError(f"kernel != plain for {what}: max |diff| "
+                                 f"{err}")
+
+    def compare(self, c, g, plan, mode, r, packed, what):
+        kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
+        self.equal(self.cuda_fn(c, g, plan, **kw),
+                   self.plain_fn(c, g, plan, **kw),
+                   f"{what} mode={mode!r} failed={r} packed={packed}")
 
     def sweep(self, c, g, plan, packed, what, modes):
         """Every mode of ``modes``, every failed stream where it extracts."""
@@ -271,6 +292,80 @@ def check_grouped(dev, chk, shapes):
             torch.cuda.empty_cache()
     log(f"[kernels] entangled_matmul_grouped full-width shapes: "
         f"{len(shapes)} main-path shapes x 2 plans, {chk.n - n0} comparisons "
+        f"bit-identical; poison check passed")
+
+
+def llama_grad_shapes(dev):
+    """{numel: leaf names} of every gradient leaf of full-width llama3.2-1b
+    (the stacked layout: one leaf per weight of all 16 layers), read from
+    freshly made params."""
+    import torch
+
+    from repro_torch.models.api import get_model
+    from repro_torch.tree import leaves_with_path
+
+    cfg = model_config(LLAMA)
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, TRAIN["seq"], device=dev)
+    out = {}
+    for path, t in leaves_with_path(params):
+        out.setdefault(t.numel(), []).append(
+            f"{path}{list(t.shape)}".replace("'", ""))
+    del params
+    free_cuda()
+    return out
+
+
+def check_codec(dev, checkers, grad_shapes):
+    """The entangle and disentangle passes against their plain versions:
+    ragged widths under every plan of Table I (M = 3..8; dual-word at w=32,
+    int32 at w=16) and every r, then every llama gradient leaf as the sync
+    blocks it, ``[M, ceil(n / M)]`` under the training plan, every r; the
+    poison check (row r overwritten by GARBAGE) everywhere. Full-range
+    int32 words."""
+    import torch
+
+    from repro_torch.core.failstop import GARBAGE
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import disentangle as kdis
+    from repro_torch.kernels import entangle as kent
+
+    chk_e, chk_d = checkers["entangle"], checkers["disentangle"]
+    gen = torch.Generator(device=dev).manual_seed(99)
+
+    def one(plan, n, what):
+        c = _rand(gen, -2**31, 2**31, (plan.M, n), dev)
+        eps = kent.entangle_cuda(c, plan)
+        chk_e.equal(eps, kent.entangle_plain(c, plan), what)
+        for r in range(plan.M):
+            got = kdis.disentangle_cuda(eps, plan, r)
+            chk_d.equal(got, kdis.disentangle_plain(eps, plan, r),
+                        f"{what} r={r}")
+            eps_r = eps[r].clone()
+            eps[r] = GARBAGE
+            chk_d.equal(kdis.disentangle_cuda(eps, plan, r), got,
+                        f"{what} r={r} poisoned")
+            eps[r] = eps_r
+
+    n0 = (chk_e.n, chk_d.n)
+    plans = [make_plan(M, 32) for M in range(3, 9)] + [make_plan(3, 16),
+                                                       make_plan(4, 16)]
+    for plan in plans:
+        for n in (1, 2, 3, 1023, 1025, 65537):
+            one(plan, n, f"plan(M={plan.M},l={plan.l},{plan.temp}) N={n}")
+    log(f"[kernels] entangle / disentangle ragged widths: {len(plans)} plans"
+        f" x 6 widths, {chk_e.n - n0[0]} / {chk_d.n - n0[1]} comparisons "
+        f"bit-identical; poison check passed")
+    n0 = (chk_e.n, chk_d.n)
+    plan = make_plan(TRAIN["ft_M"], 32)
+    for n, names in sorted(grad_shapes.items()):
+        one(plan, -(-n // plan.M), f"grad {names[0]} ({len(names)} leaves)")
+        free_cuda()
+    n_leaves = sum(map(len, grad_shapes.values()))
+    log(f"[kernels] entangle / disentangle at the {len(grad_shapes)} "
+        f"gradient-leaf sizes of full-width {LLAMA} ({n_leaves} "
+        f"leaves, [{plan.M}, ceil(n/{plan.M})], plan(M={plan.M},l={plan.l},"
+        f"{plan.temp})): {chk_e.n - n0[0]} / {chk_d.n - n0[1]} comparisons "
         f"bit-identical; poison check passed")
 
 
@@ -525,14 +620,306 @@ def _breakdown(dev, cfg, params, base):
     return dict(step_ms=none_ms, profile_wall_ms=1e3 * wall, busy_ms=busy)
 
 
+# ------------------------------------------------------------------ train --
+
+def _train_configs():
+    """(model config, TrainConfig, DataConfig) of the training path: the
+    entangled sync on the kernel codec, as ``examples/train_lm.py`` runs
+    the reference's (with its codec flag set to the kernels)."""
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    cfg = model_config(LLAMA)
+    tcfg = TrainConfig(
+        adamw=AdamWConfig(lr=1e-3, warmup_steps=1,
+                          total_steps=TRAIN["steps"]),
+        grad_sync="entangle", grad_codec="kernel", ft_M=TRAIN["ft_M"],
+        max_seq=TRAIN["seq"])
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                      batch_size=TRAIN["batch"])
+    return cfg, tcfg, dcfg
+
+
+def _batch(dcfg, step, dev):
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticLM
+
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in SyntheticLM(dcfg).batch(step).items()}
+
+
+def phase_train(dev, kernels, path_kernels, n_params):
+    """``train_loop`` on full-width llama3.2-1b: TRAIN["steps"] steps with
+    block 1 of the entangled sync fail-stopped at TRAIN["fail_step"], then
+    the final blocking checkpoint into a temporary directory (deleted
+    afterwards). Every kernel's count is set to 0 just before and read just
+    after; each of ``path_kernels`` must have launched, and the losses
+    must be finite. Returns (state, counts, summary)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.trainer import LoopConfig, train_loop
+
+    cfg, tcfg, dcfg = _train_configs()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    need = 3 * 4 * n_params  # float32 params and both moments
+    free = shutil.disk_usage(ckpt_dir).free
+    log(f"[train] {LLAMA} full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.4f} G "
+        f"params; batch {TRAIN['batch']} x seq {TRAIN['seq']}; grad_sync "
+        f"entangle (M={tcfg.ft_M}), codec {tcfg.grad_codec}; fail-stop of "
+        f"block 1 at step {TRAIN['fail_step']}; checkpoint "
+        f"{need / 1e9:.2f} GB into {ckpt_dir} ({free / 1e9:.1f} GB free)")
+    if free < 1.1 * need:
+        raise RuntimeError(f"the disk under {ckpt_dir} cannot hold the "
+                           f"{need / 1e9:.2f} GB checkpoint")
+    loop = LoopConfig(total_steps=TRAIN["steps"],
+                      ckpt_every=TRAIN["steps"] + 1, ckpt_dir=ckpt_dir,
+                      log_every=1, fail_block_at_step=TRAIN["fail_step"])
+    for k in kernels:
+        k["module"].launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        state, losses = train_loop(cfg, tcfg, dcfg, loop, log=log,
+                                   device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k["name"]: k["module"].launches for k in kernels}
+        files = list(pathlib.Path(ckpt_dir).rglob("*.npy"))
+        ckpt_bytes = sum(f.stat().st_size for f in files)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = {n: c / TRAIN["steps"] for n, c in counts.items()}
+    log(f"[train] train_loop: {TRAIN['steps']} steps + final checkpoint in "
+        f"{secs:.1f} s; losses {[float(x) for x in losses]}; kernel "
+        f"launches {counts} ({per_step} per step); max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; checkpoint {len(files)} leaves, "
+        f"{ckpt_bytes / 1e9:.3f} GB on disk (deleted)")
+    if len(losses) != TRAIN["steps"] or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses bad: {losses}")
+    if ckpt_bytes < need:
+        raise AssertionError(f"the checkpoint holds {ckpt_bytes} bytes, "
+                             f"less than the state's {need}")
+    for name in path_kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"training path")
+    return state, counts, dict(loop_s=secs, losses=[float(x) for x in losses],
+                               peak_gib=peak / 2**30,
+                               launches_per_step=per_step)
+
+
+def train_rollforward(dev, state):
+    """EXACT ROLL-FORWARD (train): ONE backward at full width (two
+    backwards need not agree bit for bit: the embedding's backward
+    accumulates with atomics), its gradients synced healthy and with each
+    block failed; every synced leaf must be bit-identical, the kernel codec
+    must equal the plain codec, and the AdamW update from the healthy and
+    the failed sync must give the same state."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.train.train_step import (apply_grads, loss_and_grads,
+                                              sync_grads)
+    from repro_torch.tree import leaves
+
+    cfg, tcfg, dcfg = _train_configs()
+    batch = _batch(dcfg, TRAIN["steps"], dev)
+    loss, grads = loss_and_grads(cfg, state["params"], batch)
+    with torch.no_grad():
+        healthy, _ = sync_grads(grads, tcfg)
+        plain, _ = sync_grads(grads, dc.replace(tcfg, grad_codec="plain"))
+        n = len(leaves(healthy))
+        bad = sum(not torch.equal(a, b)
+                  for a, b in zip(leaves(healthy), leaves(plain)))
+        del plain
+        if bad:
+            raise AssertionError(f"kernel codec != plain codec on {bad} of "
+                                 f"{n} synced leaves")
+        failed1 = None
+        for fb in range(tcfg.ft_M):
+            synced, diag = sync_grads(grads, tcfg, fb)
+            bad = sum(not torch.equal(a, b)
+                      for a, b in zip(leaves(healthy), leaves(synced)))
+            if bad or diag["ne_failed"] != fb:
+                raise AssertionError(f"failed block {fb}: {bad} of {n} "
+                                     f"synced leaves differ (RECOVERY "
+                                     f"FAILED)")
+            if fb == 1:
+                failed1 = synced
+            del synced
+        del grads
+    new_h = apply_grads(state, healthy, cfg, tcfg)
+    new_f = apply_grads(state, failed1, cfg, tcfg)
+    bad = sum(not torch.equal(a, b)
+              for a, b in zip(leaves(new_h), leaves(new_f)))
+    del new_h, new_f, healthy, failed1
+    free_cuda()
+    if bad:
+        raise AssertionError(f"updated state differs on {bad} leaves")
+    log(f"[train] {LLAMA} recovery summary: one backward (loss "
+        f"{loss.item():.4f}), {n} gradient leaves synced healthy and with "
+        f"failed_block 0, 1, 2, 3 on the kernel codec: every synced leaf "
+        f"bit-identical, kernel codec == plain codec, AdamW update from "
+        f"block 1 failed == healthy (EXACT ROLL-FORWARD (train))")
+
+
+def train_timings(dev, state):
+    """Mean train-step time per gradient sync (host clock around steps
+    that end in a synchronize, after TRAIN["warm_steps"] each), then the
+    device time of one entangled sync on the kernel codec and the device
+    idle share of one such step, from profiler windows."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.train.train_step import (loss_and_grads, make_train_step,
+                                              sync_grads)
+
+    cfg, tcfg, dcfg = _train_configs()
+    batch = _batch(dcfg, 0, dev)
+    out = {}
+    for sync, codec in (("spmd", "plain"), ("entangle", "plain"),
+                        ("entangle", "kernel"), ("checksum", "plain")):
+        step = make_train_step(cfg, dc.replace(tcfg, grad_sync=sync,
+                                               grad_codec=codec))
+        for _ in range(TRAIN["warm_steps"]):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(TRAIN["timed_steps"]):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        key = sync if sync != "entangle" else f"entangle/{codec}"
+        out[key] = 1e3 * sum(times) / len(times)
+        log(f"[train] step time, grad_sync {key}: mean "
+            f"{out[key]:.3f} ms over {len(times)} steps "
+            f"({', '.join(f'{1e3 * t:.3f}' for t in times)} ms)")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def busy(prof, match=None):
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (match is None or match in e.key)) / 1e3
+
+    def count(prof, match):
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and match in e.key)
+
+    _, grads = loss_and_grads(cfg, state["params"], batch)
+    torch.cuda.synchronize()
+    with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
+        sync_grads(grads, tcfg)
+        torch.cuda.synchronize()
+    out["sync_device_ms"] = busy(prof)
+    out["sync_codec_kernels_ms"] = busy(prof, "::entangle_kernel<") + busy(
+        prof, "::disentangle_kernel<")
+    # a trace can lose events: the sync launches one entangle and one
+    # disentangle per gradient leaf, so their counts show whether it did
+    out["sync_codec_launches_traced"] = (count(prof, "::entangle_kernel<"),
+                                         count(prof, "::disentangle_kernel<"))
+    del grads
+    step = make_train_step(cfg, tcfg)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    out["step_wall_ms"], out["step_busy_ms"] = wall, busy(prof)
+    out["step_codec_launches_traced"] = (
+        count(prof, "::entangle_kernel<"),
+        count(prof, "::disentangle_kernel<"))
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  reverse=True)
+    log(f"[profile] one entangled sync (kernel codec) of the full-width "
+        f"gradients: device {out['sync_device_ms']:.3f} ms, of which the "
+        f"entangle + disentangle kernels {out['sync_codec_kernels_ms']:.3f} "
+        f"ms (traced launches {out['sync_codec_launches_traced']})")
+    log(f"[profile] one train step (entangle/kernel) under the profiler: "
+        f"wall {wall:.3f} ms, device busy {out['step_busy_ms']:.3f} ms (idle "
+        f"{100 - 100 * out['step_busy_ms'] / wall:.1f}% of the profiled wall, "
+        f"{100 - 100 * out['step_busy_ms'] / out['entangle/kernel']:.1f}% of "
+        f"the unprofiled mean step; traced codec launches "
+        f"{out['step_codec_launches_traced']})")
+    for dev_us, key, count in rows[:10]:
+        log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:160]}")
+    del state
+    free_cuda()
+    return out
+
+
+def codec_timings(dev):
+    """The entangle and disentangle kernels, their plain versions and their
+    bounds at the largest gradient leaf of full-width llama3.2-1b (an MLP
+    gate / up stack, 16 x 2048 x 8192 words, as the sync's [4, n/4]
+    blocks); device time from a CUDA graph's replay and, for the kernel,
+    per launch from a profiler trace. The bound counts each input byte read
+    once and each output byte written once: the entangle reads all M rows,
+    the disentangle M-1 of them."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import disentangle as kdis
+    from repro_torch.kernels import entangle as kent
+
+    cfg = model_config(LLAMA)
+    plan = make_plan(TRAIN["ft_M"], 32)
+    M, n = plan.M, cfg.n_layers * cfg.d_model * cfg.d_ff // plan.M
+    gen = torch.Generator(device=dev).manual_seed(17)
+    c = _rand(gen, -2**31, 2**31, (M, n), dev)
+    eps = kent.entangle_cuda(c, plan)
+    rows = {}
+    for name, kern, plain, match, nbytes in (
+            ("entangle", lambda i: kent.entangle_cuda(c, plan),
+             lambda i: kent.entangle_plain(c, plan), "::entangle_kernel<",
+             2 * M * n * 4),
+            ("disentangle", lambda i: kdis.disentangle_cuda(eps, plan, 1),
+             lambda i: kdis.disentangle_plain(eps, plan, 1),
+             "::disentangle_kernel<", (2 * M - 1) * n * 4)):
+        ms = _graph_ms(kern, 20)
+        traced_ms = _device_ms(kern, 20, match=match, per=match)
+        plain_ms = _graph_ms(plain, 5)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        rows[name] = dict(shape=[M, n], ms=ms, kernel_only_ms=traced_ms,
+                          plain_ms=plain_ms,
+                          bound_ms=bound, bound_by="bytes", bytes=nbytes,
+                          gb_s=nbytes / ms / 1e6)
+        log(f"[timing] {name} [{M}, {n}] int32 (plan M={M}, l={plan.l}, "
+            f"{plan.temp}{', r=1' if name == 'disentangle' else ''}): "
+            f"kernel {ms:.4f} ms ({rows[name]['gb_s']:.0f} GB/s; per traced "
+            f"launch {traced_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes: "
+            f"{nbytes / 1e9:.3f} GB at 3.35 TB/s), {ms / bound:.2f}x bound; "
+            f"no single PyTorch call computes this function")
+    del c, eps
+    free_cuda()
+    return rows
+
+
 # ---------------------------------------------------------------- timings --
 
-def _device_ms(fn, iters, match=None):
+def _device_ms(fn, iters, match=None, per=None):
     """Mean device time of ``fn(i)`` in ms: the summed duration of the
     device-side events (kernels, fills, copies) that ``iters`` calls
     launch, from a ``torch.profiler`` trace — the host's launch gaps
     between calls are not counted. ``match`` keeps only events whose name
-    contains it (the hand-written kernel alone)."""
+    contains it (the hand-written kernel alone). ``per`` names an event
+    that each call launches exactly once (the hand-written kernel): the sum
+    is then divided by that event's recorded count, not by ``iters``,
+    because a trace can lose events (one run recorded 14 of 20 launches of
+    a kernel), and a lost launch would otherwise read as a faster one."""
     import torch
 
     for i in range(3):
@@ -543,12 +930,52 @@ def _device_ms(fn, iters, match=None):
         for i in range(iters):
             fn(i)
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (match is None or match in e.key))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in events
+             if match is None or match in e.key)
     if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / iters
+        raise RuntimeError(f"the profiler recorded no device time matching "
+                           f"{match!r} among {[e.key for e in events]}")
+    if per is None:
+        return us / 1e3 / iters
+    calls = sum(e.count for e in events if per in e.key)
+    if calls != iters:
+        log(f"[timing] the trace holds {calls} of {iters} launches of "
+            f"{per!r}; the mean is taken over the recorded ones")
+    return us / 1e3 / calls
+
+
+def _graph_ms(fn, iters):
+    """Mean device time of ``fn(i)`` in ms: ``iters`` calls captured in one
+    CUDA graph (after warm-up on a side stream, as capture requires), one
+    replay timed between CUDA events. Every launch is counted (a trace can
+    lose some, see :func:`_device_ms`) and the host's launch gaps are not
+    (a replay issues the whole graph at once), so it measures the plain
+    versions' many small ops and the kernels alike."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    free_cuda()
+    return start.elapsed_time(end) / iters
 
 
 def _timing_row(dev, site, c, gs, plan, cuda_fn, plain_fn, macs, nbytes,
@@ -564,10 +991,11 @@ def _timing_row(dev, site, c, gs, plan, cuda_fn, plain_fn, macs, nbytes,
     def kernel(i):
         return cuda_fn(c, gs[i % copies], plan, **kw)
 
-    ms = _device_ms(kernel, iters)
-    kernel_only = _device_ms(kernel, iters, match="emm_kernel")
-    plain_ms = _device_ms(lambda i: plain_fn(c, gs[i % copies], plan, **kw),
-                          max(3, iters // 5))
+    ms = _graph_ms(kernel, iters)
+    kernel_only = _device_ms(kernel, iters, match="emm_kernel",
+                             per="emm_kernel")
+    plain_ms = _graph_ms(lambda i: plain_fn(c, gs[i % copies], plan, **kw),
+                         max(3, iters // 5))
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * macs / (sms * INT32_LANES_PER_SM * BOOST_HZ)
     row = dict(site=site, shape=list(c.shape) + [list(gs[0].shape)], ms=ms,
@@ -671,10 +1099,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from repro_torch.kernels import disentangle as kdis
+    from repro_torch.kernels import entangle as kent
     from repro_torch.kernels import entangled_matmul as emm
     from repro_torch.kernels import entangled_matmul_grouped as emmg
 
     src = "src/repro_torch/kernels/csrc/entangled_matmul.cu"
+    codec_src = "src/repro_torch/kernels/csrc/codec_pass.cu"
     kernels = [
         dict(name="entangled_matmul", module=emm, route="cuda", source=src,
              replaces="src/repro/kernels/entangled_matmul.py:102",
@@ -684,7 +1115,14 @@ def main() -> int:
              source=src,
              replaces="src/repro/kernels/entangled_matmul_grouped.py:77",
              checker=Checker(emmg.entangled_matmul_grouped_cuda,
-                             emmg.entangled_matmul_grouped_plain))]
+                             emmg.entangled_matmul_grouped_plain)),
+        dict(name="disentangle", module=kdis, route="cuda", source=codec_src,
+             replaces="src/repro/kernels/disentangle.py:32",
+             checker=Checker()),
+        dict(name="entangle", module=kent, route="cuda", source=codec_src,
+             replaces="src/repro/kernels/entangle.py:26",
+             checker=Checker())]
+    by_name = {k["name"]: k for k in kernels}
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t_all = time.perf_counter()
@@ -699,26 +1137,49 @@ def main() -> int:
                            ["entangled_matmul", "entangled_matmul_grouped"],
                            ("moe", "all")),
     }
+    grad_shapes = llama_grad_shapes(dev)
+    check_codec(dev, {n: by_name[n]["checker"]
+                      for n in ("entangle", "disentangle")}, grad_shapes)
+    n_params = sum(n * len(v) for n, v in grad_shapes.items())
+    state, train_counts, train = phase_train(
+        dev, kernels, ["entangle", "disentangle"], n_params)
+    train_rollforward(dev, state)
+    train["timings"] = train_timings(dev, state)
+    del state
+    free_cuda()
     rows = phase_timings(dev)
+    rows.update(codec_timings(dev))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    train_path = f"{LLAMA} train"
     record = dict(kernels=[])
     for k in kernels:
-        head = rows[k["name"]][0]
+        name = k["name"]
+        by_path = {a: p["counts"][name] for a, p in paths.items()}
+        by_path[train_path] = train_counts[name]
+        if name in ("entangle", "disentangle"):
+            head = rows[name]
+            extra = dict(launches=train_counts[name],
+                         launches_per_train_step=train["launches_per_step"][
+                             name], timings=[head])
+        else:
+            head = rows[name][0]
+            extra = dict(
+                # the deepseek serving path launches both GEMM kernels
+                launches=paths[DEEPSEEK]["counts"][name],
+                launches_per_decode_step={
+                    a: {s: r["launches_per_decode_step"][name]
+                        for s, r in p["results"].items()}
+                    for a, p in paths.items()},
+                timings=rows[name])
         record["kernels"].append(dict(
-            name=k["name"], route=k["route"], source=k["source"],
-            replaces=k["replaces"],
-            # this slice's main path (deepseek) launches both kernels
-            launches=paths[DEEPSEEK]["counts"][k["name"]],
-            launches_by_path={a: p["counts"][k["name"]]
-                              for a, p in paths.items()},
-            launches_per_decode_step={
-                a: {s: r["launches_per_decode_step"][k["name"]]
-                    for s, r in p["results"].items()}
-                for a, p in paths.items()},
-            max_abs_err=k["checker"].worst, comparisons=k["checker"].n,
-            ms=head["ms"], plain_ms=head["plain_ms"],
-            bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-            library_ms=None, shape=head["shape"], timings=rows[k["name"]]))
+            name=name, route=k["route"], source=k["source"],
+            replaces=k["replaces"], launches=extra.pop("launches"),
+            launches_by_path=by_path, max_abs_err=k["checker"].worst,
+            comparisons=k["checker"].n, ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
+            **extra))
+    record["train"] = train
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

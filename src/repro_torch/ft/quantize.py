@@ -19,10 +19,12 @@ divide tensor by tensor.)
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from repro_torch.core.plan import EntanglePlan
-from repro_torch.kernels.codec import pack_int8
+from repro_torch.kernels.codec import PACK_LANES, pack_int8
 
 
 def quantize_weight(w: torch.Tensor) -> tuple:
@@ -37,14 +39,24 @@ def quantize_weight(w: torch.Tensor) -> tuple:
 def quantize_weight_stacked(w: torch.Tensor, *, packed: bool = False) -> dict:
     """Per-matrix int8 quantization of a stacked weight ``[..., K, N]``:
     every leading index gets its own scale. Returns ``{"w": int32
-    [..., K, N] (packed: [..., ceil(K/4), N]), "scale": float32 [...]}``."""
-    w = w.to(torch.float32)
-    amax = torch.clamp(w.abs().amax(dim=(-2, -1), keepdim=True), min=1e-9)
-    scale = torch.full_like(amax, 127.0) / amax
-    wq = torch.clamp(torch.round(w * scale), -127, 127).to(torch.int32)
-    if packed:
-        wq = pack_int8(wq, axis=-2)
-    return {"w": wq, "scale": scale[..., 0, 0]}
+    [..., K, N] (packed: [..., ceil(K/4), N]), "scale": float32 [...]}``.
+
+    One matrix is quantized (and packed) at a time into a preallocated
+    result, so the float32 and int64 temporaries are one matrix's, not the
+    whole stack's (an expert stack [layers, E, K, N] would otherwise need
+    several times its size at once); the bits are the same."""
+    lead, (K, N) = w.shape[:-2], w.shape[-2:]
+    rows = -(-K // PACK_LANES) if packed else K
+    out = torch.empty((*lead, rows, N), dtype=torch.int32, device=w.device)
+    scale = torch.empty(lead, dtype=torch.float32, device=w.device)
+    for idx in itertools.product(*(range(n) for n in lead)):
+        wi = w[idx].to(torch.float32)
+        amax = torch.clamp(wi.abs().amax(), min=1e-9)
+        s = torch.full_like(amax, 127.0) / amax
+        wq = torch.clamp(torch.round(wi * s), -127, 127).to(torch.int32)
+        out[idx] = pack_int8(wq, axis=-2) if packed else wq
+        scale[idx] = s
+    return {"w": out, "scale": scale}
 
 
 def activation_budget(plan: EntanglePlan, depth: int) -> int:

@@ -24,7 +24,8 @@
 // The epilogue is eq. (16-19) of the paper: Horner telescoping of the M-1
 // accumulators other than stream r (in one 32-bit word, or in a native
 // 64-bit word for the dual-word plans), the sign-extended bit-field split
-// of d_r and d_q, and the eq. (19) chain. In the extracting modes stream r
+// of d_r and d_q, and the eq. (19) chain — disentangle_one of codec.cuh,
+// which the standalone disentangle pass (codec_pass.cu) shares. In the extracting modes stream r
 // is not computed at all: the block stages and accumulates only the M-1
 // other streams, in the rotated order (r+1, ..., r+M-1) mod M that the
 // telescoping consumes, so those modes do (M-1)/M of the multiply-adds.
@@ -55,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "codec.cuh"
+
 namespace {
 
 constexpr int THREADS = 128;          // threads per block
@@ -84,49 +87,6 @@ __device__ __forceinline__ uint32_t lane_s8(uint32_t w, int j) {
   const uint32_t sel = j | ((8 | j) << 4) | ((8 | j) << 8) | ((8 | j) << 12);
   asm("prmt.b32 %0, %1, 0, %2;" : "=r"(d) : "r"(w), "r"(sel));
   return d;
-}
-
-// Disentangle one output position from the M-1 surviving accumulators in
-// rotated order, rot[j] = stream (r + 1 + j) mod M; o_rot[i] receives the
-// recovered value of stream (r + i) mod M.
-template <int M>
-__device__ __forceinline__ void disentangle_one(const uint32_t (&rot)[M],
-                                                uint32_t (&o_rot)[M], int l,
-                                                int dualword) {
-  const int B = (M - 1) * l;  // d_r sits above bit B of d_temp; B <= 31
-  uint32_t d_r, d_q;
-  if (dualword) {
-    uint64_t t = (uint64_t)(int64_t)(int32_t)rot[0];
-#pragma unroll
-    for (int i = 1; i < M - 1; ++i) {
-      const uint64_t d = (uint64_t)(int64_t)(int32_t)rot[i];
-      t = (t << l);
-      t = (i & 1) ? t - d : t + d;  // sign (-1)^i of the telescoping sum
-    }
-    const int64_t t_lo = ((int64_t)(t << (64 - B))) >> (64 - B);
-    d_q = (M & 1) ? (uint32_t)(0ull - (uint64_t)t_lo) : (uint32_t)t_lo;
-    d_r = (uint32_t)((t - (uint64_t)t_lo) >> B);  // bits [B, B+32)
-  } else {
-    uint32_t t = rot[0];
-#pragma unroll
-    for (int i = 1; i < M - 1; ++i) {
-      t = (t << l);
-      t = (i & 1) ? t - rot[i] : t + rot[i];
-    }
-    const int sh = 32 - B;
-    const int32_t t_lo = ((int32_t)(t << sh)) >> sh;
-    d_q = (M & 1) ? 0u - (uint32_t)t_lo : (uint32_t)t_lo;
-    d_r = (uint32_t)(((int32_t)(t - (uint32_t)t_lo)) >> B);
-  }
-  // eq. (19) chain from d_r
-  uint32_t prev = d_r;
-  o_rot[0] = d_r;
-  o_rot[M - 1] = d_q;
-#pragma unroll
-  for (int i = 1; i < M - 1; ++i) {
-    prev = rot[i - 1] - (prev << l);
-    o_rot[i] = prev;
-  }
 }
 
 // Accumulator slot j holds stream j, or in the extracting modes stream

@@ -31,7 +31,7 @@ registers and reuses it for every stream and row of the tile, entangles
 c while staging it in shared memory, and splits K across blocks when N is
 too narrow to fill the card (see the source's header). It is built with
 ``nvcc`` at first use into ``_build/`` (listed in ``.gitignore``) and bound
-with ``ctypes``.
+with ``ctypes`` (:mod:`.nvcc`).
 
 :func:`entangled_matmul_cuda` launches the kernel on a CUDA tensor and
 raises on anything it does not take; :func:`entangled_matmul_plain` is the
@@ -41,17 +41,13 @@ card. ``launches`` counts kernel launches (never plain-version calls).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import time
 from typing import Optional
 
 import torch
 
 from repro_torch.core.plan import EntanglePlan
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.codec import (PACK_LANES, disentangle_block,
                                        entangle_block, unpack_int8, wrap_i32)
 
@@ -64,10 +60,6 @@ FUSE_MODES = (False, True, "chain", "chain_final")
 launches = 0
 
 _SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "entangled_matmul.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-_lib = None
 
 
 def _check_mode(fuse_epilogue) -> None:
@@ -137,53 +129,24 @@ def entangled_matmul_plain(c: torch.Tensor, g: torch.Tensor,
 # ------------------------------------------------------------- the kernel --
 
 def build(verbose: bool = False) -> tuple:
-    """Compile ``csrc/entangled_matmul.cu`` into ``_build/`` if needed.
+    """Compile ``csrc/entangled_matmul.cu`` (and the ``csrc/codec.cuh`` it
+    includes) into ``_build/`` if needed; see :func:`.nvcc.build`."""
+    return nvcc.build(_SRC, verbose)
 
-    The library's name carries a hash of the source, so an edited source
-    rebuilds. Returns ``(path, seconds, compiler_log)``; ``seconds`` is 0
-    when the library was already built. ``verbose`` adds ``-Xptxas -v``
-    (registers, shared memory and spills per kernel) to the log.
-    """
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libentangled_matmul_{digest}.so"
-    if so.exists() and not verbose:
-        return so, 0.0, ""
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError(
-            f"nvcc not found (looked on PATH and at {nvcc}); the CUDA "
-            f"kernel needs the CUDA toolkit to build")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(_SRC)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {_SRC}:\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, so)
-    return so, secs, res.stdout + res.stderr
+
+def _declare(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.emmg_launch.argtypes = [p, p, p, p, p] + [i] * 14 + [p]
+    lib.emmg_launch.restype = i
+    lib.emm_error_string.argtypes = [i]
+    lib.emm_error_string.restype = ctypes.c_char_p
+    for fn in ("emm_threads", "emm_block_n", "emm_block_k"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = i
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        so, _, _ = build()
-        lib = ctypes.CDLL(str(so))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.emmg_launch.argtypes = [p, p, p, p, p] + [i] * 14 + [p]
-        lib.emmg_launch.restype = i
-        lib.emm_error_string.argtypes = [i]
-        lib.emm_error_string.restype = ctypes.c_char_p
-        for fn in ("emm_threads", "emm_block_n", "emm_block_k"):
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = i
-        _lib = lib
-    return _lib
+    return nvcc.load(_SRC, _declare)
 
 
 def _rows_per_block(B: int, M: int) -> int:

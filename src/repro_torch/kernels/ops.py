@@ -1,5 +1,6 @@
-"""Dispatch over the port's kernels (the serving slices of
-:mod:`repro.kernels.ops`): the dense and the grouped entangled GEMM.
+"""Dispatch over the port's kernels (the serving and training slices of
+:mod:`repro.kernels.ops`): the dense and the grouped entangled GEMM, and
+the standalone entangle and disentangle passes.
 
 The device of the operands picks the implementation, and nothing else
 does: a CPU tensor goes to the plain PyTorch version, a CUDA tensor to the
@@ -15,6 +16,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.plan import EntanglePlan
+from repro_torch.kernels import disentangle as dis
+from repro_torch.kernels import entangle as ent
 from repro_torch.kernels import entangled_matmul as emm
 from repro_torch.kernels import entangled_matmul_grouped as emmg
 
@@ -57,3 +60,34 @@ def entangled_matmul_grouped(c: torch.Tensor, g: torch.Tensor,
             plan, **kw)
     raise ValueError(f"entangled_matmul_grouped needs both operands on the "
                      f"CPU or both on CUDA, got {c.device} and {g.device}")
+
+
+def _codec_pass(name: str, x: torch.Tensor, plain, cuda) -> torch.Tensor:
+    """Flatten ``[M, ...]`` to ``[M, N]``, run the pass on the operand's
+    device, and restore the shape."""
+    flat = x.reshape(x.shape[0], -1)
+    if flat.device.type == "cpu":
+        out = plain(flat)
+    elif flat.is_cuda:
+        out = cuda(flat.to(torch.int32).contiguous())
+    else:
+        raise ValueError(f"{name} needs a CPU or CUDA tensor, got {x.device}")
+    return out.reshape(x.shape)
+
+
+def entangle(c: torch.Tensor, plan: EntanglePlan) -> torch.Tensor:
+    """Entangle M streams of any trailing shape: ``c [M, ...]`` int ->
+    int32 of the same shape."""
+    return _codec_pass("entangle", c, lambda f: ent.entangle_plain(f, plan),
+                       lambda f: ent.entangle_cuda(f, plan))
+
+
+def disentangle(delta: torch.Tensor, plan: EntanglePlan, *,
+                failed: Optional[int] = None) -> torch.Tensor:
+    """Recover all M streams from entangled ``delta [M, ...]`` of any
+    trailing shape, never reading stream ``failed`` (None means stream 0,
+    as in the reference)."""
+    r = 0 if failed is None else failed
+    return _codec_pass("disentangle", delta,
+                       lambda f: dis.disentangle_plain(f, plan, r),
+                       lambda f: dis.disentangle_cuda(f, plan, r))

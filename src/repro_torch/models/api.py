@@ -1,8 +1,11 @@
 """Model API of the port, decoder-only: the dense and MoE families (the
-serving part of :mod:`repro.models.api`)::
+serving part of :mod:`repro.models.api`, and training for the dense
+decoder)::
 
     model = get_model(cfg)
     params = model.init(gen, cfg, max_seq, device=dev)  # gen: torch.Generator
+    logits = model.forward_train(params, batch, cfg)    # [B, T, V] float32
+    loss = lm_loss(logits, batch, cfg)
     cache = model.init_cache(cfg, batch, max_seq, device=dev)
     h, cache = model.prefill_chunk(params, tokens, cfg, cache,
                                    pos0=0, lengths=lens, ft=ctx)  # [B, C, D]
@@ -31,10 +34,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
 
 
 class Model(NamedTuple):
     init: Callable
+    forward_train: Callable  # (params, batch, cfg) -> float32 logits [B, T, V]
     prefill_chunk: Callable
     decode_hidden: Callable
     head_project: Callable  # (params, h [B, D], cfg) -> logits [B, V]
@@ -46,11 +51,22 @@ def _init(gen: torch.Generator, cfg: ModelConfig, max_seq: int,
           device=None) -> dict:
     dev = resolve_device(device)
     p = {"embed": T.init_embed(gen, cfg), "stack": T.init_stack(gen, cfg)}
-    return T.tree_map(lambda t: t.to(dev), p)
+    return tree_map(lambda t: t.to(dev), p)
 
 
 def _init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     return T.init_stack_cache(cfg, batch, max_seq, resolve_device(device))
+
+
+def _forward_train(p, batch, cfg: ModelConfig):
+    """Logits of a training batch ``{"tokens": [B, T]}``: the whole
+    sequence, causal, no cache (the dense decoder; MLA and MoE blocks raise
+    "not ported yet" in train mode). The params may be autograd leaves."""
+    if cfg.mtp:
+        raise NotImplementedError("the MTP head is not ported yet")
+    x = T.embed_tokens(p["embed"], batch["tokens"], cfg)
+    h = T.apply_stack(p["stack"], x, cfg=cfg, mode="train")
+    return T.logits_head(p["embed"], h, cfg)
 
 
 def _prefill_chunk(p, tokens, cfg: ModelConfig, cache, *, pos0: int = 0,
@@ -80,7 +96,8 @@ def _head_weights(p, cfg: ModelConfig):
     return T.head_weights(p["embed"], cfg)
 
 
-DECODER_MODEL = Model(init=_init, prefill_chunk=_prefill_chunk,
+DECODER_MODEL = Model(init=_init, forward_train=_forward_train,
+                      prefill_chunk=_prefill_chunk,
                       decode_hidden=_decode_hidden,
                       head_project=_head_project, head_weights=_head_weights,
                       init_cache=_init_cache)
@@ -91,3 +108,26 @@ def get_model(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet")
     return DECODER_MODEL
+
+
+# ------------------------------------------------------------------- loss ----
+
+def lm_loss(logits: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross entropy over the batch's ``loss_mask`` (all ones
+    when absent): the reference's ``loss_impl='naive'`` (a float32
+    log-softmax over the whole vocab). The streamed CE and the MTP term
+    are not ported yet."""
+    if cfg.loss_impl != "naive":
+        raise NotImplementedError(
+            f"loss_impl={cfg.loss_impl!r} is not ported yet (only 'naive')")
+    if isinstance(logits, tuple):
+        raise NotImplementedError("the MTP loss term is not ported yet")
+    tokens = batch["tokens"]
+    full_mask = batch.get("loss_mask")
+    if full_mask is None:
+        full_mask = torch.ones_like(tokens)
+    mask = full_mask[:, 1:].to(torch.float32)
+    lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    ll = torch.take_along_dim(lp, tokens[:, 1:, None].to(torch.int64),
+                              dim=-1)[..., 0]
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)

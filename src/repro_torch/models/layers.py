@@ -4,8 +4,9 @@ dense-decoder, MLA and MoE parts of :mod:`repro.models.layers`).
 Conventions, as in the reference:
   * params are nested dicts of tensors (float32 masters; matmuls run in
     bfloat16, :data:`ACT_DTYPE`);
-  * ``mode`` is ``prefill`` or ``decode``; decode processes T=1 tokens
-    against a KV cache with a per-row position vector ``pos`` [B];
+  * ``mode`` is ``prefill``, ``decode`` or ``train``; decode processes
+    T=1 tokens against a KV cache with a per-row position vector ``pos``
+    [B]; train runs a whole sequence with no cache (dense decoder only);
   * :func:`dense` / :func:`dense_fanout` are the protected-GEMM
     chokepoints: with an :class:`~repro_torch.ft.FTContext` whose scope
     covers the site, the projection runs as the fused entangled int8 GEMM;
@@ -26,6 +27,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
+# largest T * S of the reference's materialized attention (FLASH_THRESHOLD
+# 2048: T * S <= 2048**2 / 4); train mode beyond it needs the flash path
+TRAIN_SCORES_MAX = 2048 * 2048 // 4
 
 
 def he_init(gen: torch.Generator, shape: tuple, fan_in: int) -> torch.Tensor:
@@ -93,10 +97,11 @@ def dense_fanout(ps, x: torch.Tensor, *, ft, sites) -> list:
 def _positions(pos, mode: str, B: int, T: int, device) -> tuple:
     """``([B, T] absolute positions, prefill offset)`` of a step: decode
     takes the per-row position vector ``pos`` [B] (T == 1), prefill the
-    chunk offset ``pos`` (int, None = 0) shared by every row."""
+    chunk offset ``pos`` (int, None = 0) shared by every row, train the
+    whole sequence from position 0."""
     if mode == "decode":
         return pos.to(torch.int64)[:, None].expand(B, T), 0
-    if mode != "prefill":
+    if mode not in ("prefill", "train"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported yet")
     off = int(pos or 0)
     return (torch.arange(T, device=device) + off)[None].expand(B, T), off
@@ -151,7 +156,11 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     and values of all T positions land at ``pos..pos+T-1`` (bucket padding
     included, as in the reference), and the queries attend causally to
     every cached position before them. ``decode``: ``pos`` is the per-row
-    position vector [B] of the one new token.
+    position vector [B] of the one new token. ``train``: no cache (it must
+    be None, so that nothing is written in place under autograd); the
+    sequence attends causally to itself, through the materialized-score
+    path, which the reference takes while ``T * T <= 2048**2 / 4`` (its
+    flash path beyond that is not ported yet).
     """
     from repro_torch.models.attention_core import attend, attend_decode
 
@@ -167,7 +176,15 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     if rope_theta:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
-    if mode == "decode":
+    if mode == "train":
+        if cache is not None:
+            raise ValueError("train mode takes no cache")
+        if T * T > TRAIN_SCORES_MAX:
+            raise NotImplementedError(
+                f"train attention over T={T} needs the reference's flash "
+                f"path, which is not ported yet (T*T <= {TRAIN_SCORES_MAX})")
+        k_all, v_all = k, v
+    elif mode == "decode":
         rows = torch.arange(B, device=x.device)
         cache["k"][rows, positions[:, 0]] = k[:, 0]
         cache["v"][rows, positions[:, 0]] = v[:, 0]
@@ -234,6 +251,8 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
     from repro_torch.models.attention_core import attend, attend_decode
 
     m = cfg.mla
+    if mode == "train":
+        raise NotImplementedError("MLA in train mode is not ported yet")
     if cfg.mla_absorb:
         raise NotImplementedError("absorbed MLA (mla_absorb) is not ported "
                                   "yet")

@@ -11,7 +11,8 @@ each a tuple (one entry per block of the unit) of dicts whose leaves carry
 a leading ``[repeat]`` axis — so that the reference's params bridge over
 leaf for leaf. The reference runs a unit with ``lax.scan``; here a Python
 loop walks the stack, handing each layer views of its slice of the params
-and of the cache.
+and of the cache (or, in train mode, autograd views of the stacked
+leaves).
 """
 from __future__ import annotations
 
@@ -22,15 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-
-
-def tree_map(fn, node):
-    """Apply ``fn`` to every tensor leaf of nested dicts / lists / tuples."""
-    if isinstance(node, dict):
-        return {k: tree_map(fn, v) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(tree_map(fn, v) for v in node)
-    return fn(node)
+from repro_torch.tree import leaves, unflatten
 
 
 def _init_attn(gen, cfg: ModelConfig, repeat: int) -> dict:
@@ -106,21 +99,42 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for blocks, repeat in _check_pattern(cfg)]
 
 
-def apply_stack(units_params, x, *, cfg: ModelConfig, caches, pos, mode,
-                lengths=None, ft=None):
-    """Run every layer of every pattern unit in order; the caches are
-    written in place. ``lengths`` [B] (bucketed prefill) are the rows' true
-    prompt lengths. Each layer gets its slice of the stacked params —
-    startup-quantized q8 stacks included, so an expert stack's scales
-    ``[repeat, E]`` reach the grouped site as ``[E]``. Returns the hidden
-    states."""
+def _layers(tree, repeat: int) -> list:
+    """Per-layer views of a stacked subtree (every leaf ``[repeat, ...]``):
+    one ``unbind`` per leaf, so that under autograd a stack's gradient is
+    gathered by one node instead of one full-size scatter per layer."""
+    per_leaf = [t.unbind(0) for t in leaves(tree)]
+    return [unflatten(tree, [u[i] for u in per_leaf]) for i in range(repeat)]
+
+
+def apply_stack(units_params, x, *, cfg: ModelConfig, caches=None, pos=None,
+                mode: str, lengths=None, ft=None):
+    """Run every layer of every pattern unit in order. ``mode`` is
+    ``prefill`` / ``decode`` (the caches are written in place) or
+    ``train`` (no caches; the params may be autograd leaves). ``lengths``
+    [B] (bucketed prefill) are the rows' true prompt lengths. Each layer
+    gets its slice of the stacked params — startup-quantized q8 stacks
+    included, so an expert stack's scales ``[repeat, E]`` reach the grouped
+    site as ``[E]``. Returns the hidden states."""
+    if mode == "train":
+        if caches is not None:
+            raise ValueError("train mode takes no caches")
+        if cfg.remat != "none":
+            raise NotImplementedError(
+                f"remat={cfg.remat!r} is not ported yet (only 'none')")
     for u, (blocks, repeat) in enumerate(_check_pattern(cfg)):
+        for b, name in enumerate(blocks):
+            if mode == "train" and name != "attn_dense":
+                raise NotImplementedError(
+                    f"block {name!r} in train mode is not ported yet")
+        p_u = [_layers(p, repeat) for p in units_params[u]]
+        c_u = ([_layers(c, repeat) for c in caches[u]] if caches is not None
+               else [[None] * repeat for _ in blocks])
         for i in range(repeat):
             for b, name in enumerate(blocks):
-                p_i = tree_map(lambda t: t[i], units_params[u][b])
-                c_i = tree_map(lambda t: t[i], caches[u][b])
-                x = BLOCKS[name].apply(p_i, x, cfg=cfg, cache=c_i, pos=pos,
-                                       mode=mode, lengths=lengths, ft=ft)
+                x = BLOCKS[name].apply(p_u[b][i], x, cfg=cfg,
+                                       cache=c_u[b][i], pos=pos, mode=mode,
+                                       lengths=lengths, ft=ft)
     return x
 
 
@@ -136,6 +150,11 @@ def init_embed(gen, cfg: ModelConfig) -> dict:
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return p["tok"][tokens].to(L.ACT_DTYPE)
+
+
+def logits_head(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """float32 logits of the final-norm'd hidden states (train mode)."""
+    return head_project(p, final_hidden(p, x, cfg), cfg)
 
 
 def final_hidden(p, x, cfg: ModelConfig) -> torch.Tensor:

@@ -53,8 +53,9 @@ from repro_torch.ft.heads import (ft_logits_decode, ft_logits_prefill,
                                   quantize_head)
 from repro_torch.kernels.codec import pack_int8
 from repro_torch.models.api import get_model
-from repro_torch.models.transformer import readout_scale, tree_map
+from repro_torch.models.transformer import readout_scale
 from repro_torch.serve.scheduler import ChunkScheduler
+from repro_torch.tree import tree_map
 
 
 def geometric_buckets(max_seq: int, base: int = 8) -> tuple:

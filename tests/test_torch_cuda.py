@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (the dense and the grouped entangled
-GEMM) against their plain versions, on the GPU.
+GEMM, the standalone entangle and disentangle passes) against their plain
+versions, on the GPU.
 
 Marked ``requires_cuda``: it skips without a CUDA device (the kernels have
 no CPU mode). It imports no JAX, so it also runs on a GPU machine that has
@@ -14,6 +15,8 @@ import torch
 from repro_torch.core.entangle import disentangle
 from repro_torch.core.failstop import GARBAGE
 from repro_torch.core.plan import make_plan
+from repro_torch.kernels import disentangle as kdis
+from repro_torch.kernels import entangle as kent
 from repro_torch.kernels import entangled_matmul as emm
 from repro_torch.kernels import entangled_matmul_grouped as emmg
 from repro_torch.kernels.codec import pack_int8
@@ -148,3 +151,52 @@ def test_engine_on_the_default_device(cuda_device):
     eng.submit(Request(rid=0, prompt=np.arange(4, dtype=np.int32),
                        max_new=3))
     assert len(eng.run_to_completion()[0].out) == 3
+
+
+CODEC_PLANS = [(M, 32) for M in range(3, 9)] + [(3, 16), (4, 16)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M,w", CODEC_PLANS)
+def test_cuda_entangle_disentangle_match_plain(cuda_device, M, w):
+    """The entangle and disentangle passes == their plain versions bit for
+    bit on full-range words, ragged N, every r; the poison check (row r
+    overwritten by GARBAGE gives the healthy result); one launch per
+    call."""
+    plan = make_plan(M, w)
+    for n in (1, 2, 3, 1023, 1025, 65537):
+        rng = np.random.default_rng(M * n + w)
+        c = torch.from_numpy(rng.integers(
+            -2**31, 2**31, size=(M, n), dtype=np.int64).astype(np.int32)
+        ).to(cuda_device)
+        before = (kent.launches, kdis.launches)
+        eps = kent.entangle_cuda(c, plan)
+        torch.testing.assert_close(eps, kent.entangle_plain(c, plan),
+                                   rtol=0, atol=0)
+        for r in range(M):
+            got = kdis.disentangle_cuda(eps, plan, r)
+            torch.testing.assert_close(got, kdis.disentangle_plain(eps, plan, r),
+                                       rtol=0, atol=0)
+            bad = eps.clone()
+            bad[r] = GARBAGE
+            torch.testing.assert_close(kdis.disentangle_cuda(bad, plan, r),
+                                       got, rtol=0, atol=0)
+        assert (kent.launches, kdis.launches) == (before[0] + 1,
+                                                  before[1] + 2 * M)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_codec_passes_reject_bad_inputs(cuda_device):
+    plan = make_plan(4, 32)
+    c = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    for fn in (lambda x: kent.entangle_cuda(x, plan),
+               lambda x: kdis.disentangle_cuda(x, plan, 1)):
+        with pytest.raises(TypeError):
+            fn(c.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.zeros((8, 4), dtype=torch.int32,
+                           device=cuda_device).T)
+        with pytest.raises(ValueError, match="M=4"):
+            fn(c[:3])
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(c.cpu())

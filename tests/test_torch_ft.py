@@ -168,3 +168,39 @@ def test_prepare_params_q8_bit_exact(smoke_params, scope):
         n_q8 += "q8" in key
     assert not tleaves  # same tree, leaf for leaf
     assert n_q8 == {"qkv": 6, "all": 14}[scope]  # (w, scale) per site
+
+
+def _whole_stack_q8(w: torch.Tensor, packed: bool) -> dict:
+    """The whole-stack quantization ``quantize_weight_stacked`` ran before
+    it went one leading index at a time (the float32 stack, its int32 grid
+    and, packed, its int64 lanes all at once): the bits to keep."""
+    from repro_torch.kernels.codec import pack_int8
+
+    w = w.to(torch.float32)
+    amax = torch.clamp(w.abs().amax(dim=(-2, -1), keepdim=True), min=1e-9)
+    scale = torch.full_like(amax, 127.0) / amax
+    wq = torch.clamp(torch.round(w * scale), -127, 127).to(torch.int32)
+    return {"w": pack_int8(wq, axis=-2) if packed else wq,
+            "scale": scale[..., 0, 0]}
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_quantize_weight_stacked_per_index_bit_exact(packed):
+    """One leading index at a time gives the whole-stack bits and the
+    reference's, on a [3, 5, 64, 40] expert-like stack (and a K that packs
+    raggedly)."""
+    rng = np.random.default_rng(5)
+    for shape in ((3, 5, 64, 40), (2, 3, 13, 7)):
+        w = (rng.standard_normal(shape) / 7).astype(np.float32)
+        w[1, 2] *= 40  # one matrix on its own scale
+        got = quantize_weight_stacked(torch.from_numpy(w), packed=packed)
+        old = _whole_stack_q8(torch.from_numpy(w), packed)
+        ref = jq.quantize_weight_stacked(jnp.asarray(w), packed=packed)
+        assert got["w"].dtype == torch.int32 and got["w"].is_contiguous()
+        assert got["scale"].shape == shape[:-2]
+        np.testing.assert_array_equal(got["w"].numpy(), old["w"].numpy())
+        np.testing.assert_array_equal(got["w"].numpy(), _np(ref["w"]))
+        np.testing.assert_array_equal(got["scale"].numpy(),
+                                      old["scale"].numpy())
+        np.testing.assert_array_equal(got["scale"].numpy(),
+                                      _np(ref["scale"]))
