@@ -9,8 +9,11 @@ model's published widths with random weights from a seeded
 trained, and deepseek-v2-lite-16b (MLA attention, a dense first layer and
 64-expert top-6 MoE layers; cut to 8 of its 27 layers, since its float32
 masters and int8 copies at all 27 layers do not fit one 80 GB card)
-served. Phases, each printing its results on lines of its own; any failed
-check raises and the script exits nonzero:
+served; and the paper's own experiment, the Fig. 2 stream convolution
+(M = 3 and 8 streams of 1e6 int32 samples, kernel sizes 100..4500, nothing
+cut) through the fail-stop engine ``run_protected``. Phases, each printing
+its results on lines of its own; any failed check raises and the script
+exits nonzero:
 
   1. build   — compile every CUDA source of the paths from the checkout
                (one ``nvcc`` per source, all started together), report the
@@ -39,7 +42,18 @@ check raises and the script exits nonzero:
                backward, synced healthy and with each of blocks 0-3 failed,
                every synced leaf and the updated state bit-identical. Then
                the mean step time per gradient sync and a profiler window;
-  5. timings — each kernel, its plain version and its bound at its
+  5. stream-conv — the conv, entangled conv and checksum kernels held
+               against their plain versions (ragged shapes at K_f 1..4500,
+               every plan, mode, packing and failed stream; the depthwise
+               model shape [4, 8, 8192, 512]; the stream-conv shapes); then
+               the path: ``run_protected("conv")`` under none / entangle /
+               checksum / mr with every failed stream, and the fused
+               entangled conv with every failed stream, must equal the
+               failure-intolerant conv bit for bit (EXACT ROLL-FORWARD
+               (stream conv)) per (M, K), and every other LSB op must
+               recover exactly at the demo's size; then the Fig. 2 overheads
+               of each family against the conventional conv on the card;
+  6. timings — each kernel, its plain version and its bound at its
                main-path shapes, after warm-up: device time per call from
                the replay of a CUDA graph of many calls, and the kernel's
                own time per launch from a profiler trace.
@@ -86,6 +100,16 @@ SERVE = dict(max_batch=8, ft_M=4, max_seq=256, requests=8, prompt_len=8,
 # steps of each gradient sync
 TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=2,
              timed_steps=5)
+# the stream-conv path: the paper's Fig. 2 configuration
+# (repro_torch/configs/stream_conv.py: N_in = 1e6, K in 100..4500) at the
+# stream counts its benchmark runs, nothing cut
+STREAM_MS = (3, 8)
+# ragged conv shapes of the kernel checks, (B, D, T, K_f)
+CONV_SHAPES = [(2, 5, 33, 1), (1, 3, 700, 2), (3, 6, 1029, 4),
+               (1, 1, 3001, 100), (1, 1, 5003, 4500)]
+# the depthwise model shape (B, D, T, K_f): the Mamba conv1d of
+# falcon-mamba-7b (d_inner 8192, d_conv 4) over 8 rows of 512 steps, M = 4
+DEPTHWISE = (8, 8192, 512, 4)
 
 
 def log(msg: str) -> None:
@@ -908,6 +932,497 @@ def codec_timings(dev):
     return rows
 
 
+# ----------------------------------------------------------- stream conv --
+
+def check_conv(dev, checkers):
+    """The plain and the entangled conv kernels and the checksum kernel
+    against their plain versions on full-range int32 words: ragged small
+    shapes at K_f = 1, 2, 4, 100 and 4500 under every plan (M = 3..8,
+    dual-word at w=32, int32 at w=16), both modes, packed and unpacked taps,
+    every failed stream, plus the poison check; the depthwise model shape
+    [M=4, B=8, D=8192, T=512], K_f = 4 (the Mamba conv1d of
+    falcon-mamba-7b) under the int32 and the dual-word plan; the checksum
+    at ragged widths for M = 1..9."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import checksum as kcks
+    from repro_torch.kernels import conv1d as kconv
+    from repro_torch.kernels.codec import pack_int8
+
+    chk_c, chk_e = checkers["conv1d_causal"], checkers["entangled_conv1d"]
+    chk_s = checkers["checksum"]
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    n0 = (chk_c.n, chk_e.n, chk_s.n)
+    for (B, D, T, kf) in CONV_SHAPES:
+        x = _rand(gen, -2**31, 2**31, (B, D, T), dev)
+        w = _rand(gen, -2**31, 2**31, (D, kf), dev)
+        chk_c.equal(kconv.conv1d_causal_cuda(x, w),
+                    kconv.conv1d_causal_plain(x, w),
+                    f"conv1d [{B},{D},{T}] K_f={kf}")
+    for plan in _all_plans():
+        for (B, D, T, kf) in CONV_SHAPES:
+            x = _rand(gen, -2**31, 2**31, (plan.M, B, D, T), dev)
+            w32 = _rand(gen, -2**31, 2**31, (D, kf), dev)
+            wp = pack_int8(_rand(gen, -128, 128, (D, kf), dev), axis=0)
+            what = (f"plan(M={plan.M},l={plan.l},{plan.temp}) [{B},{D},{T}] "
+                    f"K_f={kf}")
+            for packed, w in ((False, w32), (True, wp)):
+                chk_e.sweep(x, w, plan, packed, what, GROUPED_MODES)
+            chk_e.poison(x, wp, plan, True, what)
+    log(f"[kernels] conv1d_causal / entangled_conv1d ragged shapes (K_f "
+        f"{sorted({s[3] for s in CONV_SHAPES})}): {chk_c.n - n0[0]} / "
+        f"{chk_e.n - n0[1]} kernel-vs-plain comparisons bit-identical; poison "
+        f"check passed")
+    n0 = (chk_c.n, chk_e.n)
+    B, D, T, kf = DEPTHWISE
+    x = _rand(gen, -2**31, 2**31, (4, B, D, T), dev)
+    w = _rand(gen, -2**31, 2**31, (D, kf), dev)
+    chk_c.equal(kconv.conv1d_causal_cuda(x[0], w),
+                kconv.conv1d_causal_plain(x[0], w), f"conv1d {DEPTHWISE}")
+    wp = pack_int8(_rand(gen, -128, 128, (D, kf), dev), axis=0)
+    for plan in (make_plan(4, 32), make_plan(4, 16)):
+        what = f"depthwise [4, {B}, {D}, {T}] K_f={kf} plan {plan.temp}"
+        for packed, ww in ((False, w), (True, wp)):
+            chk_e.sweep(x, ww, plan, packed, what, GROUPED_MODES)
+        chk_e.poison(x, wp, plan, True, what)
+    del x, w, wp
+    free_cuda()
+    log(f"[kernels] depthwise model shape [4, {B}, {D}, {T}], K_f = {kf}: "
+        f"{chk_c.n - n0[0]} / {chk_e.n - n0[1]} comparisons bit-identical; "
+        f"poison check passed")
+    n0 = chk_s.n
+    for m in range(1, 10):
+        for n in (1, 3, 1031, 65537):
+            c = _rand(gen, -2**31, 2**31, (m, n), dev)
+            chk_s.equal(kcks.checksum_cuda(c), kcks.checksum_plain(c),
+                        f"checksum [{m},{n}]")
+    log(f"[kernels] checksum ragged widths, M = 1..9: {chk_s.n - n0} "
+        f"comparisons bit-identical")
+
+
+def stream_inputs(dev):
+    """{(M, K): (c [M, N_in], g [K])} of the stream-conv configuration at
+    M in STREAM_MS: int32 samples within the eq. (13) budget as
+    ``benchmarks/fig2_conv_throughput.py`` sizes them (|c| below
+    max_output_magnitude // (4 K_max) - 1, capped at 4096) and taps in
+    [-4, 4), from a seeded generator."""
+    import torch
+
+    from repro_torch.configs.stream_conv import CONFIG
+    from repro_torch.core.plan import make_plan
+
+    out = {}
+    for M in STREAM_MS:
+        plan = make_plan(M, CONFIG.w)
+        lim = min(max(plan.max_output_magnitude
+                      // (max(CONFIG.kernel_sizes) * 4) - 1, 2), 1 << 12)
+        gen = torch.Generator(device=dev).manual_seed(M)
+        c = _rand(gen, -lim, lim, (M, CONFIG.n_in), dev)
+        for K in CONFIG.kernel_sizes:
+            out[(M, K)] = (c, _rand(gen, -4, 4, (K,), dev))
+        log(f"[stream-conv] M={M}: {CONFIG.n_in} int32 samples per stream in "
+            f"[-{lim}, {lim}), taps in [-4, 4); plan l={plan.l}, "
+            f"{plan.temp}, max_output_magnitude {plan.max_output_magnitude}")
+    return out
+
+
+def _padded(c, K):
+    """The streams as the full conv's causal input [S, T]: K - 1 zeros on
+    the right (T = N_in + K - 1)."""
+    import torch
+
+    return torch.nn.functional.pad(c, (0, K - 1))
+
+
+def check_stream_shapes(dev, checkers, inputs):
+    """Each conv kernel against its plain version at the stream-conv shapes
+    (not counted as the path's launches): the conv over the M streams and
+    over the M+1 of the checksum family, the entangled conv over [M, 1, 1,
+    T] unfused and fused for every failed stream (the plain fused version is
+    the plain unfused one disentangled, computed once), the checksum of the
+    M streams. Returns {(M, K): the true conv outputs [M, T]}, the plain
+    version's."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import checksum as kcks
+    from repro_torch.kernels import conv1d as kconv
+    from repro_torch.kernels import entangled_conv1d as kecv
+    from repro_torch.kernels.codec import disentangle_block
+
+    chk_c, chk_e = checkers["conv1d_causal"], checkers["entangled_conv1d"]
+    chk_s = checkers["checksum"]
+    truth = {}
+    n0 = (chk_c.n, chk_e.n, chk_s.n)
+    t0 = time.perf_counter()
+    for (M, K), (c, g) in inputs.items():
+        plan = make_plan(M, 32)
+        taps = torch.flip(g, (0,))[None]
+        cs = torch.cat([c, kcks.checksum_plain(c)[None]])
+        xs = _padded(cs, K)[:, None]
+        chk_s.equal(kcks.checksum_cuda(c), cs[M], f"checksum [{M},{c.shape[1]}]")
+        want = kconv.conv1d_causal_plain(xs, taps)
+        what = f"stream conv M={M} K={K}"
+        chk_c.equal(kconv.conv1d_causal_cuda(xs, taps), want, what + " (M+1)")
+        chk_c.equal(kconv.conv1d_causal_cuda(xs[:M].contiguous(), taps),
+                    want[:M], what)
+        truth[(M, K)] = want[:M, 0]
+        x4 = xs[:M, None].contiguous()
+        delta = kecv.entangled_conv1d_plain(x4, taps, plan)
+        chk_e.equal(kecv.entangled_conv1d_cuda(x4, taps, plan), delta,
+                    what + " entangled")
+        for r in range(M):
+            chk_e.equal(kecv.entangled_conv1d_cuda(
+                x4, taps, plan, fuse_epilogue=True, failed=r),
+                disentangle_block(delta, plan, r), f"{what} fused r={r}")
+        del cs, xs, want, x4, delta
+        free_cuda()
+    log(f"[kernels] stream-conv shapes (M {STREAM_MS} x K "
+        f"{sorted({k for _, k in inputs})}, T = N_in + K - 1): "
+        f"{chk_c.n - n0[0]} / {chk_e.n - n0[1]} / {chk_s.n - n0[2]} conv / "
+        f"entangled conv / checksum comparisons bit-identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return truth
+
+
+FAMILIES = ("none", "entangle", "checksum", "mr")
+
+
+def _failures(mode, M):
+    return [None] + list(range(M + (mode == "checksum")))
+
+
+def _protected_all(op, c, g, M, want, what):
+    """run_protected(op) under every family and failed stream: each
+    recovery equals ``want``, and ``none`` under a failure gives ``want``
+    with the failed stream poisoned and recovered=False. Returns the number
+    of runs."""
+    import torch
+
+    from repro_torch.core.failstop import GARBAGE, FTConfig, run_protected
+
+    n = 0
+    for mode in FAMILIES:
+        for failed in _failures(mode, M):
+            out, rep = run_protected(op, c, g, FTConfig(mode=mode, M=M),
+                                     failed=failed)
+            n += 1
+            if mode == "none" and failed is not None:
+                ok = (not rep.recovered and bool((out[failed] == GARBAGE).all())
+                      and torch.equal(torch.cat([out[:failed],
+                                                 out[failed + 1:]]),
+                                      torch.cat([want[:failed],
+                                                 want[failed + 1:]])))
+            else:
+                ok = rep.recovered and torch.equal(out, want)
+            if not ok:
+                raise AssertionError(f"{what}: family {mode}, failed stream "
+                                     f"{failed}: RECOVERY FAILED")
+    return n
+
+
+def _other_ops(dev, M):
+    """The other LSB ops at ``examples/failstop_demo.py``'s stream length
+    2^16 (circconv at 4096: the reference's builds an [N, N] index matrix),
+    its value ranges, seeded: {op: (c, g)} on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(M)
+    n = 1 << 16
+    t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)  # noqa: E731
+    c = t(rng.integers(-50, 50, size=(M, n)).astype(np.int32))
+    return {
+        "scale": (c, t(np.int32(9))), "add": (c, t(np.int32(-3))),
+        "sub": (c, t(np.int32(7))),
+        "dot": (c, t(rng.integers(-4, 4, (n,)).astype(np.int32))),
+        "outer": (c, t(rng.integers(-4, 4, (7,)).astype(np.int32))),
+        "xcorr": (c, t(rng.integers(-10, 10, (33,)).astype(np.int32))),
+        "circconv": (c[:, :4096].contiguous(),
+                     t(rng.integers(-4, 4, (33,)).astype(np.int32))),
+        "permute": (c, t(rng.permutation(n))), "identity": (c, None)}
+
+
+def phase_stream_conv(dev, kernels, path_kernels, inputs, truth):
+    """The stream-conv path: the paper's Fig. 2 configuration through the
+    fail-stop engine. Per (M, K): ``run_protected("conv", ...)`` under every
+    family and failed stream, and the fused entangled conv of the op API
+    for every failed stream, each equal to the failure-intolerant conv bit
+    for bit (EXACT ROLL-FORWARD (stream conv)); then every other LSB op
+    under every family and failed stream at the demo's size, its
+    failure-intolerant output equal to the plain versions' on the CPU.
+    Every kernel's count is set to 0 just before and read just after; each
+    of ``path_kernels`` must have launched. Returns the counts."""
+    import torch
+
+    from repro_torch.core.failstop import FTConfig, run_protected
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import ops
+
+    for k in kernels:
+        k["module"].launches = 0
+    t0 = time.perf_counter()
+    for (M, K), (c, g) in inputs.items():
+        want = truth[(M, K)]
+        runs = _protected_all("conv", c, g, M, want, f"conv M={M} K={K}")
+        plan = make_plan(M, 32)
+        x4 = _padded(c, K)[:, None, None]
+        taps = torch.flip(g, (0,))[None]
+        for r in range(M):
+            out = ops.entangled_conv1d(x4, taps, plan, fuse_epilogue=True,
+                                       failed=r)
+            if not torch.equal(out[:, 0, 0], want):
+                raise AssertionError(f"fused entangled conv M={M} K={K} "
+                                     f"failed={r}: RECOVERY FAILED")
+        log(f"[stream-conv] M={M} K={K}: run_protected('conv') under "
+            f"{'/'.join(FAMILIES)} with every failed stream ({runs} runs) and "
+            f"the fused entangled conv with each of the {M} streams failed "
+            f"== the failure-intolerant conv [{M}, {want.shape[1]}] bit for "
+            f"bit (EXACT ROLL-FORWARD (stream conv))")
+    conv_s = time.perf_counter() - t0
+    for M in STREAM_MS:
+        runs = 0
+        others = _other_ops(dev, M)
+        for op, (c, g) in others.items():
+            want, _ = run_protected(op, c, g, FTConfig(mode="none", M=M))
+            ref, _ = run_protected(op, c.cpu(), None if g is None else g.cpu(),
+                                   FTConfig(mode="none", M=M))
+            if not torch.equal(want.cpu(), ref):
+                raise AssertionError(f"{op} M={M}: card != plain versions "
+                                     f"on the CPU")
+            runs += _protected_all(op, c, g, M, want, f"{op} M={M}")
+        log(f"[stream-conv] M={M}: the other {len(others)} LSB "
+            f"ops under every family and failed stream ({runs} runs) recover "
+            f"exactly; failure-intolerant outputs == the plain versions' on "
+            f"the CPU")
+    torch.cuda.synchronize()
+    counts = {k["name"]: k["module"].launches for k in kernels}
+    log(f"[stream-conv] kernel launches on the path: {counts}; conv part "
+        f"{conv_s:.1f} s, all {time.perf_counter() - t0:.1f} s")
+    for name in path_kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"stream-conv path")
+    return counts
+
+
+def _pct(t, base):
+    return 100 * (t / base - 1)
+
+
+def _int32_macs_per_s(dev):
+    """The card's peak int32 multiply-add rate (CUDA cores)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * INT32_LANES_PER_SM * BOOST_HZ
+
+
+def _causal_macs(T, K):
+    """Multiply-adds of one causal conv row of length T with K taps: the
+    K(K-1)/2 products that fall on the implicit left zero padding are not
+    part of the work."""
+    return T * K - K * (K - 1) // 2
+
+
+def stream_timings(dev, inputs):
+    """Fig. 2 on the card: per (M, K), the device time of one call (CUDA
+    graph replay) of the failure-intolerant conv (``run_protected`` mode
+    none) and of each protected family without a failure, as the paper
+    measures them: the entangled three-pass (entangle kernel + conv +
+    disentangle kernel), the fused entangled conv of the op API (M-1
+    streams computed), the checksum family (sum kernel + conv over M+1
+    streams) and dual modular redundancy (2M streams); the entangle and
+    checksum families again with stream 1 failed (poison and recovery
+    included); and the conv kernel alone against its MAC bound. Returns
+    (table rows, summary)."""
+    import torch
+
+    from repro_torch.core.failstop import FTConfig, run_protected
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import ops
+
+    mac_s = _int32_macs_per_s(dev)
+    table = []
+    for (M, K), (c, g) in inputs.items():
+        plan = make_plan(M, 32)
+        x3 = _padded(c, K)[:, None]
+        taps = torch.flip(g, (0,))[None]
+        T = x3.shape[-1]
+        iters = 20 if K <= 1000 else 8
+
+        def prot(mode, failed=None):
+            cfg = FTConfig(mode=mode, M=M)
+            return lambda i: run_protected("conv", c, g, cfg, failed=failed)
+
+        fns = dict(
+            conventional=prot("none"), entangle=prot("entangle"),
+            fused=lambda i: ops.entangled_conv1d(
+                _padded(c, K)[:, None, None], taps, plan, fuse_epilogue=True),
+            checksum=prot("checksum"), mr=prot("mr"),
+            entangle_failed=prot("entangle", 1),
+            checksum_failed=prot("checksum", 1),
+            conv_kernel=lambda i: ops.conv1d_causal(x3, taps))
+        row = dict(M=M, K=K, T=T, **{f"{n}_ms": _graph_ms(fn, iters)
+                                     for n, fn in fns.items()})
+        row["conv_bound_ms"] = 1e3 * M * _causal_macs(T, K) / mac_s
+        base = row["conventional_ms"]
+        for n in fns:
+            if n not in ("conventional", "conv_kernel"):
+                row[f"{n}_pct"] = _pct(row[f"{n}_ms"], base)
+        table.append(row)
+        log(f"[fig2] M={M} K={K}: conventional {base:.4f} ms (conv kernel "
+            f"{row['conv_kernel_ms']:.4f} ms, MAC bound "
+            f"{row['conv_bound_ms']:.4f} ms); entangle three-pass "
+            f"{row['entangle_ms']:.4f} ms ({row['entangle_pct']:+.2f}%), "
+            f"fused {row['fused_ms']:.4f} ms ({row['fused_pct']:+.2f}%), "
+            f"checksum {row['checksum_ms']:.4f} ms "
+            f"({row['checksum_pct']:+.2f}%), mr {row['mr_ms']:.4f} ms "
+            f"({row['mr_pct']:+.2f}%); with stream 1 failed: entangle "
+            f"{row['entangle_failed_pct']:+.2f}%, checksum "
+            f"{row['checksum_failed_pct']:+.2f}%")
+    mean = lambda key: sum(r[key] for r in table) / len(table)  # noqa: E731
+    summary = {k: mean(k) for k in (
+        "entangle_pct", "fused_pct", "checksum_pct", "mr_pct",
+        "entangle_failed_pct", "checksum_failed_pct")}
+    summary["checksum_over_entangle"] = (
+        summary["checksum_pct"] / summary["entangle_pct"]
+        if summary["entangle_pct"] else None)
+    ratio = summary["checksum_over_entangle"]
+    log(f"[fig2] fig2_summary: mean_entangle_pct="
+        f"{summary['entangle_pct']:.2f}; mean_fused_pct="
+        f"{summary['fused_pct']:.2f}; mean_checksum_pct="
+        f"{summary['checksum_pct']:.2f}; mean_mr_pct="
+        f"{summary['mr_pct']:.2f}; ratio="
+        f"{'n/a' if ratio is None else f'{ratio:.1f}x'} (paper: entangle "
+        f"1.8-2.8%, checksum 9-14x more); with stream 1 failed: entangle "
+        f"{summary['entangle_failed_pct']:.2f}%, checksum "
+        f"{summary['checksum_failed_pct']:.2f}%")
+    return table, summary
+
+
+def stream_kernel_rows(dev, inputs):
+    """Kernel, plain version, bound and library call of the three new
+    kernels: first at the largest stream-conv shape (M = 8, K = 4500) — the
+    conv over [8, 1, T], the fused entangled conv over [8, 1, 1, T] with
+    stream 1 failed (M-1 streams computed), the checksum of [8, N_in]
+    (inputs rotated through copies that exceed the L2) — then both convs at
+    the depthwise model shape. The conv's library call is
+    ``torch.nn.functional.conv1d`` in float64 on the left-padded input
+    (exact below 2^53, as the paper's IPP ippsConv_64f baseline; depthwise:
+    ``groups=D``), held equal to the kernel; the checksum's is
+    ``torch.sum(c, 0, dtype=torch.int32)``. Returns {kernel: [rows]}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import checksum as kcks
+    from repro_torch.kernels import conv1d as kconv
+    from repro_torch.kernels import entangled_conv1d as kecv
+
+    mac_s = _int32_macs_per_s(dev)
+    M, K = max(inputs)
+    c, g = inputs[(M, K)]
+    plan = make_plan(M, 32)
+    x = _padded(c, K)[:, None].contiguous()
+    taps = torch.flip(g, (0,))[None].contiguous()
+    T = x.shape[-1]
+    # the checksum's input rotates through copies that exceed the L2, as
+    # the path finds it cold
+    cs = [c.clone() for _ in range(-(-2 * L2_BYTES // (4 * c.numel())))]
+    B, D, Td, kf = DEPTHWISE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xdw = _rand(gen, -2**31, 2**31, (4, B, D, Td), dev)
+    wdw = _rand(gen, -2**31, 2**31, (D, kf), dev)
+    lim = 2**13  # depthwise inputs whose conv fits int32 (float64 compares)
+    xdl = _rand(gen, -lim, lim, (B, D, Td), dev)
+    wdl = _rand(gen, -lim, lim, (D, kf), dev)
+
+    def lib_conv(xx, ww):
+        """float64 conv1d on the left-padded input, checked against the
+        kernel; returns the call to time."""
+        xd = F.pad(xx.double(), (ww.shape[1] - 1, 0))
+        wd = ww.double()[:, None]
+        call = lambda i: F.conv1d(xd, wd, groups=ww.shape[0])  # noqa: E731
+        if not torch.equal(call(0).to(torch.int64),
+                           kconv.conv1d_causal_cuda(xx, ww).to(torch.int64)):
+            raise AssertionError("float64 conv1d != conv kernel")
+        return call
+
+    def econv(xx, ww, pl):
+        """(kernel, plain) calls of the fused entangled conv, stream 1
+        failed."""
+        kw = dict(fuse_epilogue=True, failed=1)
+        return (lambda i: kecv.entangled_conv1d_cuda(xx, ww, pl, **kw),
+                lambda i: kecv.entangled_conv1d_plain(xx, ww, pl, **kw))
+    cases = [
+        ("conv1d_causal", [list(x.shape), list(taps.shape)],
+         lambda i: kconv.conv1d_causal_cuda(x, taps),
+         lambda i: kconv.conv1d_causal_plain(x, taps), lib_conv(x, taps),
+         M * _causal_macs(T, K), 4 * (2 * M * T + K)),
+        ("entangled_conv1d", [[M, 1, 1, T], list(taps.shape)],
+         *econv(x[:, None], taps, plan), None,
+         (M - 1) * _causal_macs(T, K), 4 * (2 * M * T + K)),
+        ("checksum", [list(c.shape)],
+         lambda i: kcks.checksum_cuda(cs[i % len(cs)]),
+         lambda i: kcks.checksum_plain(cs[i % len(cs)]),
+         lambda i: torch.sum(cs[i % len(cs)], 0, dtype=torch.int32), 0,
+         4 * (M + 1) * c.shape[1]),
+        ("conv1d_causal", [[B, D, Td], [D, kf]],
+         lambda i: kconv.conv1d_causal_cuda(xdl, wdl),
+         lambda i: kconv.conv1d_causal_plain(xdl, wdl), lib_conv(xdl, wdl),
+         B * D * _causal_macs(Td, kf), 4 * (2 * B * D * Td + D * kf)),
+        ("entangled_conv1d", [[4, B, D, Td], [D, kf]],
+         *econv(xdw, wdw, make_plan(4, 32)), None,
+         3 * B * D * _causal_macs(Td, kf),
+         4 * (2 * 4 * B * D * Td + D * kf))]
+    rows = {}
+    for name, shape, kern, plain, lib, macs, nbytes in cases:
+        big = macs > 1e10  # the stream-conv filters: few, long calls
+        ms = _graph_ms(kern, 10 if big else 50)
+        plain_ms = _graph_ms(plain, 1 if big else 10)
+        lib_ms = None if lib is None else _graph_ms(lib, 3 if big else 10)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * macs / mac_s
+        row = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes_ms=t_bytes, ops_ms=t_ops)
+        rows.setdefault(name, []).append(row)
+        log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
+            f"{t_bytes:.4f} ms, int32 MACs {t_ops:.4f} ms), "
+            f"{ms / row['bound_ms']:.2f}x bound")
+    del cases, x, cs, xdw, wdw, xdl, wdl
+    free_cuda()
+    return rows
+
+
+def run_stream_conv(dev, kernels):
+    """The stream-conv path: kernel checks (ragged, depthwise and the
+    stream shapes), the path itself, and its Fig. 2 timings."""
+    t0 = time.perf_counter()
+    by_name = {k["name"]: k["checker"] for k in kernels}
+    check_conv(dev, by_name)
+    inputs = stream_inputs(dev)
+    truth = check_stream_shapes(dev, by_name, inputs)
+    counts = phase_stream_conv(
+        dev, kernels, ["conv1d_causal", "entangled_conv1d", "checksum",
+                       "entangle", "disentangle"], inputs, truth)
+    del truth
+    free_cuda()
+    table, summary = stream_timings(dev, inputs)
+    rows = stream_kernel_rows(dev, inputs)
+    del inputs
+    free_cuda()
+    log(f"[stream-conv] checks, path and timings: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(counts=counts, fig2=table, fig2_summary=summary, rows=rows)
+
+
 # ---------------------------------------------------------------- timings --
 
 def _device_ms(fn, iters, match=None, per=None):
@@ -982,9 +1497,6 @@ def _timing_row(dev, site, c, gs, plan, cuda_fn, plain_fn, macs, nbytes,
                 wbytes, iters):
     """Kernel (with and without its scratch fill), plain version and bound
     of one shape; ``gs`` holds enough weight copies to exceed the L2."""
-    import torch
-
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     kw = dict(fuse_epilogue=True, failed=1, packed=True)
     copies = len(gs)
 
@@ -997,7 +1509,7 @@ def _timing_row(dev, site, c, gs, plan, cuda_fn, plain_fn, macs, nbytes,
     plain_ms = _graph_ms(lambda i: plain_fn(c, gs[i % copies], plan, **kw),
                          max(3, iters // 5))
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * macs / (sms * INT32_LANES_PER_SM * BOOST_HZ)
+    t_ops = 1e3 * macs / _int32_macs_per_s(dev)
     row = dict(site=site, shape=list(c.shape) + [list(gs[0].shape)], ms=ms,
                kernel_only_ms=kernel_only, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
@@ -1099,13 +1611,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from repro_torch.kernels import checksum as kcks
+    from repro_torch.kernels import conv1d as kconv
     from repro_torch.kernels import disentangle as kdis
     from repro_torch.kernels import entangle as kent
+    from repro_torch.kernels import entangled_conv1d as kecv
     from repro_torch.kernels import entangled_matmul as emm
     from repro_torch.kernels import entangled_matmul_grouped as emmg
 
     src = "src/repro_torch/kernels/csrc/entangled_matmul.cu"
     codec_src = "src/repro_torch/kernels/csrc/codec_pass.cu"
+    conv_src = "src/repro_torch/kernels/csrc/conv1d.cu"
     kernels = [
         dict(name="entangled_matmul", module=emm, route="cuda", source=src,
              replaces="src/repro/kernels/entangled_matmul.py:102",
@@ -1121,6 +1637,17 @@ def main() -> int:
              checker=Checker()),
         dict(name="entangle", module=kent, route="cuda", source=codec_src,
              replaces="src/repro/kernels/entangle.py:26",
+             checker=Checker()),
+        dict(name="entangled_conv1d", module=kecv, route="cuda",
+             source=conv_src,
+             replaces="src/repro/kernels/entangled_conv1d.py:68",
+             checker=Checker(kecv.entangled_conv1d_cuda,
+                             kecv.entangled_conv1d_plain)),
+        dict(name="conv1d_causal", module=kconv, route="cuda",
+             source=conv_src, replaces="src/repro/kernels/conv1d.py:51",
+             checker=Checker()),
+        dict(name="checksum", module=kcks, route="cuda", source=codec_src,
+             replaces="src/repro/kernels/checksum.py:22",
              checker=Checker())]
     by_name = {k["name"]: k for k in kernels}
     dev = torch.device("cuda", 0)
@@ -1147,8 +1674,10 @@ def main() -> int:
     train["timings"] = train_timings(dev, state)
     del state
     free_cuda()
+    stream = run_stream_conv(dev, kernels)
     rows = phase_timings(dev)
     rows.update(codec_timings(dev))
+    rows.update(stream.pop("rows"))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     train_path = f"{LLAMA} train"
     record = dict(kernels=[])
@@ -1156,7 +1685,12 @@ def main() -> int:
         name = k["name"]
         by_path = {a: p["counts"][name] for a, p in paths.items()}
         by_path[train_path] = train_counts[name]
-        if name in ("entangle", "disentangle"):
+        by_path["stream-conv"] = stream["counts"][name]
+        if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
+            head = rows[name][0]
+            extra = dict(launches=stream["counts"][name],
+                         timings=rows[name])
+        elif name in ("entangle", "disentangle"):
             head = rows[name]
             extra = dict(launches=train_counts[name],
                          launches_per_train_step=train["launches_per_step"][
@@ -1177,9 +1711,10 @@ def main() -> int:
             launches_by_path=by_path, max_abs_err=k["checker"].worst,
             comparisons=k["checker"].n, ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"], library_ms=None, shape=head["shape"],
-            **extra))
+            bound_by=head["bound_by"], library_ms=head.get("library_ms"),
+            shape=head["shape"], **extra))
     record["train"] = train
+    record["stream_conv"] = stream
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ import torch
 from repro_torch.core.plan import EntanglePlan
 from repro_torch.kernels.codec import disentangle_rows, entangle_block
 
-__all__ = ["entangle", "disentangle", "extract"]
+__all__ = ["entangle", "disentangle", "extract", "entangle_kernel_addsub",
+           "reentangle_stream"]
 
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
                torch.uint8)
@@ -43,6 +44,12 @@ def entangle(c: torch.Tensor, plan: EntanglePlan, axis: int = 0) -> torch.Tensor
                          0, axis)
 
 
+def entangle_kernel_addsub(g: torch.Tensor, plan: EntanglePlan) -> torch.Tensor:
+    """Self-entangle the kernel for op in {+, -} (paper footnote 3)."""
+    g = g.to(torch.int32)
+    return (g << plan.l) + g
+
+
 def disentangle(delta: torch.Tensor, plan: EntanglePlan,
                 failed: Optional[int] = None, axis: int = 0) -> torch.Tensor:
     """Recover all M true outputs from entangled outputs (eq. 16-19).
@@ -61,3 +68,13 @@ def disentangle(delta: torch.Tensor, plan: EntanglePlan,
 def extract(delta: torch.Tensor, plan: EntanglePlan, axis: int = 0) -> torch.Tensor:
     """Failure-free extraction of results (same mechanism, r := 0)."""
     return disentangle(delta, plan, failed=None, axis=axis)
+
+
+def reentangle_stream(recovered: torch.Tensor, plan: EntanglePlan,
+                      stream: int) -> torch.Tensor:
+    """Recreate the lost entangled stream ``delta_stream`` from the
+    recovered d's, streams on the leading axis: ``delta_m = S_l{d_{m-1}} +
+    d_m`` (roll-forward repair of persisted entangled state)."""
+    d = recovered
+    m = stream % plan.M
+    return (d[(m - 1) % plan.M] << plan.l) + d[m]

@@ -1,15 +1,25 @@
 // The paper's codec as CUDA device code, shared by the fused entangled GEMM
-// (entangled_matmul.cu, its epilogue) and the standalone codec passes
-// (codec_pass.cu), so both run one copy of the arithmetic. It is the
-// device form of repro_torch/kernels/codec.py (entangle_block,
-// disentangle_rows) and must stay bit for bit equal to it: every value is
-// a uint32 in two's-complement ring arithmetic mod 2^32, and the dual-word
-// temporary of the plans whose telescoping sum needs more than 32 bits is a
-// native 64-bit word, with the same ring semantics as the reference's
-// (hi: int32, lo: uint32) pair.
+// (entangled_matmul.cu, its epilogue), the standalone codec passes
+// (codec_pass.cu) and the entangled conv (conv1d.cu), so all run one copy
+// of the arithmetic. It is the device form of repro_torch/kernels/codec.py
+// (entangle_block, disentangle_rows, unpack_int8) and must stay bit for bit
+// equal to it: every value is a uint32 in two's-complement ring arithmetic
+// mod 2^32, and the dual-word temporary of the plans whose telescoping sum
+// needs more than 32 bits is a native 64-bit word, with the same ring
+// semantics as the reference's (hi: int32, lo: uint32) pair.
 #pragma once
 
 #include <stdint.h>
+
+// Sign-extended int8 lane j of a packed word (lane j in bits [8j, 8j+8), the
+// layout of repro_torch/kernels/codec.py::pack_int8): PRMT copies byte j into
+// the low byte and replicates its sign bit over the three upper bytes.
+__device__ __forceinline__ uint32_t lane_s8(uint32_t w, int j) {
+  uint32_t d;
+  const uint32_t sel = j | ((8 | j) << 4) | ((8 | j) << 8) | ((8 | j) << 12);
+  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(d) : "r"(w), "r"(sel));
+  return d;
+}
 
 // eq. (14/15) for one position: eps_m = (c_{(m-1) mod M} << l) + c_m.
 template <int M>

@@ -1,19 +1,23 @@
 // Standalone codec passes for Hopper (sm_90a): entangle and disentangle of
-// M int32 streams laid out as rows of [M, N].
+// M int32 streams laid out as rows of [M, N], and the checksum-ABFT
+// baseline's checksum stream, the sum of the M rows.
 //
-// Replaces two Pallas TPU kernels:
+// Replaces three Pallas TPU kernels:
 //   repro/kernels/entangle.py    (entangle_pallas, body _entangle_kernel):
 //       eps_m = (c_{(m-1) mod M} << l) + c_m, wrapping mod 2^32;
 //   repro/kernels/disentangle.py (disentangle_pallas, body
 //       _disentangle_kernel): recover all M rows from the entangled rows,
 //       never reading row r (the fail-stopped stream), with the int32 or
-//       dual-word temporary the plan asks for.
+//       dual-word temporary the plan asks for;
+//   repro/kernels/checksum.py    (checksum_pallas, body _checksum_kernel):
+//       r = sum_m c_m, wrapping mod 2^32 (paper eq. 4).
 // The arithmetic is codec.cuh's (entangle_one, disentangle_one), the copy
 // the fused GEMM's epilogue runs too.
 //
 // What bounds them on an H100: a few integer operations per word against
-// one 4-byte load and one 4-byte store per word, so both are bound by
-// device-memory bytes (3.35 TB/s). The design follows from that: each
+// one 4-byte load and one 4-byte store per word (the checksum: M loads and
+// one store per column), so all three are bound by device-memory bytes
+// (3.35 TB/s). The design follows from that: each
 // thread owns one column n at a time and walks the columns with a
 // grid-stride loop; a warp's loads of one row are 32 consecutive words
 // (coalesced), and the M loads of a column are independent, so they are in
@@ -66,6 +70,21 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 0; i < M; ++i)
       out[(long long)((r + i) % M) * N + n] = (int32_t)o[i];
+  }
+}
+
+// out[n] = sum_m c[m, n]: the M loads of a column are independent (the loop
+// is unrolled), coalesced across the warp along N.
+__global__ void __launch_bounds__(THREADS)
+    checksum_kernel(const int32_t* __restrict__ c, int32_t* __restrict__ out,
+                    int M, long long N) {
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long n = (long long)blockIdx.x * THREADS + threadIdx.x; n < N;
+       n += stride) {
+    uint32_t s = 0u;
+#pragma unroll 8
+    for (int m = 0; m < M; ++m) s += (uint32_t)__ldg(c + m * N + n);
+    out[n] = (int32_t)s;
   }
 }
 
@@ -128,6 +147,16 @@ int codec_disentangle_launch(const void* delta, void* out, int M, long long N,
     CODEC_CASE(8)
 #undef CODEC_CASE
   }
+  return (int)cudaGetLastError();
+}
+
+// out = sum over the M rows of c [M, N] int32 (contiguous), out [N] int32,
+// for any M >= 1.
+int codec_checksum_launch(const void* c, void* out, int M, long long N,
+                          int grid, void* stream) {
+  if (M < 1 || N < 1 || grid < 1) return -3;
+  checksum_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(c), static_cast<int32_t*>(out), M, N);
   return (int)cudaGetLastError();
 }
 

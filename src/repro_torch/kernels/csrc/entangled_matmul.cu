@@ -42,7 +42,8 @@
 //   * the [M, BB, BK] slice of c is entangled while it is staged in shared
 //     memory, and read back as 16-byte broadcasts (every thread of a warp
 //     reads the same address);
-//   * a packed word becomes its four sign-extended lanes with one PRMT each;
+//   * a packed word becomes its four sign-extended lanes with one PRMT each
+//     (lane_s8 of codec.cuh, shared with the packed entangled conv);
 //   * narrow-N shapes split K over gridDim.z so the card has enough blocks;
 //     the partial sums meet by 32-bit atomic adds (exact and
 //     order-independent mod 2^32), and the last block of a tile to arrive
@@ -79,15 +80,6 @@ struct Params {
   int entangle, extract, dualword;
   int k_chunk;             // contraction length of one split, multiple of BK
 };
-
-// Sign-extended int8 lane j of a packed word: PRMT copies byte j into the
-// low byte and replicates its sign bit over the three upper bytes.
-__device__ __forceinline__ uint32_t lane_s8(uint32_t w, int j) {
-  uint32_t d;
-  const uint32_t sel = j | ((8 | j) << 4) | ((8 | j) << 8) | ((8 | j) << 12);
-  asm("prmt.b32 %0, %1, 0, %2;" : "=r"(d) : "r"(w), "r"(sel));
-  return d;
-}
 
 // Accumulator slot j holds stream j, or in the extracting modes stream
 // (r + 1 + j) mod M, and slot M-1 is then unused.

@@ -14,7 +14,7 @@ bytes; each thread loads a column's M words once (coalesced across the
 warp along N) and writes the M entangled words, in a grid-stride loop that
 masks the ragged end of N. It is built with ``nvcc`` at first use into
 ``_build/`` and bound with ``ctypes`` (:mod:`.nvcc`), in one library with
-:mod:`.disentangle`.
+:mod:`.disentangle` and :mod:`.checksum`.
 
 :func:`entangle_cuda` launches the kernel on a CUDA tensor and raises on
 anything it does not take; :func:`entangle_plain` is the plain version, used
@@ -54,6 +54,8 @@ def _declare(lib) -> None:
     lib.codec_entangle_launch.restype = i
     lib.codec_disentangle_launch.argtypes = [p, p, i, ll, i, i, i, i, p]
     lib.codec_disentangle_launch.restype = i
+    lib.codec_checksum_launch.argtypes = [p, p, i, ll, i, p]
+    lib.codec_checksum_launch.restype = i
     lib.codec_error_string.argtypes = [i]
     lib.codec_error_string.restype = ctypes.c_char_p
     lib.codec_threads.argtypes = []

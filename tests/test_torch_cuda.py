@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (the dense and the grouped entangled
-GEMM, the standalone entangle and disentangle passes) against their plain
-versions, on the GPU.
+GEMM, the standalone entangle, disentangle and checksum passes, the plain
+and the entangled depthwise causal conv1d) against their plain versions, on
+the GPU.
 
 Marked ``requires_cuda``: it skips without a CUDA device (the kernels have
 no CPU mode). It imports no JAX, so it also runs on a GPU machine that has
@@ -15,8 +16,11 @@ import torch
 from repro_torch.core.entangle import disentangle
 from repro_torch.core.failstop import GARBAGE
 from repro_torch.core.plan import make_plan
+from repro_torch.kernels import checksum as kcks
+from repro_torch.kernels import conv1d as kconv
 from repro_torch.kernels import disentangle as kdis
 from repro_torch.kernels import entangle as kent
+from repro_torch.kernels import entangled_conv1d as kecv
 from repro_torch.kernels import entangled_matmul as emm
 from repro_torch.kernels import entangled_matmul_grouped as emmg
 from repro_torch.kernels.codec import pack_int8
@@ -200,3 +204,113 @@ def test_cuda_codec_passes_reject_bad_inputs(cuda_device):
             fn(c[:3])
         with pytest.raises(ValueError, match="CUDA"):
             fn(c.cpu())
+
+
+def _full(rng, shape, dev):
+    return torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32)).to(dev)
+
+
+# (B, D, T, K_f): ragged depthwise shapes, K_f = 1, and a stream-conv filter
+# (D = 1, K_f = 4500, several tap chunks) over a short ragged stream
+CONV_SHAPES = [(3, 5, 37, 1), (2, 7, 1500, 4), (2, 1, 5003, 4500)]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_conv1d_matches_plain(cuda_device):
+    """The plain conv kernel == its plain version bit for bit on full-range
+    words; one launch per call."""
+    for (B, D, T, kf) in CONV_SHAPES:
+        rng = np.random.default_rng(B * T + kf)
+        x, w = _full(rng, (B, D, T), cuda_device), _full(rng, (D, kf),
+                                                         cuda_device)
+        before = kconv.launches
+        got = kconv.conv1d_causal_cuda(x, w)
+        assert kconv.launches == before + 1
+        torch.testing.assert_close(got, kconv.conv1d_causal_plain(x, w),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M,w", CODEC_PLANS)
+def test_cuda_entangled_conv1d_matches_plain(cuda_device, M, w):
+    """The entangled conv kernel == its plain version bit for bit, both
+    modes, packed and unpacked taps, every failed stream, K_f = 1, 4 and
+    4500; the poison check (the unfused outputs with stream r overwritten
+    by GARBAGE disentangle to the fused result); one launch per call."""
+    plan = make_plan(M, w)
+    for (B, D, T, kf) in CONV_SHAPES:
+        rng = np.random.default_rng(M * T + kf + w)
+        x = _full(rng, (M, B, D, T), cuda_device)
+        w8 = torch.from_numpy(rng.integers(-128, 128, size=(D, kf)).astype(
+            np.int32))
+        for packed, taps in ((False, _full(rng, (D, kf), cuda_device)),
+                             (True, pack_int8(w8, axis=0).to(cuda_device))):
+            before = kecv.launches
+            delta = kecv.entangled_conv1d_cuda(x, taps, plan, packed=packed)
+            want = kecv.entangled_conv1d_plain(x, taps, plan, packed=packed)
+            torch.testing.assert_close(delta, want, rtol=0, atol=0)
+            for r in range(M):
+                got = kecv.entangled_conv1d_cuda(x, taps, plan,
+                                                 fuse_epilogue=True, failed=r,
+                                                 packed=packed)
+                torch.testing.assert_close(
+                    got, disentangle(want, plan, failed=r), rtol=0, atol=0)
+                bad = delta.clone()
+                bad[r] = GARBAGE
+                torch.testing.assert_close(got, disentangle(bad, plan,
+                                                            failed=r),
+                                           rtol=0, atol=0)
+            assert kecv.launches == before + 1 + M
+        if kf < 100:  # the plain fused version itself, short filters
+            got = kecv.entangled_conv1d_cuda(x, taps, plan, fuse_epilogue=True,
+                                             failed=M - 1, packed=True)
+            torch.testing.assert_close(got, kecv.entangled_conv1d_plain(
+                x, taps, plan, fuse_epilogue=True, failed=M - 1, packed=True),
+                rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_checksum_matches_plain(cuda_device):
+    for (m, n) in ((1, 5), (3, 1031), (8, 65537), (9, 1000003)):
+        c = _full(np.random.default_rng(m * n), (m, n), cuda_device)
+        before = kcks.launches
+        got = kcks.checksum_cuda(c)
+        assert kcks.launches == before + 1
+        torch.testing.assert_close(got, kcks.checksum_plain(c), rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_conv_kernels_reject_bad_inputs(cuda_device):
+    plan = make_plan(4, 32)
+    x = torch.zeros((4, 2, 3, 16), dtype=torch.int32, device=cuda_device)
+    w = torch.zeros((3, 5), dtype=torch.int32, device=cuda_device)
+    econv = lambda xx, ww, **kw: kecv.entangled_conv1d_cuda(  # noqa: E731
+        xx, ww, plan, **kw)
+    for fn, xx in ((kconv.conv1d_causal_cuda, x[0]), (econv, x)):
+        with pytest.raises(TypeError):
+            fn(xx.float(), w)
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(xx.cpu(), w)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(xx.transpose(-1, -2), w)
+        with pytest.raises(ValueError, match="depth"):
+            fn(xx, w[:2].contiguous())
+        with pytest.raises(ValueError, match="axes"):
+            fn(xx[0], w)
+    with pytest.raises(ValueError, match="streams"):
+        econv(x[:3].contiguous(), w)
+    with pytest.raises(ValueError, match="depth"):
+        econv(x, w, packed=True)
+    with pytest.raises(ValueError, match="fuse_epilogue"):
+        econv(x, w, fuse_epilogue="chain")
+    c = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        kcks.checksum_cuda(c.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        kcks.checksum_cuda(c.T)
+    with pytest.raises(ValueError, match="CUDA"):
+        kcks.checksum_cuda(c.cpu())
+    with pytest.raises(ValueError, match="M >= 1"):
+        kcks.checksum_cuda(c[0])
