@@ -25,7 +25,9 @@ exits nonzero:
                plus the engine's own startup census of protected sites at
                scope all) and at ragged small ones, every
                ``fuse_epilogue`` mode, packed and unpacked weights, every
-               failed stream, int32 and dual-word plans; the codec passes
+               failed stream, int32 and dual-word plans, each GEMM on both
+               its routes (the s8 tensor-core kernel on packed weights, the
+               CUDA-core kernel on both forms); the codec passes
                at every gradient leaf of full-width llama3.2-1b as the
                sync blocks it and at ragged widths, M = 3..8, every r;
                plus the poison checks (stream r overwritten by GARBAGE
@@ -34,7 +36,9 @@ exits nonzero:
                protected ``ft_scope`` (llama: head, all; deepseek: moe,
                all) a healthy wave and a wave with ``failed_group=1`` must
                give equal tokens (EXACT ROLL-FORWARD), then ``ft_mode
-               none`` once and a profiler window;
+               none`` once and a profiler window; every packed GEMM must
+               have gone through the s8 kernel, none through the CUDA-core
+               one;
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
                block at one step) and writes its final checkpoint; the
@@ -56,10 +60,13 @@ exits nonzero:
   6. timings — each kernel, its plain version and its bound at its
                main-path shapes, after warm-up: device time per call from
                the replay of a CUDA graph of many calls, and the kernel's
-               own time per launch from a profiler trace.
+               own time per launch from a profiler trace; the GEMMs' two
+               kernels in turns in the same call, and the grouped GEMM
+               also at decode occupancy (most experts empty).
 
-Every path sets the kernels' launch counts to 0 just before it is driven
-and reads them just after; each kernel of the path must have launched.
+Every path sets the kernels' launch counts (per route) to 0 just before
+it is driven and reads them just after; each kernel of the path must have
+launched.
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, the script exits nonzero and prints
@@ -82,10 +89,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s (NVIDIA data
-# sheet); int32 multiply-adds run on the CUDA cores at 64 lanes per SM per
-# clock (Hopper architecture white paper) at the 1.98 GHz boost clock.
+# H100 SXM peaks used for the bounds: HBM3 at 3.35 TB/s and dense int8
+# tensor-core operations at 1,979 TOP/s (NVIDIA data sheet); int32
+# multiply-adds run on the CUDA cores at 64 lanes per SM per clock (Hopper
+# architecture white paper) at the 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1.979e15
 INT32_LANES_PER_SM = 64
 BOOST_HZ = 1.98e9
 L2_BYTES = 50 * 2**20
@@ -123,6 +132,19 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def count(k, route: int = 0) -> int:
+    """Launches of kernel ``k`` on its main route (``route`` 1: the second
+    route of a GEMM, its CUDA-core kernel)."""
+    return getattr(k["module"], k["counters"][route])
+
+
+def reset_counts(kernels) -> None:
+    """Set every route's launch count of every kernel to 0."""
+    for k in kernels:
+        for name in k["counters"]:
+            setattr(k["module"], name, 0)
+
+
 def free_cuda() -> None:
     gc.collect()
     import torch
@@ -137,7 +159,7 @@ def phase_build(kernels):
     share a source share its library)."""
     import concurrent.futures as cf
 
-    builds = {k["source"]: k["module"].build for k in kernels}
+    builds = {src: fn for k in kernels for src, fn in k["builds"]}
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(max_workers=len(builds)) as ex:
         futs = {src: ex.submit(fn, True) for src, fn in builds.items()}
@@ -146,7 +168,8 @@ def phase_build(kernels):
     for src, (so, secs, text) in built.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill", text)]
-        users = [k["name"] for k in kernels if k["source"] == src]
+        users = [k["name"] for k in kernels
+                 if src in dict(k["builds"])]
         log(f"[build] {src} ({', '.join(users)}): nvcc {secs:.1f} s -> "
             f"{so.name}; ptxas: {len(regs)} kernel instances, "
             f"{min(regs)}-{max(regs)} registers, largest spill "
@@ -167,30 +190,51 @@ def _rand(gen, lo, hi, shape, dev):
 class Checker:
     """Kernel-vs-plain comparisons of one kernel (and, for a GEMM, its
     poison checks); keeps the largest |kernel - plain| seen (0 when all
-    agree) and the count. ``cuda_fn``/``plain_fn`` are the GEMM's pair for
-    ``compare``; the codec passes call ``equal`` with their own results."""
+    agree) and the count, per route. ``cuda_fn``/``plain_fn`` are the
+    GEMM's pair for ``compare``; a GEMM's ``s8_fn`` (its wrapper, which
+    sends packed calls to the s8 tensor-core kernel) is held against the
+    same plain result on every packed call, beside ``cuda_fn`` (its
+    CUDA-core kernel, called directly). The codec passes call ``equal``
+    with their own results."""
 
-    def __init__(self, cuda_fn=None, plain_fn=None):
-        self.cuda_fn, self.plain_fn = cuda_fn, plain_fn
-        self.worst = 0
-        self.n = 0
+    def __init__(self, cuda_fn=None, plain_fn=None, s8_fn=None):
+        self.cuda_fn, self.plain_fn, self.s8_fn = cuda_fn, plain_fn, s8_fn
+        self.worst_by_route, self.n_by_route = {}, {}
 
-    def equal(self, got, want, what):
+    @property
+    def worst(self):
+        return max(self.worst_by_route.values(), default=0)
+
+    @property
+    def n(self):
+        return sum(self.n_by_route.values())
+
+    def routes(self, packed):
+        """(route, launch function) of each kernel that takes the call."""
+        if self.s8_fn is None:
+            return [("cuda", self.cuda_fn)]
+        out = [("cuda_core", self.cuda_fn)]
+        return [("s8", self.s8_fn)] + out if packed else out
+
+    def equal(self, got, want, what, route="cuda"):
         import torch
 
         torch.cuda.synchronize()
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        self.worst = max(self.worst, err)
-        self.n += 1
+        self.worst_by_route[route] = max(self.worst_by_route.get(route, 0),
+                                         err)
+        self.n_by_route[route] = self.n_by_route.get(route, 0) + 1
         if err:
-            raise AssertionError(f"kernel != plain for {what}: max |diff| "
-                                 f"{err}")
+            raise AssertionError(f"kernel != plain for {what} ({route}): max "
+                                 f"|diff| {err}")
 
     def compare(self, c, g, plan, mode, r, packed, what):
         kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
-        self.equal(self.cuda_fn(c, g, plan, **kw),
-                   self.plain_fn(c, g, plan, **kw),
-                   f"{what} mode={mode!r} failed={r} packed={packed}")
+        want = self.plain_fn(c, g, plan, **kw)
+        for route, fn in self.routes(packed):
+            self.equal(fn(c, g, plan, **kw), want,
+                       f"{what} mode={mode!r} failed={r} packed={packed}",
+                       route)
 
     def sweep(self, c, g, plan, packed, what, modes):
         """Every mode of ``modes``, every failed stream where it extracts."""
@@ -206,16 +250,18 @@ class Checker:
         from repro_torch.core.entangle import disentangle
         from repro_torch.core.failstop import GARBAGE
 
-        delta = self.cuda_fn(c, g, plan, fuse_epilogue=False, packed=packed)
-        for r in range(plan.M):
-            fused = self.cuda_fn(c, g, plan, fuse_epilogue=True, failed=r,
-                                 packed=packed)
-            bad = delta.clone()
-            bad[r] = GARBAGE
-            ref = disentangle(bad, plan, failed=r)
-            torch.cuda.synchronize()
-            if not torch.equal(fused, ref):
-                raise AssertionError(f"poison check failed for {what}, r={r}")
+        for route, fn in self.routes(packed):
+            delta = fn(c, g, plan, fuse_epilogue=False, packed=packed)
+            for r in range(plan.M):
+                fused = fn(c, g, plan, fuse_epilogue=True, failed=r,
+                           packed=packed)
+                bad = delta.clone()
+                bad[r] = GARBAGE
+                ref = disentangle(bad, plan, failed=r)
+                torch.cuda.synchronize()
+                if not torch.equal(fused, ref):
+                    raise AssertionError(f"poison check failed for {what}, "
+                                         f"r={r} ({route})")
 
 
 DENSE_MODES = (False, True, "chain", "chain_final")
@@ -493,14 +539,13 @@ def _wave(eng, cfg, failed_group, kernels):
     steps = []
     launched = {k["name"]: [] for k in kernels}
     while not eng.idle():
-        before = {k["name"]: k["module"].launches for k in kernels}
+        before = {k["name"]: count(k) for k in kernels}
         t0 = time.perf_counter()
         eng.step(failed_group=failed_group)
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
         for k in kernels:
-            launched[k["name"]].append(k["module"].launches
-                                       - before[k["name"]])
+            launched[k["name"]].append(count(k) - before[k["name"]])
         if len(steps) > 10 * SERVE["max_new"]:
             raise AssertionError("wave failed to drain")
     outs = {r.rid: np.asarray(r.out) for r in reqs}
@@ -514,8 +559,9 @@ def _wave(eng, cfg, failed_group, kernels):
 def phase_serve(dev, kernels, path_kernels, cfg, model, params, scopes):
     """Serve the wave per protected scope, healthy and with failed_group=1;
     every kernel's count is set to 0 just before and read just after, and
-    each of ``path_kernels`` must have launched. Returns (counts, results
-    by scope, breakdown)."""
+    each of ``path_kernels`` must have launched, and no GEMM may have
+    reached its CUDA-core route (every served weight is packed). Returns
+    (counts, CUDA-core GEMM counts, results by scope, breakdown)."""
     import numpy as np
     import torch
 
@@ -533,8 +579,7 @@ def phase_serve(dev, kernels, path_kernels, cfg, model, params, scopes):
 
     base = dict(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
                 ft_mode="entangle", ft_M=SERVE["ft_M"])
-    for k in kernels:
-        k["module"].launches = 0
+    reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats(dev)
     results = {}
     t_serve = time.perf_counter()
@@ -578,16 +623,23 @@ def phase_serve(dev, kernels, path_kernels, cfg, model, params, scopes):
         del eng, eng2
         free_cuda()
     serve_s = time.perf_counter() - t_serve
-    counts = {k["name"]: k["module"].launches for k in kernels}
+    counts = {k["name"]: count(k) for k in kernels}
+    # the GEMMs' second route: the CUDA-core kernel, which no packed
+    # (serving) call may reach
+    core = {k["name"]: count(k, 1) for k in kernels
+            if len(k["counters"]) > 1}
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"[serve] {cfg.name} kernel launches over the {2 * len(scopes)} "
-        f"waves: {counts}; max_memory_allocated {peak / 2**30:.2f} GiB; "
-        f"{serve_s:.1f} s")
+        f"waves: {counts}; CUDA-core GEMM route {core}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; {serve_s:.1f} s")
     for name in path_kernels:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched by the "
                                  f"{cfg.name} path")
-    return counts, results, _breakdown(dev, cfg, params, base)
+    if any(core.values()):
+        raise AssertionError(f"packed GEMMs of the {cfg.name} path reached "
+                             f"the CUDA-core kernel: {core}")
+    return counts, core, results, _breakdown(dev, cfg, params, base)
 
 
 def _breakdown(dev, cfg, params, base):
@@ -702,8 +754,7 @@ def phase_train(dev, kernels, path_kernels, n_params):
     loop = LoopConfig(total_steps=TRAIN["steps"],
                       ckpt_every=TRAIN["steps"] + 1, ckpt_dir=ckpt_dir,
                       log_every=1, fail_block_at_step=TRAIN["fail_step"])
-    for k in kernels:
-        k["module"].launches = 0
+    reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     try:
@@ -711,7 +762,7 @@ def phase_train(dev, kernels, path_kernels, n_params):
                                    device=dev)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {k["name"]: k["module"].launches for k in kernels}
+        counts = {k["name"]: count(k) for k in kernels}
         files = list(pathlib.Path(ckpt_dir).rglob("*.npy"))
         ckpt_bytes = sum(f.stat().st_size for f in files)
     finally:
@@ -1160,8 +1211,7 @@ def phase_stream_conv(dev, kernels, path_kernels, inputs, truth):
     from repro_torch.core.plan import make_plan
     from repro_torch.kernels import ops
 
-    for k in kernels:
-        k["module"].launches = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
     for (M, K), (c, g) in inputs.items():
         want = truth[(M, K)]
@@ -1197,7 +1247,7 @@ def phase_stream_conv(dev, kernels, path_kernels, inputs, truth):
             f"exactly; failure-intolerant outputs == the plain versions' on "
             f"the CPU")
     torch.cuda.synchronize()
-    counts = {k["name"]: k["module"].launches for k in kernels}
+    counts = {k["name"]: count(k) for k in kernels}
     log(f"[stream-conv] kernel launches on the path: {counts}; conv part "
         f"{conv_s:.1f} s, all {time.perf_counter() - t0:.1f} s")
     for name in path_kernels:
@@ -1493,43 +1543,82 @@ def _graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def _timing_row(dev, site, c, gs, plan, cuda_fn, plain_fn, macs, nbytes,
+def _timing_row(dev, site, c, gs, plan, fns, plain_fn, macs, nbytes,
                 wbytes, iters):
-    """Kernel (with and without its scratch fill), plain version and bound
-    of one shape; ``gs`` holds enough weight copies to exceed the L2."""
+    """Both GEMM kernels (``fns``: route -> launch function), the plain
+    version and the bounds of one shape; ``gs`` holds enough weight copies
+    to exceed the L2. The kernels are timed in turns (CUDA-core, s8, s8,
+    CUDA-core) in one call. Bounds: the bytes (each input read once, the
+    output written once, at 3.35 TB/s); the CUDA-core kernel's int32 MACs
+    of the M-1 computed streams; the s8 kernel's 4 limb MACs per int32
+    MAC at 1,979 TOP/s (2 operations per MAC)."""
     kw = dict(fuse_epilogue=True, failed=1, packed=True)
     copies = len(gs)
 
-    def kernel(i):
-        return cuda_fn(c, gs[i % copies], plan, **kw)
+    def kernel(fn):
+        return lambda i: fn(c, gs[i % copies], plan, **kw)
 
-    ms = _graph_ms(kernel, iters)
-    kernel_only = _device_ms(kernel, iters, match="emm_kernel",
-                             per="emm_kernel")
+    times = {route: [] for route in fns}
+    for route in ("cuda_core", "s8", "s8", "cuda_core"):
+        times[route].append(_graph_ms(kernel(fns[route]), iters))
+    # the kernel alone from a trace ("emm_kernel" matches both kernels'
+    # names; a window runs one route)
+    alone = {route: _device_ms(kernel(fns[route]), iters, match="emm_kernel",
+                               per=name)
+             for route, name in (("s8", "emm_kernel_s8<"),
+                                 ("cuda_core", "emm_kernel<"))}
     plain_ms = _graph_ms(lambda i: plain_fn(c, gs[i % copies], plan, **kw),
                          max(3, iters // 5))
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * macs / _int32_macs_per_s(dev)
+    t_int32 = 1e3 * macs / _int32_macs_per_s(dev)
+    t_s8 = 1e3 * 2 * 4 * macs / INT8_TENSOR_OPS_PER_S
+    ms = sum(times["s8"]) / 2
+    ms_core = sum(times["cuda_core"]) / 2
     row = dict(site=site, shape=list(c.shape) + [list(gs[0].shape)], ms=ms,
-               kernel_only_ms=kernel_only, plain_ms=plain_ms,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes_ms=t_bytes, ops_ms=t_ops, weight_copies=copies,
-               weight_bytes=wbytes)
+               ms_turns=times["s8"], kernel_only_ms=alone["s8"],
+               plain_ms=plain_ms, bound_ms=max(t_bytes, t_s8),
+               bound_by="bytes" if t_bytes >= t_s8 else "operations",
+               bytes_ms=t_bytes, int32_macs_ms=t_int32, s8_limb_macs_ms=t_s8,
+               weight_copies=copies, weight_bytes=wbytes,
+               cuda_core=dict(ms=ms_core, ms_turns=times["cuda_core"],
+                              kernel_only_ms=alone["cuda_core"],
+                              bound_ms=max(t_bytes, t_int32),
+                              bound_by="bytes" if t_bytes >= t_int32
+                              else "operations"))
     log(f"[timing] {site} c{list(c.shape)} x g{list(gs[0].shape)} packed: "
-        f"kernel {ms:.4f} ms (emm_kernel alone {kernel_only:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}; bytes {t_bytes:.4f} ms, int32 MACs of the M-1 "
-        f"streams {t_ops:.4f} ms), {ms / row['bound_ms']:.2f}x bound; no "
-        f"single PyTorch call computes this function")
+        f"s8 kernel {ms:.4f} ms (turns {times['s8'][0]:.4f} / "
+        f"{times['s8'][1]:.4f}; alone {alone['s8']:.4f}), CUDA-core kernel "
+        f"{ms_core:.4f} ms (turns {times['cuda_core'][0]:.4f} / "
+        f"{times['cuda_core'][1]:.4f}; alone {alone['cuda_core']:.4f}), "
+        f"plain {plain_ms:.4f} ms; bounds: bytes {t_bytes:.4f} ms, int32 "
+        f"MACs of the M-1 streams {t_int32:.4f} ms, s8 limb MACs "
+        f"{t_s8:.4f} ms; s8 {ms / row['bound_ms']:.2f}x its bound "
+        f"({row['bound_by']}), CUDA-core "
+        f"{ms_core / row['cuda_core']['bound_ms']:.2f}x its bound; no single "
+        f"PyTorch call computes this function")
     return row
 
 
+def decode_occupancy(E, top_k, tokens, seed):
+    """The experts that ``tokens`` decode tokens reach, each routed to
+    ``top_k`` distinct experts drawn from ``seed``: a bool mask [E]."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    occ = torch.zeros(E, dtype=torch.bool)
+    for _ in range(tokens):
+        occ[torch.randperm(E, generator=gen)[:top_k]] = True
+    return occ
+
+
 def phase_timings(dev):
-    """The dense kernel at the llama decode head and largest MLP shapes,
-    and the grouped kernel at the deepseek decode MoE shapes (weights
+    """Both GEMM kernels at the llama decode head and largest MLP shapes,
+    and the grouped kernels at the deepseek decode MoE shapes with every
+    expert occupied and at decode occupancy (8 tokens x top-6 experts from
+    the seed; the other experts' rows zero, as the dispatch leaves them,
+    so the bound counts only the occupied experts' weights). Weights are
     rotated through enough copies to exceed the L2, as the decode loop
-    finds them cold)."""
+    finds them cold."""
     import torch
 
     from repro_torch.core.plan import make_plan
@@ -1544,6 +1633,8 @@ def phase_timings(dev):
     gsz = SERVE["max_batch"] // M
     rows = {"entangled_matmul": [], "entangled_matmul_grouped": []}
     cfg = model_config(LLAMA)
+    dense_fns = dict(s8=emm.entangled_matmul_cuda,
+                     cuda_core=emm.entangled_matmul_cuda_core)
     for site, (B, K, N) in (("head", (gsz, cfg.d_model, cfg.vocab_size)),
                             ("mlp.down", (gsz, cfg.d_ff, cfg.d_model)),
                             ("mlp.gate/up", (gsz, cfg.d_model, cfg.d_ff))):
@@ -1553,7 +1644,7 @@ def phase_timings(dev):
         gs = [pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
               for _ in range(max(1, -(-2 * L2_BYTES // wbytes)))]
         rows["entangled_matmul"].append(_timing_row(
-            dev, f"{LLAMA} {site}", c, gs, plan, emm.entangled_matmul_cuda,
+            dev, f"{LLAMA} {site}", c, gs, plan, dense_fns,
             emm.entangled_matmul_plain, macs=(M - 1) * B * K * N,
             nbytes=4 * (M * B * K + (K // 4) * N + M * B * N), wbytes=wbytes,
             iters=20 if N > 100_000 else 50))
@@ -1564,18 +1655,27 @@ def phase_timings(dev):
     from repro_torch.models.layers import _moe_capacity
 
     Cg = -(-_moe_capacity(SERVE["max_batch"], cfg) // M)  # decode rows
-    for site, (K, N) in (("moe.gate/up", (D, F)), ("moe.down", (F, D))):
+    occ = decode_occupancy(E, cfg.moe.top_k, SERVE["max_batch"], seed=7)
+    n_occ = int(occ.sum())
+    grouped_fns = dict(s8=emmg.entangled_matmul_grouped_cuda,
+                       cuda_core=emmg.entangled_matmul_grouped_cuda_core)
+    for site, (K, N), occupied in (
+            ("moe.gate/up", (D, F), E), ("moe.down", (F, D), E),
+            (f"moe.gate/up at decode occupancy ({n_occ} of {E} experts)",
+             (D, F), n_occ)):
         bud = activation_budget(plan, K)
         c = _rand(gen, -bud, bud + 1, (M, E, Cg, K), dev)
-        wbytes = E * (K // 4) * N * 4
+        if occupied < E:
+            c[:, ~occ.to(dev)] = 0
+        wbytes = occupied * (K // 4) * N * 4
         gs = [pack_int8(_rand(gen, -127, 128, (E, K, N), dev), axis=1)
-              for _ in range(max(1, -(-2 * L2_BYTES // wbytes)))]
+              for _ in range(max(1, -(-2 * L2_BYTES // (E * K * N))))]
         rows["entangled_matmul_grouped"].append(_timing_row(
-            dev, f"{DEEPSEEK} decode {site}", c, gs, plan,
-            emmg.entangled_matmul_grouped_cuda,
+            dev, f"{DEEPSEEK} decode {site}", c, gs, plan, grouped_fns,
             emmg.entangled_matmul_grouped_plain,
-            macs=(M - 1) * E * Cg * K * N,
-            nbytes=4 * (M * E * Cg * K + E * (K // 4) * N + M * E * Cg * N),
+            macs=(M - 1) * occupied * Cg * K * N,
+            nbytes=4 * (M * E * Cg * K + occupied * (K // 4) * N
+                        + M * E * Cg * N),
             wbytes=wbytes, iters=50))
         del c, gs
         free_cuda()
@@ -1595,11 +1695,12 @@ def run_path(dev, kernels, arch, path_kernels, scopes):
     if grouped:
         check_grouped(dev, by_name["entangled_matmul_grouped"]["checker"],
                       grouped)
-    counts, results, breakdown = phase_serve(dev, kernels, path_kernels, cfg,
-                                             model, params, scopes)
+    counts, core, results, breakdown = phase_serve(
+        dev, kernels, path_kernels, cfg, model, params, scopes)
     del params, model
     free_cuda()
-    return dict(counts=counts, results=results, breakdown=breakdown,
+    return dict(counts=counts, core_counts=core, results=results,
+                breakdown=breakdown,
                 n_dense_shapes=len(dense), n_grouped_shapes=len(grouped))
 
 
@@ -1619,19 +1720,29 @@ def main() -> int:
     from repro_torch.kernels import entangled_matmul as emm
     from repro_torch.kernels import entangled_matmul_grouped as emmg
 
-    src = "src/repro_torch/kernels/csrc/entangled_matmul.cu"
+    s8_src = "src/repro_torch/kernels/csrc/entangled_matmul_s8.cu"
+    core_src = "src/repro_torch/kernels/csrc/entangled_matmul.cu"
     codec_src = "src/repro_torch/kernels/csrc/codec_pass.cu"
     conv_src = "src/repro_torch/kernels/csrc/conv1d.cu"
+    # the GEMMs' main route is the s8 tensor-core kernel (every packed
+    # call); their second, the CUDA-core kernel (unpacked weights)
+    gemm_builds = [(s8_src, emm.build_s8), (core_src, emm.build)]
+    gemm_counters = ["launches_s8", "launches_cuda_core"]
     kernels = [
-        dict(name="entangled_matmul", module=emm, route="cuda", source=src,
+        dict(name="entangled_matmul", module=emm, route="cuda",
+             source=s8_src, core_source=core_src, builds=gemm_builds,
+             counters=gemm_counters,
              replaces="src/repro/kernels/entangled_matmul.py:102",
-             checker=Checker(emm.entangled_matmul_cuda,
-                             emm.entangled_matmul_plain)),
+             checker=Checker(emm.entangled_matmul_cuda_core,
+                             emm.entangled_matmul_plain,
+                             s8_fn=emm.entangled_matmul_cuda)),
         dict(name="entangled_matmul_grouped", module=emmg, route="cuda",
-             source=src,
+             source=s8_src, core_source=core_src, builds=gemm_builds,
+             counters=gemm_counters,
              replaces="src/repro/kernels/entangled_matmul_grouped.py:77",
-             checker=Checker(emmg.entangled_matmul_grouped_cuda,
-                             emmg.entangled_matmul_grouped_plain)),
+             checker=Checker(emmg.entangled_matmul_grouped_cuda_core,
+                             emmg.entangled_matmul_grouped_plain,
+                             s8_fn=emmg.entangled_matmul_grouped_cuda)),
         dict(name="disentangle", module=kdis, route="cuda", source=codec_src,
              replaces="src/repro/kernels/disentangle.py:32",
              checker=Checker()),
@@ -1649,6 +1760,9 @@ def main() -> int:
         dict(name="checksum", module=kcks, route="cuda", source=codec_src,
              replaces="src/repro/kernels/checksum.py:22",
              checker=Checker())]
+    for k in kernels:
+        k.setdefault("builds", [(k["source"], k["module"].build)])
+        k.setdefault("counters", ["launches"])
     by_name = {k["name"]: k for k in kernels}
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1682,7 +1796,7 @@ def main() -> int:
     train_path = f"{LLAMA} train"
     record = dict(kernels=[])
     for k in kernels:
-        name = k["name"]
+        name, chk = k["name"], k["checker"]
         by_path = {a: p["counts"][name] for a, p in paths.items()}
         by_path[train_path] = train_counts[name]
         by_path["stream-conv"] = stream["counts"][name]
@@ -1697,19 +1811,33 @@ def main() -> int:
                              name], timings=[head])
         else:
             head = rows[name][0]
+            core = head["cuda_core"]
+            core_by_path = {a: p["core_counts"][name]
+                            for a, p in paths.items()}
             extra = dict(
                 # the deepseek serving path launches both GEMM kernels
                 launches=paths[DEEPSEEK]["counts"][name],
+                launches_by_route={"s8": dict(by_path),
+                                   "cuda_core": core_by_path},
                 launches_per_decode_step={
                     a: {s: r["launches_per_decode_step"][name]
                         for s, r in p["results"].items()}
                     for a, p in paths.items()},
+                cuda_core=dict(
+                    source=k["core_source"],
+                    launches=paths[DEEPSEEK]["core_counts"][name],
+                    max_abs_err=chk.worst_by_route.get("cuda_core", 0),
+                    comparisons=chk.n_by_route.get("cuda_core", 0),
+                    ms=core["ms"], bound_ms=core["bound_ms"],
+                    bound_by=core["bound_by"]),
                 timings=rows[name])
+        main_route = "s8" if "core_source" in k else "cuda"
         record["kernels"].append(dict(
             name=name, route=k["route"], source=k["source"],
             replaces=k["replaces"], launches=extra.pop("launches"),
-            launches_by_path=by_path, max_abs_err=k["checker"].worst,
-            comparisons=k["checker"].n, ms=head["ms"],
+            launches_by_path=by_path,
+            max_abs_err=chk.worst_by_route.get(main_route, 0),
+            comparisons=chk.n_by_route.get(main_route, 0), ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head.get("library_ms"),
             shape=head["shape"], **extra))

@@ -1,5 +1,9 @@
 // Fused entangled integer GEMM for Hopper (sm_90a), CUDA cores: the dense
-// form and the grouped (per-expert, MoE) form in one kernel.
+// form and the grouped (per-expert, MoE) form in one kernel. It is the
+// route for unpacked, full-range int32 weights, which have no s8 form;
+// packed int8 weights take the tensor-core kernel of
+// entangled_matmul_s8.cu (this one still takes them when called directly,
+// so the two designs can be timed side by side).
 //
 // Replaces two Pallas TPU kernels: repro/kernels/entangled_matmul.py
 // (entangled_matmul_pallas, body _emm_kernel) and
@@ -30,12 +34,13 @@
 // other streams, in the rotated order (r+1, ..., r+M-1) mod M that the
 // telescoping consumes, so those modes do (M-1)/M of the multiply-adds.
 //
-// What bounds it on an H100: the product has no tensor-core form (eps is
-// 14-20 bits wide, the tensor cores take s8), so it runs as 32-bit integer
-// multiply-adds on the CUDA cores, about half the fp32 issue rate. At the
-// serving shapes (a few rows per stream, K x N weights streamed once) the
-// int32 MACs take longer than reading the packed weights, so the kernel is
-// bound by operations, not bytes. The design follows from that:
+// What bounds it on an H100: with full-range int32 weights the product
+// has no tensor-core form (the byte-limb split of entangled_matmul_s8.cu
+// needs s8 weights), so it runs as 32-bit integer multiply-adds on the
+// CUDA cores, about half the fp32 issue rate. At the serving shapes (a few
+// rows per stream, K x N weights streamed once) those MACs take longer
+// than reading packed weights, so this kernel is bound by operations, not
+// bytes. The design follows from that:
 //   * one thread owns TN columns of N and the M x BB accumulators of them
 //     in registers, so every packed weight word is loaded once from device
 //     memory (coalesced across the warp) and feeds 4 x M x BB MACs;

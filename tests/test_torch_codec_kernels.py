@@ -159,8 +159,9 @@ def test_loaded_library_is_reused_without_touching_files(monkeypatch):
     from repro_torch.kernels import entangled_matmul as emm
     from repro_torch.kernels import nvcc
 
-    lib = object()
+    lib, lib_s8 = object(), object()
     monkeypatch.setitem(nvcc._libs, emm._SRC, lib)
+    monkeypatch.setitem(nvcc._libs, emm._SRC_S8, lib_s8)
 
     def touched(*a, **k):
         raise AssertionError("load touched the file system")
@@ -169,3 +170,4 @@ def test_loaded_library_is_reused_without_touching_files(monkeypatch):
     monkeypatch.setattr(nvcc.pathlib.Path, "resolve", touched)
     monkeypatch.setattr(nvcc.pathlib.Path, "read_bytes", touched)
     assert emm._load() is lib
+    assert emm._load_s8() is lib_s8

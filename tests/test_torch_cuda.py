@@ -25,7 +25,6 @@ from repro_torch.kernels import entangled_matmul as emm
 from repro_torch.kernels import entangled_matmul_grouped as emmg
 from repro_torch.kernels.codec import pack_int8
 
-PLANS = [(3, 16, None), (4, 32, None), (3, 32, "dualword"), (8, 32, None)]
 MODES = (False, True, "chain", "chain_final")
 
 
@@ -36,13 +35,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _routes(mod, packed):
+    """(name, launch function, counter name) of every kernel that takes
+    the call: the wrapper (``*_cuda``), which sends packed weights to the
+    s8 kernel and unpacked ones to the CUDA-core kernel, and the CUDA-core
+    kernel called directly on either form."""
+    grouped = mod is emmg
+    core = (emmg.entangled_matmul_grouped_cuda_core if grouped
+            else emm.entangled_matmul_cuda_core)
+    wrapper = (emmg.entangled_matmul_grouped_cuda if grouped
+               else emm.entangled_matmul_cuda)
+    return [("s8" if packed else "cuda_core", wrapper,
+             "launches_s8" if packed else "launches_cuda_core"),
+            ("cuda_core direct", core, "launches_cuda_core")]
+
+
+def _counts(mod):
+    return {"launches_s8": mod.launches_s8,
+            "launches_cuda_core": mod.launches_cuda_core}
+
+
+# every stream count, with its int32 (w = 16) and dual-word (w = 32) plan
+GPU_PLANS = [(M, w, None) for M in range(3, 9) for w in (16, 32)]
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("M,w,temp", PLANS)
+@pytest.mark.parametrize("M,w,temp", GPU_PLANS)
 def test_cuda_kernel_matches_plain(cuda_device, M, w, temp):
-    """Kernel == plain version bit for bit for every mode, packing and
-    failed stream, on ragged and split-K shapes; one launch per call."""
+    """Each kernel == plain version bit for bit for every mode, packing
+    and failed stream, on ragged and split-K shapes (N = 257, K = 2049
+    among them) with full-range int32 activations: the CUDA-core kernel
+    on both weight forms, the s8 kernel on packed weights (through the
+    wrapper, which routes by ``packed``). One launch per call, counted on
+    its route."""
     plan = make_plan(M, w, temp=temp)
-    for (B, K, N) in ((6, 13, 9), (17, 70, 300), (3, 2049, 257)):
+    for (B, K, N) in ((6, 13, 9), (17, 70, 300), (3, 2049, 257),
+                      (2, 512, 260)):
         rng = np.random.default_rng(B * K + N)
         c = torch.from_numpy(rng.integers(
             -2**31, 2**31, size=(M, B, K), dtype=np.int64).astype(np.int32))
@@ -51,16 +79,20 @@ def test_cuda_kernel_matches_plain(cuda_device, M, w, temp):
         gp = pack_int8(torch.from_numpy(
             rng.integers(-128, 128, size=(K, N)).astype(np.int32)), axis=0)
         c = c.to(cuda_device)
-        before = emm.launches
         for packed, gg in ((False, g), (True, gp)):
             gg = gg.contiguous().to(cuda_device)
-            for mode in MODES:
-                for r in [None] + list(range(M)):
-                    kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
-                    got = emm.entangled_matmul_cuda(c, gg, plan, **kw)
-                    want = emm.entangled_matmul_plain(c, gg, plan, **kw)
-                    torch.testing.assert_close(got, want, rtol=0, atol=0)
-        assert emm.launches == before + 2 * len(MODES) * (M + 1)
+            for name, fn, counter in _routes(emm, packed):
+                before = _counts(emm)
+                for mode in MODES:
+                    for r in [None] + list(range(M)):
+                        kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
+                        got = fn(c, gg, plan, **kw)
+                        want = emm.entangled_matmul_plain(c, gg, plan, **kw)
+                        torch.testing.assert_close(
+                            got, want, rtol=0, atol=0,
+                            msg=lambda m: f"{name} {(B, K, N)}: {m}")
+                before[counter] += len(MODES) * (M + 1)
+                assert _counts(emm) == before
 
 
 @pytest.mark.requires_cuda
@@ -68,17 +100,31 @@ def test_cuda_kernel_rejects_bad_inputs(cuda_device):
     plan = make_plan(4, 32)
     c = torch.zeros((4, 2, 8), dtype=torch.int32, device=cuda_device)
     g = torch.zeros((8, 3), dtype=torch.int32, device=cuda_device)
+    gp = torch.zeros((2, 3), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         emm.entangled_matmul_cuda(c.float(), g, plan)
     with pytest.raises(ValueError, match="contiguous"):
         emm.entangled_matmul_cuda(c.transpose(1, 2), g.T.contiguous(), plan)
     with pytest.raises(ValueError, match="depth"):
         emm.entangled_matmul_cuda(c, g, plan, packed=True)
+    # the s8 route: dtype, device, depth past the limb range
+    with pytest.raises(TypeError):
+        emm.entangled_matmul_cuda(c, gp.to(torch.int8), plan, packed=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        emm.entangled_matmul_cuda(c, gp.cpu(), plan, packed=True)
+    deep = torch.zeros((4, 1, 65537), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="too deep"):
+        emm.entangled_matmul_cuda(deep, torch.zeros(
+            (16385, 3), dtype=torch.int32, device=cuda_device), plan,
+            packed=True)
 
 
 def _grouped_operands(rng, M, E, Cg, K, N, dev):
-    """Full-range int32 c and g, and packed int8 weights, on ``dev``."""
+    """Full-range int32 c and g, and packed int8 weights, on ``dev``; the
+    rows of every third expert from the second on are zero (an expert no
+    token was routed to, between occupied ones)."""
     c = rng.integers(-2**31, 2**31, size=(M, E, Cg, K), dtype=np.int64)
+    c[:, 1::3] = 0
     g = rng.integers(-2**31, 2**31, size=(E, K, N), dtype=np.int64)
     g8 = rng.integers(-128, 128, size=(E, K, N)).astype(np.int32)
     return (torch.from_numpy(c.astype(np.int32)).to(dev),
@@ -87,37 +133,44 @@ def _grouped_operands(rng, M, E, Cg, K, N, dev):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("M,w,temp", PLANS)
+@pytest.mark.parametrize("M,w,temp", GPU_PLANS)
 def test_cuda_grouped_kernel_matches_plain(cuda_device, M, w, temp):
-    """Grouped kernel == plain version bit for bit for both modes, packing
-    and every failed stream, on ragged shapes (split-K among them) and the
-    deepseek-v2-lite decode shape; one launch per call; the poison check
-    (the fused kernel with failed=r equals the plain disentangle of the
-    unfused output with stream r overwritten by GARBAGE) for every r."""
+    """Each grouped kernel == plain version bit for bit for both modes,
+    packing and every failed stream, on ragged shapes (split-K among them)
+    and the deepseek-v2-lite decode shape, with empty experts between
+    occupied ones; one launch per call, counted on its route; the poison
+    check (the fused kernel with failed=r equals the plain disentangle of
+    the unfused output with stream r overwritten by GARBAGE) for every r
+    and both kernels."""
     plan = make_plan(M, w, temp=temp)
     shapes = [(3, 5, 13, 9), (2, 17, 70, 300), (4, 1, 2049, 257),
               (64, 2, 2048, 1408)]
     for (E, Cg, K, N) in shapes:
         rng = np.random.default_rng(E * Cg + K + N)
         c, g, gp = _grouped_operands(rng, M, E, Cg, K, N, cuda_device)
-        before = emmg.launches
         for packed, gg in ((False, g), (True, gp)):
-            for mode in (False, True):
-                for r in ([None] + list(range(M)) if mode else [None]):
-                    kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
-                    got = emmg.entangled_matmul_grouped_cuda(c, gg, plan, **kw)
-                    want = emmg.entangled_matmul_grouped_plain(c, gg, plan,
-                                                               **kw)
-                    torch.testing.assert_close(got, want, rtol=0, atol=0)
-        assert emmg.launches == before + 2 * (M + 2)
-        delta = emmg.entangled_matmul_grouped_cuda(c, gp, plan, packed=True)
-        for r in range(M):
-            fused = emmg.entangled_matmul_grouped_cuda(
-                c, gp, plan, fuse_epilogue=True, failed=r, packed=True)
-            bad = delta.clone()
-            bad[r] = GARBAGE
-            torch.testing.assert_close(fused, disentangle(bad, plan, failed=r),
-                                       rtol=0, atol=0)
+            for name, fn, counter in _routes(emmg, packed):
+                before = _counts(emmg)
+                for mode in (False, True):
+                    for r in ([None] + list(range(M)) if mode else [None]):
+                        kw = dict(fuse_epilogue=mode, failed=r, packed=packed)
+                        got = fn(c, gg, plan, **kw)
+                        want = emmg.entangled_matmul_grouped_plain(
+                            c, gg, plan, **kw)
+                        torch.testing.assert_close(
+                            got, want, rtol=0, atol=0,
+                            msg=lambda m: f"{name} {(E, Cg, K, N)}: {m}")
+                before[counter] += M + 2
+                assert _counts(emmg) == before
+        for name, fn, _ in _routes(emmg, True):
+            delta = fn(c, gp, plan, packed=True)
+            for r in range(M):
+                fused = fn(c, gp, plan, fuse_epilogue=True, failed=r,
+                           packed=True)
+                bad = delta.clone()
+                bad[r] = GARBAGE
+                torch.testing.assert_close(
+                    fused, disentangle(bad, plan, failed=r), rtol=0, atol=0)
 
 
 @pytest.mark.requires_cuda
@@ -125,15 +178,32 @@ def test_cuda_grouped_kernel_rejects_bad_inputs(cuda_device):
     plan = make_plan(4, 32)
     c = torch.zeros((4, 3, 2, 8), dtype=torch.int32, device=cuda_device)
     g = torch.zeros((3, 8, 5), dtype=torch.int32, device=cuda_device)
+    gp = torch.zeros((3, 2, 5), dtype=torch.int32, device=cuda_device)
     for mode in ("chain", "chain_final"):
         with pytest.raises(ValueError, match="True or False"):
             emmg.entangled_matmul_grouped_cuda(c, g, plan, fuse_epilogue=mode)
+        with pytest.raises(ValueError, match="True or False"):
+            emmg.entangled_matmul_grouped_cuda(c, gp, plan,
+                                               fuse_epilogue=mode,
+                                               packed=True)
     with pytest.raises(ValueError, match="experts"):
         emmg.entangled_matmul_grouped_cuda(c, g[:2].contiguous(), plan)
     with pytest.raises(ValueError, match="depth"):
         emmg.entangled_matmul_grouped_cuda(c, g, plan, packed=True)
     with pytest.raises(ValueError, match="axes"):
         emmg.entangled_matmul_grouped_cuda(c[0], g, plan)
+    # the s8 route: dtype, device, depth past the limb range
+    with pytest.raises(TypeError):
+        emmg.entangled_matmul_grouped_cuda(c.to(torch.int64), gp, plan,
+                                           packed=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        emmg.entangled_matmul_grouped_cuda(c.cpu(), gp, plan, packed=True)
+    deep = torch.zeros((4, 3, 1, 65537), dtype=torch.int32,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="too deep"):
+        emmg.entangled_matmul_grouped_cuda(deep, torch.zeros(
+            (3, 16385, 5), dtype=torch.int32, device=cuda_device), plan,
+            packed=True)
 
 
 @pytest.mark.requires_cuda

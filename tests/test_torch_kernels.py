@@ -115,4 +115,5 @@ def test_ops_dispatch_rejects_bad_calls():
         ops.entangled_matmul(c[:3], g, plan)
     with pytest.raises(ValueError, match="CUDA tensor"):
         emm.entangled_matmul_cuda(c, g, plan)
-    assert emm.launches == 0  # the CPU path never counts a kernel launch
+    # the CPU path never counts a kernel launch
+    assert emm.launches_s8 == emm.launches_cuda_core == 0

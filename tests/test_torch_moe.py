@@ -160,7 +160,8 @@ def test_grouped_dispatch_rejects_bad_calls():
         ops.entangled_matmul_grouped(c, g[:1], plan)
     with pytest.raises(ValueError, match="CUDA tensor"):
         emmg.entangled_matmul_grouped_cuda(c, g, plan)
-    assert emmg.launches == 0  # the CPU path never counts a kernel launch
+    # the CPU path never counts a kernel launch
+    assert emmg.launches_s8 == emmg.launches_cuda_core == 0
 
 
 # --------------------------------------------------- the protection layer --

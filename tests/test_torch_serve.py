@@ -171,7 +171,8 @@ def test_failed_group_rolls_forward_exactly(ref, scope):
             np.testing.assert_array_equal(injected[rid], healthy[rid])
         if eng.plans is not None:
             assert eng.plans.misses == 0
-    assert emm.launches == 0  # CPU tensors never reach the CUDA kernel
+    # CPU tensors never reach a CUDA kernel
+    assert emm.launches_s8 == emm.launches_cuda_core == 0
 
 
 def test_engine_rejects_unported_options(ref):
