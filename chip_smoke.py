@@ -27,7 +27,9 @@ exits nonzero:
                ``fuse_epilogue`` mode, packed and unpacked weights, every
                failed stream, int32 and dual-word plans, each GEMM on both
                its routes (the s8 tensor-core kernel on packed weights, the
-               CUDA-core kernel on both forms); the codec passes
+               CUDA-core kernel on both forms; every admission mode's
+               census, and packed calls at K = 65540, past one exact s8
+               limb product); the codec passes
                at every gradient leaf of full-width llama3.2-1b as the
                sync blocks it and at ragged widths, M = 3..8, every r;
                plus the poison checks (stream r overwritten by GARBAGE
@@ -39,6 +41,19 @@ exits nonzero:
                none`` once and a profiler window; every packed GEMM must
                have gone through the s8 kernel, none through the CUDA-core
                one;
+  3b. serve-admission — the rest of the engine on the same models: a
+               24-request wave (prompt lengths from ``--seed`` in 5..240,
+               every bucket 8..256 driven, slots refilled mid-flight)
+               under whole-bucket admission, chunked prefill (32) with
+               refill, the same without refill, and token packing (4 rows
+               of 32), each healthy and with ``failed_group=1`` at scopes
+               head and all (EXACT ROLL-FORWARD (serve-admission), plan
+               misses 0; the injected wave runs on a warm replica); the
+               modes' tokens compared pairwise under the near-tie rule;
+               a cancel in every state and a deadline shed; step ms with
+               and without a prefill call, TTFT, tokens/s and the recycle
+               zeroing's launches. deepseek: chunked and packed at scope
+               all;
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
                block at one step) and writes its final checkpoint; the
@@ -104,6 +119,24 @@ DEEPSEEK = "deepseek-v2-lite-16b"
 DEEPSEEK_LAYERS = 8  # 1 dense + 7 MoE layers at published widths
 SERVE = dict(max_batch=8, ft_M=4, max_seq=256, requests=8, prompt_len=8,
              max_new=8)
+# the serve-admission path: the same engine geometry with every bucket of
+# the geometric set (8 .. 256), a 24-request wave of seeded prompt lengths
+# in [5, 240] (one in every bucket, the rest log-uniform) and the four
+# admission modes, each healthy and with failed_group=1 at scopes head and
+# all (deepseek: chunked and packed at scope all)
+ADMIT = dict(requests=24, len_lo=5, len_hi=240, max_new=8, chunk=32,
+             budget=128)
+ADMIT_MODES = {"whole": {}, "chunked": dict(prefill_chunk=32),
+               "boundary": dict(prefill_chunk=32, refill=False),
+               "packed": dict(prefill_chunk=32, token_budget=128)}
+# the near-tie rule of tests/test_torch_serve.py for two admission modes'
+# greedy tokens: float reductions of other shapes move bf16 hidden states
+# by a few ulps, so a request's tokens may part only where each mode's
+# token is within NEAR_TIE of the top logit in the other's logits, and the
+# logits of the shared prefix agree within LOGIT_TOL of the largest
+# |logit|
+NEAR_TIE = 2.0 ** -6
+LOGIT_TOL = 2.0 ** -5
 # the training path: llama3.2-1b at published widths; the loop's steps
 # (block 1 of the entangled sync fail-stopped at FAIL_STEP), then the timed
 # steps of each gradient sync
@@ -266,6 +299,8 @@ class Checker:
 
 DENSE_MODES = (False, True, "chain", "chain_final")
 GROUPED_MODES = (False, True)
+# a packed contraction deeper than one exact s8 limb product (65536)
+DEEP_K = 65540
 
 
 def _all_plans():
@@ -302,6 +337,16 @@ def check_dense(dev, chk, shapes, ragged: bool):
                 chk.poison(c, gp, plan, True, what)
         log(f"[kernels] entangled_matmul ragged shapes: {chk.n - n0} "
             f"kernel-vs-plain comparisons bit-identical; poison check passed")
+        n0 = chk.n
+        plan = make_plan(SERVE["ft_M"], 32)
+        c = _rand(gen, -2**31, 2**31, (plan.M, 2, DEEP_K), dev)
+        gp = pack_int8(_rand(gen, -128, 128, (DEEP_K, 300), dev), axis=0)
+        what = f"K={DEEP_K} past one limb product's 65536"
+        chk.sweep(c, gp, plan, True, what, DENSE_MODES)
+        chk.poison(c, gp, plan, True, what)
+        log(f"[kernels] entangled_matmul packed at K={DEEP_K} (split-K into "
+            f"chunks of at most 65536): {chk.n - n0} comparisons "
+            f"bit-identical; poison check passed")
     plan = make_plan(SERVE["ft_M"], 32)
     n0 = chk.n
     for (B, K, N, site) in shapes:
@@ -345,6 +390,17 @@ def check_grouped(dev, chk, shapes):
             chk.poison(c, gp, plan, True, what)
     log(f"[kernels] entangled_matmul_grouped ragged shapes: {chk.n - n0} "
         f"kernel-vs-plain comparisons bit-identical; poison check passed")
+    n0 = chk.n
+    plan = make_plan(SERVE["ft_M"], 32)
+    c = _rand(gen, -2**31, 2**31, (plan.M, 3, 2, DEEP_K), dev)
+    c[:, 1] = 0  # an empty expert between occupied ones
+    gp = pack_int8(_rand(gen, -128, 128, (3, DEEP_K, 260), dev), axis=1)
+    what = f"E=3 K={DEEP_K} past one limb product's 65536"
+    chk.sweep(c, gp, plan, True, what, GROUPED_MODES)
+    chk.poison(c, gp, plan, True, what)
+    log(f"[kernels] entangled_matmul_grouped packed at K={DEEP_K} (split-K "
+        f"into chunks of at most 65536): {chk.n - n0} comparisons "
+        f"bit-identical; poison check passed")
     n0 = chk.n
     for (E, Cg, K, N, site) in shapes:
         for plan in (make_plan(SERVE["ft_M"], 32), make_plan(SERVE["ft_M"],
@@ -493,23 +549,36 @@ def main_path_shapes(cfg, params, dev):
     """Every entangled-GEMM shape the serving engine can launch: dense
     ``(B, K, N, sites)`` — the vocab head (decode and admission both send
     max_batch / M rows per group) plus the 4-tuples of the engine's own
-    startup census at ft_scope 'all' (the decode step and one whole-bucket
-    prefill per bucket) — and grouped ``(E, Cg, K, N, sites)`` from the
-    census's 5-tuples."""
+    startup census at ft_scope 'all' in every admission mode (the decode
+    step, one prefill per bucket, per chunk width of chunked admission,
+    and the packed [Rp, Cp] program) — and grouped ``(E, Cg, K, N,
+    sites)`` from the census's 5-tuples. Logs how many shapes the chunked
+    and packed censuses add to the whole-bucket one."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    eng = ServeEngine(cfg, ServeConfig(
-        max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
-        ft_mode="entangle", ft_M=SERVE["ft_M"], ft_scope="all"), params,
-        device=dev)
     dense = {(SERVE["max_batch"] // SERVE["ft_M"], cfg.d_model,
               cfg.vocab_size): ["head"]}
     grouped = {}
-    for site, shape in sorted(eng.protected_census):
-        (dense if len(shape) == 4 else grouped).setdefault(
-            shape[1:], []).append(site)
-    del eng
-    free_cuda()
+    census = {}
+    for mode in ("whole", "chunked", "packed"):  # refill moves no shape
+        kw = ADMIT_MODES[mode]
+        eng = ServeEngine(cfg, ServeConfig(
+            max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+            ft_mode="entangle", ft_M=SERVE["ft_M"], ft_scope="all", **kw),
+            params, device=dev)
+        census[mode] = set(eng.protected_census)
+        del eng
+        free_cuda()
+    for site, shape in sorted(set().union(*census.values())):
+        d = dense if len(shape) == 4 else grouped
+        if site not in d.setdefault(shape[1:], []):
+            d[shape[1:]].append(site)
+    new = {m: len(c - census["whole"]) for m, c in census.items()
+           if m != "whole"}
+    log(f"[kernels] {cfg.name} census at scope all: whole-bucket "
+        f"{len(census['whole'])} (site, shape) entries; entries the "
+        f"chunked and packed ([{ADMIT['budget'] // ADMIT['chunk']}, "
+        f"{ADMIT['chunk']}]) censuses add: {new}")
     flat = lambda d: [(*k, "/".join(v)) for k, v in sorted(d.items())]  # noqa: E731
     return flat(dense), flat(grouped)
 
@@ -694,6 +763,344 @@ def _breakdown(dev, cfg, params, base):
     for dev_us, key, count in rows[:8]:
         log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:160]}")
     return dict(step_ms=none_ms, profile_wall_ms=1e3 * wall, busy_ms=busy)
+
+
+# ------------------------------------------------------- serve-admission --
+
+def admission_lengths(seed):
+    """The wave's prompt lengths from ``seed``: one in each bucket's range
+    of the geometric set (within [len_lo, len_hi]), the rest log-uniform
+    over [len_lo, len_hi], shuffled."""
+    import numpy as np
+
+    from repro_torch.serve.engine import geometric_buckets
+
+    rng = np.random.default_rng(seed)
+    lo, hi = ADMIT["len_lo"], ADMIT["len_hi"]
+    out, prev = [], 0
+    for b in geometric_buckets(SERVE["max_seq"]):
+        a, z = max(lo, prev + 1), min(b, hi)
+        if a <= z:
+            out.append(int(rng.integers(a, z + 1)))
+        prev = b
+    while len(out) < ADMIT["requests"]:
+        out.append(int(np.exp(rng.uniform(np.log(lo), np.log(hi + 1)))))
+    rng.shuffle(out)
+    return out
+
+
+def _recording_engine():
+    """A ServeEngine that keeps, per request, the logits row of each of its
+    head projections (its greedy tokens' logits), on the card."""
+    from repro_torch.serve.engine import ServeEngine
+
+    class Recording(ServeEngine):
+        _landing = None
+
+        def _land(self, p, failed_group, src, src_rows):
+            self._landing = p
+            try:
+                super()._land(p, failed_group, src, src_rows)
+            finally:
+                self._landing = None
+
+        def _head_logits(self, h, mask, failed_group, ft_fn):
+            logits = super()._head_logits(h, mask, failed_group, ft_fn)
+            if self._landing is not None:
+                reqs = [r for _, r in self._landing["reqs"]]
+            else:
+                reqs = [s and s["req"] for s in self.slots]
+            for row, req in enumerate(reqs):
+                if req is not None:
+                    self.logits_by_rid.setdefault(req.rid, []).append(
+                        logits[row].clone())
+            return logits
+
+    return Recording
+
+
+def _admit_wave(eng, cfg, lengths, failed_group):
+    """Serve the admission wave (seeded prompts of ``lengths``, all
+    submitted at once); returns (tokens by rid, stats)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(len(lengths))
+    reqs = [Request(rid=r, prompt=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new=ADMIT["max_new"])
+            for r, n in enumerate(lengths)]
+    t0 = time.perf_counter()
+    for rq in reqs:
+        eng.submit(rq)
+    # per step: ms, whether it ran a prefill call, and whether admission
+    # was still pending (a request queued or mid-prefill) when it began
+    steps = []
+    while not eng.idle():
+        before = eng.prefill_calls
+        pending = bool(eng.queue or eng._inflight)
+        t = time.perf_counter()
+        eng.step(failed_group=failed_group)
+        torch.cuda.synchronize()
+        steps.append((1e3 * (time.perf_counter() - t),
+                      eng.prefill_calls > before, pending))
+        if len(steps) > 50 * ADMIT["requests"]:
+            raise AssertionError("admission wave failed to drain")
+    wall = time.perf_counter() - t0
+    outs = {r.rid: np.asarray(r.out) for r in reqs}
+    for rid, o in outs.items():
+        if o.shape != (ADMIT["max_new"],) or o.min() < 0 \
+                or o.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {rid}: bad output {o}")
+    ttft = np.array([1e3 * (r.t_first - r.t_submit) for r in reqs])
+    m = eng.metrics
+    def mean(sel):
+        ms = [t for t, pf, pend in steps if sel(pf, pend)]
+        return float(np.mean(ms)) if ms else None
+
+    stats = dict(
+        steps=len(steps), admit_steps=sum(pf for _, pf, _ in steps),
+        # steps that ran a prefill call; every step while admission was
+        # pending; the steps after the last admission
+        admit_step_ms=mean(lambda pf, pend: pf),
+        during_step_ms=mean(lambda pf, pend: pend),
+        after_step_ms=mean(lambda pf, pend: not pend),
+        max_step_ms=max(t for t, _, _ in steps),
+        step_ms=[round(t, 3) for t, _, _ in steps],
+        ttft_p50_ms=float(np.percentile(ttft, 50)),
+        ttft_p95_ms=float(np.percentile(ttft, 95)),
+        tok_s=sum(len(o) for o in outs.values()) / wall, wall_s=wall,
+        prefill_calls=eng.prefill_calls, decode_calls=eng.decode_calls,
+        misses=eng.plans.misses if eng.plans is not None else 0,
+        **{k: m[k] for k in ("refill_admissions", "landings",
+                             "packed_tokens", "packed_calls",
+                             "packed_batches_peak", "recycled",
+                             "zero_flushes", "merged_zero_rows",
+                             "merged_landings")},
+        # a batched row copy or fill is one launch per cache tensor
+        cache_tensors=sum(1 for _ in _leaves(eng.cache)))
+    if stats["misses"]:
+        raise AssertionError(f"compiled plans missed {stats['misses']} "
+                             f"shapes")
+    return outs, stats
+
+
+def _mode_pair(a, b, name):
+    """Tokens of two healthy admission modes (outs, logits by rid): how
+    many agree, and the near-tie rule: per request, the logits of the
+    shared prefix agree within LOGIT_TOL of the largest |logit| and the
+    first differing token is a near-tie in both modes."""
+    import numpy as np
+
+    (oa, la), (ob, lb) = a, b
+    agree = total = parted = 0
+    worst = 0.0
+    for rid in oa:
+        ta, tb = oa[rid], ob[rid]
+        total += len(ta)
+        diff = np.nonzero(ta != tb)[0]
+        upto = len(ta) if not len(diff) else diff[0] + 1
+        agree += int((ta == tb).sum())
+        for t in range(upto):
+            xa, xb = la[rid][t].float(), lb[rid][t].float()
+            scale = float(xa.abs().max())
+            worst = max(worst, float((xa - xb).abs().max()) / scale)
+        if len(diff):
+            t = diff[0]
+            xa, xb = la[rid][t].float(), lb[rid][t].float()
+            ga = float(xa.max() - xa[int(tb[t])]) / abs(float(xa.max()))
+            gb = float(xb.max() - xb[int(ta[t])]) / abs(float(xb.max()))
+            if ga > NEAR_TIE or gb > NEAR_TIE:
+                raise AssertionError(
+                    f"{name}: request {rid} parts at token {t} ({ta[t]} vs "
+                    f"{tb[t]}) with gaps {ga:.4f} / {gb:.4f} > near-tie "
+                    f"{NEAR_TIE}")
+            parted += 1
+    if worst > LOGIT_TOL:
+        raise AssertionError(f"{name}: shared-prefix logits differ by "
+                             f"{worst:.4f} of the largest |logit| > "
+                             f"{LOGIT_TOL}")
+    return dict(agree=agree, total=total, parted_at_near_ties=parted,
+                max_logit_diff=worst)
+
+
+def _admission_drill(dev, cfg, params):
+    """Once, chunked admission at scope all: a cancel in each state
+    (queued, mid-prefill, decoding) and one deadline shed; the engine then
+    serves another request and ends with every slot free and no plan
+    miss."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+    from repro_torch.serve.scheduler import DeadlineExceeded
+
+    now = [0.0]
+    eng = ServeEngine(cfg, ServeConfig(
+        max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+        ft_mode="entangle", ft_M=SERVE["ft_M"], ft_scope="all",
+        clock=lambda: now[0], **ADMIT_MODES["chunked"]), params, device=dev)
+    rng = np.random.default_rng(1)
+
+    def req(rid, n, **kw):
+        return Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n)
+                       .astype(np.int32), max_new=ADMIT["max_new"], **kw)
+
+    def check(ok, what):
+        if not ok:
+            raise AssertionError(f"admission drill: {what}")
+
+    hq = eng.submit(req(0, 20))
+    hq.cancel()
+    check(hq.status == "cancelled" and not eng.queue and list(hq) == [],
+          "cancel while queued")
+    hp = eng.submit(req(1, SERVE["max_seq"] - ADMIT["max_new"] - 8))
+    eng.step()
+    check(hp.status == "prefill", f"status {hp.status} after one chunk")
+    hp.cancel()
+    check(hp.status == "cancelled" and not eng._reserved,
+          "cancel mid-prefill")
+    hd = eng.submit(req(2, 20))
+    while hd.status != "decoding":
+        eng.step()
+    eng.step()
+    hd.cancel()
+    check(hd.status == "cancelled"
+          and 1 <= len(hd.req.out) < ADMIT["max_new"], "cancel decoding")
+    hs = eng.submit(req(3, 20, deadline_ms=10.0))
+    now[0] = 1.0
+    pre = eng.prefill_calls
+    eng.step()
+    check(hs.status == "shed" and eng.prefill_calls == pre, "shed")
+    try:
+        list(hs)
+        check(False, "a shed handle streamed without raising")
+    except DeadlineExceeded:
+        pass
+    ok = eng.submit(req(4, 40))
+    check(len(ok.result().out) == ADMIT["max_new"], "the next request")
+    check(eng.idle() and all(s is None for s in eng.slots), "slots free")
+    check(eng.metrics["cancelled"] == 3 and eng.metrics["shed"] == 1,
+          f"metrics {eng.metrics}")
+    check(eng.plans.misses == 0, "plan misses")
+    log(f"[serve-admission] {cfg.name} drill: cancel queued / mid-prefill "
+        f"/ decoding ({len(hd.req.out)} tokens kept) and one deadline shed "
+        f"(DeadlineExceeded, no prefill spent); the next request served; "
+        f"misses 0")
+    del eng
+    free_cuda()
+
+
+def phase_serve_admission(dev, kernels, path_kernels, cfg, params, modes,
+                          scopes, smi, seed, drill):
+    """The rest of the serving engine on the card: per admission mode and
+    scope, the 24-request wave healthy and with failed_group=1 (EXACT
+    ROLL-FORWARD (serve-admission)), misses 0; the healthy modes compared
+    pairwise (llama) under the near-tie rule; the drill once. Every
+    kernel's count is set to 0 just before and read just after; each of
+    ``path_kernels`` must have launched. Returns (counts, record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    lengths = admission_lengths(seed)
+    Recording = _recording_engine()
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    per, healthy = {}, {}
+    for scope in scopes:
+        for mode in modes:
+            scfg = ServeConfig(max_batch=SERVE["max_batch"],
+                               max_seq=SERVE["max_seq"], ft_mode="entangle",
+                               ft_M=SERVE["ft_M"], ft_scope=scope,
+                               **ADMIT_MODES[mode])
+            eng = Recording(cfg, scfg, params, device=dev)
+            eng.logits_by_rid = {}
+            outs, st = _admit_wave(eng, cfg, lengths, None)
+            healthy[scope, mode] = (outs, eng.logits_by_rid)
+            # the injected wave runs on a warm replica of the healthy one:
+            # its census, plans and quantized weights, none redone
+            warm = eng.warm_state()
+            del eng
+            inj, st_i = _admit_wave(ServeEngine(cfg, scfg, params,
+                                                device=dev, warm=warm),
+                                    cfg, lengths, 1)
+            del warm
+            bad = sum(not np.array_equal(outs[r], inj[r]) for r in outs)
+            verdict = ("EXACT ROLL-FORWARD (serve-admission)" if bad == 0
+                       else "RECOVERY FAILED")
+            log(f"[serve-admission] {cfg.name} mode={mode} scope={scope}: "
+                f"failed_group=1 injected on every step; {len(outs)} "
+                f"requests / {sum(len(v) for v in outs.values())} tokens "
+                f"compared; mismatching requests: {bad} ({verdict}); "
+                f"misses 0")
+            if bad:
+                raise AssertionError(f"{cfg.name} {mode} {scope}: {verdict}")
+            per[f"{mode}/{scope}"] = dict(healthy=st, injected=st_i)
+            log(f"[serve-admission] {cfg.name} mode={mode} scope={scope} "
+                f"({smi}): {st['steps']} steps; mean step ms while "
+                f"admitting {st['during_step_ms']}, after the last "
+                f"admission {st['after_step_ms']}; with a prefill call "
+                f"{st['admit_step_ms']} over {st['admit_steps']} steps "
+                f"(max step {st['max_step_ms']:.3f}); TTFT p50 "
+                f"{st['ttft_p50_ms']:.3f}"
+                f" / p95 {st['ttft_p95_ms']:.3f} ms; {st['tok_s']:.2f} "
+                f"tokens/s; prefill calls {st['prefill_calls']}, "
+                f"refill_admissions {st['refill_admissions']}, landings "
+                f"{st['landings']}, packed tokens per packed call "
+                f"{st['packed_tokens'] / max(1, st['packed_calls']):.2f} "
+                f"(peak {st['packed_batches_peak']} batches); recycled "
+                f"{st['recycled']} slots: {st['zero_flushes']} batched "
+                f"fills + {st['merged_zero_rows']} rows in "
+                f"{st['merged_landings']} landing copies, i.e. "
+                f"{(st['zero_flushes'] + st['merged_landings']) * st['cache_tensors']}"
+                f" launches where one fill per recycled slot takes "
+                f"{st['recycled'] * st['cache_tensors']}")
+            free_cuda()
+    pairs = {}
+    for scope in scopes:
+        for i, ma in enumerate(modes):
+            for mb in modes[i + 1:]:
+                name = f"{ma} vs {mb} scope={scope}"
+                if cfg.moe:
+                    # expert capacity is a function of a program's token
+                    # count: modes of other program shapes drop other
+                    # tokens, by design, so only the agreement is shown
+                    oa, ob = healthy[scope, ma][0], healthy[scope, mb][0]
+                    pairs[name] = dict(
+                        agree=int(sum((oa[r] == ob[r]).sum() for r in oa)),
+                        total=int(sum(len(v) for v in oa.values())),
+                        rule="none (MoE capacity)")
+                else:
+                    pairs[name] = _mode_pair(healthy[scope, ma],
+                                             healthy[scope, mb], name)
+                log(f"[serve-admission] {cfg.name} {name}: "
+                    f"{pairs[name]['agree']} of {pairs[name]['total']} "
+                    f"tokens agree; {pairs[name]}")
+    del healthy
+    free_cuda()
+    if drill:
+        _admission_drill(dev, cfg, params)
+    torch.cuda.synchronize()
+    counts = {k["name"]: count(k) for k in kernels}
+    core = {k["name"]: count(k, 1) for k in kernels
+            if len(k["counters"]) > 1}
+    peak = torch.cuda.max_memory_allocated(dev)
+    secs = time.perf_counter() - t0
+    log(f"[serve-admission] {cfg.name} kernel launches over the path: "
+        f"{counts}; CUDA-core GEMM route {core}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; {secs:.1f} s ({smi})")
+    for name in path_kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"{cfg.name} serve-admission path")
+    if any(core.values()):
+        raise AssertionError(f"packed GEMMs reached the CUDA-core kernel: "
+                             f"{core}")
+    return counts, dict(lengths=lengths, modes=per, pairs=pairs,
+                        max_memory_allocated=peak, seconds=secs)
 
 
 # ------------------------------------------------------------------ train --
@@ -974,7 +1381,7 @@ def codec_timings(dev):
         log(f"[timing] {name} [{M}, {n}] int32 (plan M={M}, l={plan.l}, "
             f"{plan.temp}{', r=1' if name == 'disentangle' else ''}): "
             f"kernel {ms:.4f} ms ({rows[name]['gb_s']:.0f} GB/s; per traced "
-            f"launch {traced_ms:.4f} ms), plain "
+            f"launch {_ms(traced_ms)}), plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes: "
             f"{nbytes / 1e9:.3f} GB at 3.35 TB/s), {ms / bound:.2f}x bound; "
             f"no single PyTorch call computes this function")
@@ -1476,7 +1883,8 @@ def run_stream_conv(dev, kernels):
 # ---------------------------------------------------------------- timings --
 
 def _device_ms(fn, iters, match=None, per=None):
-    """Mean device time of ``fn(i)`` in ms: the summed duration of the
+    """Mean device time of ``fn(i)`` in ms (None when the trace recorded
+    no matching event): the summed duration of the
     device-side events (kernels, fills, copies) that ``iters`` calls
     launch, from a ``torch.profiler`` trace — the host's launch gaps
     between calls are not counted. ``match`` keeps only events whose name
@@ -1499,9 +1907,10 @@ def _device_ms(fn, iters, match=None, per=None):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     us = sum(e.self_device_time_total for e in events
              if match is None or match in e.key)
-    if us <= 0:
-        raise RuntimeError(f"the profiler recorded no device time matching "
-                           f"{match!r} among {[e.key for e in events]}")
+    if us <= 0:  # a trace that lost every event measures nothing
+        log(f"[timing] not measured: the profiler recorded no device time "
+            f"matching {match!r} among {[e.key for e in events]}")
+        return None
     if per is None:
         return us / 1e3 / iters
     calls = sum(e.count for e in events if per in e.key)
@@ -1509,6 +1918,10 @@ def _device_ms(fn, iters, match=None, per=None):
         log(f"[timing] the trace holds {calls} of {iters} launches of "
             f"{per!r}; the mean is taken over the recorded ones")
     return us / 1e3 / calls
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def _graph_ms(fn, iters):
@@ -1587,9 +2000,9 @@ def _timing_row(dev, site, c, gs, plan, fns, plain_fn, macs, nbytes,
                               else "operations"))
     log(f"[timing] {site} c{list(c.shape)} x g{list(gs[0].shape)} packed: "
         f"s8 kernel {ms:.4f} ms (turns {times['s8'][0]:.4f} / "
-        f"{times['s8'][1]:.4f}; alone {alone['s8']:.4f}), CUDA-core kernel "
+        f"{times['s8'][1]:.4f}; alone {_ms(alone['s8'])}), CUDA-core kernel "
         f"{ms_core:.4f} ms (turns {times['cuda_core'][0]:.4f} / "
-        f"{times['cuda_core'][1]:.4f}; alone {alone['cuda_core']:.4f}), "
+        f"{times['cuda_core'][1]:.4f}; alone {_ms(alone['cuda_core'])}), "
         f"plain {plain_ms:.4f} ms; bounds: bytes {t_bytes:.4f} ms, int32 "
         f"MACs of the M-1 streams {t_int32:.4f} ms, s8 limb MACs "
         f"{t_s8:.4f} ms; s8 {ms / row['bound_ms']:.2f}x its bound "
@@ -1684,9 +2097,11 @@ def phase_timings(dev):
 
 # ------------------------------------------------------------------- main --
 
-def run_path(dev, kernels, arch, path_kernels, scopes):
+def run_path(dev, kernels, arch, path_kernels, scopes, admission, smi,
+             seed):
     """One serving path: init, the census shapes' kernel checks, the
-    serving waves. Frees the model before returning."""
+    serving waves, then the serve-admission path (``admission``: (modes,
+    scopes, drill)). Frees the model before returning."""
     cfg, model, params = init_model(dev, arch)
     dense, grouped = main_path_shapes(cfg, params, dev)
     by_name = {k["name"]: k for k in kernels}
@@ -1697,15 +2112,23 @@ def run_path(dev, kernels, arch, path_kernels, scopes):
                       grouped)
     counts, core, results, breakdown = phase_serve(
         dev, kernels, path_kernels, cfg, model, params, scopes)
+    modes, admit_scopes, drill = admission
+    admit_counts, admit = phase_serve_admission(
+        dev, kernels, path_kernels, cfg, params, modes, admit_scopes, smi,
+        seed, drill)
     del params, model
     free_cuda()
     return dict(counts=counts, core_counts=core, results=results,
-                breakdown=breakdown,
+                breakdown=breakdown, admission_counts=admit_counts,
+                admission=admit,
                 n_dense_shapes=len(dense), n_grouped_shapes=len(grouped))
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serve-admission wave's prompt lengths")
+    args = ap.parse_args()
 
     import torch
 
@@ -1773,10 +2196,13 @@ def main() -> int:
     phase_build(kernels)
     paths = {
         LLAMA: run_path(dev, kernels, LLAMA, ["entangled_matmul"],
-                        ("head", "all")),
+                        ("head", "all"),
+                        (tuple(ADMIT_MODES), ("head", "all"), True), smi,
+                        args.seed),
         DEEPSEEK: run_path(dev, kernels, DEEPSEEK,
                            ["entangled_matmul", "entangled_matmul_grouped"],
-                           ("moe", "all")),
+                           ("moe", "all"), (("chunked", "packed"), ("all",),
+                                            False), smi, args.seed),
     }
     grad_shapes = llama_grad_shapes(dev)
     check_codec(dev, {n: by_name[n]["checker"]
@@ -1798,6 +2224,8 @@ def main() -> int:
     for k in kernels:
         name, chk = k["name"], k["checker"]
         by_path = {a: p["counts"][name] for a, p in paths.items()}
+        by_path.update({f"{a} serve-admission": p["admission_counts"][name]
+                        for a, p in paths.items()})
         by_path[train_path] = train_counts[name]
         by_path["stream-conv"] = stream["counts"][name]
         if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
@@ -1841,6 +2269,7 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head.get("library_ms"),
             shape=head["shape"], **extra))
+    record["serve_admission"] = {a: p["admission"] for a, p in paths.items()}
     record["train"] = train
     record["stream_conv"] = stream
     print(smi, flush=True)

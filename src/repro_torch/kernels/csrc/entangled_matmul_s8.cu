@@ -21,9 +21,12 @@
 // Exact byte limbs. eps is a full 32-bit word, but as uint32 it is
 // sum_{u<4} eps_u 2^{8u} with limbs eps_u in [0, 255], and the product is
 // linear, so acc = sum_u (eps_u @ g) << 8u mod 2^32. Each limb product is
-// an exact u8 x s8 -> s32 tensor-core product: for K <= 65536 no partial
-// sum leaves s32 (255 * 128 * 65536 < 2^31); the launcher refuses deeper K.
-// All four limbs are always computed (the chain modes pass any word).
+// an exact u8 x s8 -> s32 tensor-core product while its depth is at most
+// 65536 (255 * 128 * 65536 < 2^31, so no partial sum leaves s32). A deeper
+// K is split over gridDim.z into chunks of at most MAX_K, whose recombined
+// 32-bit sums add mod 2^32 (exact by linearity); the launcher refuses a
+// longer chunk. All four limbs are always computed (the chain modes pass
+// any word).
 //
 // What bounds it on an H100: at the serving shapes (a few rows per stream,
 // K x N weights streamed once) the 4 (M-1) B K N limb MACs take a few
@@ -53,7 +56,7 @@
 //     over its rows and its K range (an expert no token was routed to:
 //     its rows are zero); if so it skips the product, and extracting zero
 //     accumulators gives zero;
-//   * narrow N splits K over gridDim.z; each split recombines its limbs
+//   * narrow N, or K > 65536, splits K over gridDim.z; each split recombines its limbs
 //     and adds its 32-bit partial sums by atomics (exact mod 2^32), and the
 //     last block of a tile to arrive runs the epilogue;
 //   * epilogue: limb recombination, then disentangle_one of codec.cuh
@@ -84,7 +87,7 @@ constexpr int STAGES = 4;              // ring depth
 constexpr int WS = BN + 8;             // weight row stride (words): 8 mod 32
 constexpr int CS = BK + 16;            // c row stride (words): 16 mod 32
 constexpr int ES = BN + 4;             // epilogue tile row stride (words)
-constexpr int MAX_K = 65536;           // limb partial sums stay in s32
+constexpr int MAX_K = 65536;           // deepest split: limb sums stay in s32
 constexpr int MAX_PAIRS = 16;          // (slot, row) pairs of a block
 constexpr int MAX_CROWS = 24;          // M * bb rows of c: (ns + 1) * bb
 constexpr int HEAD = 128;              // the split-K flag, before the ring
@@ -559,7 +562,7 @@ const char* emm_s8_error_string(int code) {
   if (code == -1) return "unsupported stream count M (need 3 <= M <= 8)";
   if (code == -2) return "unsupported rows per block bb";
   if (code == -3) return "invalid shape or split";
-  if (code == -4) return "K too deep for the s8 limbs (need K <= 65536)";
+  if (code == -4) return "K split too deep for the s8 limbs (need k_chunk <= 65536)";
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -573,7 +576,7 @@ int emm_s8_launch(const void* c, const void* g, void* out, void* ws,
                   int entangle, int extract, int dualword, int l, int r,
                   int bb, int splits, int k_chunk, void* stream) {
   if (M < 3 || M > 8) return -1;
-  if (K > MAX_K) return -4;
+  if (k_chunk > MAX_K) return -4;
   if (E < 1 || Cg < 1 || K < 1 || N < 1 || splits < 1 ||
       k_chunk < BK || k_chunk % BK != 0 ||
       (long long)k_chunk * (splits - 1) >= K ||

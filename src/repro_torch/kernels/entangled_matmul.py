@@ -28,8 +28,9 @@ and :func:`entangled_matmul_cuda` routes by ``packed`` alone:
   four exact byte limbs, each an ``u8 x s8 -> s32`` MMA against the packed
   words as they are, recombined mod 2**32; weight tiles stream through a
   pipelined ring in shared memory (``cp.async`` on ``mbarrier``s). It is
-  bound by the weight bytes, and takes K <= 65536 (:data:`S8_MAX_K`:
-  deeper limb sums could leave s32);
+  bound by the weight bytes. A limb's sums stay in s32 over at most
+  :data:`S8_MAX_K` = 65536 of K, so a deeper K is split into slices of at
+  most that depth whose 32-bit sums add mod 2**32 (split-K);
 * unpacked full-range int32 weights have no s8 form and take the
   CUDA-core kernel, ``csrc/entangled_matmul.cu`` (uint32 multiply-adds).
   It also takes packed weights when called directly
@@ -71,8 +72,8 @@ FUSE_MODES = (False, True, "chain", "chain_final")
 launches_s8 = 0
 launches_cuda_core = 0
 
-# the s8 kernel's deepest contraction: 255 * 128 * 65536 < 2**31, so no
-# limb's partial sum leaves s32
+# the deepest K slice of one s8 limb product: 255 * 128 * 65536 < 2**31,
+# so no limb's partial sum leaves s32; deeper K is cut into such slices
 S8_MAX_K = 65536
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -86,13 +87,6 @@ def _check_mode(fuse_epilogue) -> None:
             f"fuse_epilogue must be one of {FUSE_MODES}, got {fuse_epilogue!r}")
 
 
-def check_s8_depth(K: int) -> None:
-    """Raise unless the s8 kernel's limb sums stay in s32 at depth K."""
-    if K > S8_MAX_K:
-        raise ValueError(f"K={K} too deep for the s8 kernel's byte limbs "
-                         f"(need K <= {S8_MAX_K})")
-
-
 def _limb_matmul(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``a @ g`` mod 2**32 for int32 ``a [..., R, K]`` and int8-valued
     ``g [..., K, N]``, as the s8 kernel computes it: a as uint32 is
@@ -100,21 +94,24 @@ def _limb_matmul(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     times g is an exact u8 x s8 product (a float64 matmul, exact: every
     partial sum is below 2**31), and the four products recombine with
     shifts mod 2**32. Each limb's sums must fit s32, as the tensor core's
-    accumulator must: K <= :data:`S8_MAX_K` bounds every partial sum by
-    255 * 128 * K < 2**31, and the totals are checked (a read to the host,
-    so not while a CUDA graph is being captured, which forbids one)."""
-    check_s8_depth(a.shape[-1])
+    accumulator must: a K slice of at most :data:`S8_MAX_K` bounds every
+    partial sum by 255 * 128 * 65536 < 2**31, so K is cut into such
+    slices, as the kernel splits it, and the slices' recombined sums add
+    mod 2**32. The slices' sums are checked (a read to the host, so not
+    while a CUDA graph is being captured, which forbids one)."""
     u = a.to(torch.int64) & 0xFFFFFFFF
     gf = g.to(torch.float64)
     check = not (a.is_cuda and torch.cuda.is_current_stream_capturing())
     acc = torch.zeros((), dtype=torch.int64, device=a.device)
-    for j in range(4):
-        limb = ((u >> (8 * j)) & 0xFF).to(torch.float64)
-        part = (limb @ gf).to(torch.int64)
-        if check and part.numel() and not (-2**31 <= int(part.min())
-                                           and int(part.max()) < 2**31):
-            raise AssertionError(f"limb {j}'s sums leave s32")
-        acc = acc + (part << (8 * j))
+    for k0 in range(0, a.shape[-1], S8_MAX_K):
+        us, gs = u[..., k0:k0 + S8_MAX_K], gf[..., k0:k0 + S8_MAX_K, :]
+        for j in range(4):
+            limb = ((us >> (8 * j)) & 0xFF).to(torch.float64)
+            part = (limb @ gs).to(torch.int64)
+            if check and part.numel() and not (-2**31 <= int(part.min())
+                                               and int(part.max()) < 2**31):
+                raise AssertionError(f"limb {j}'s sums leave s32")
+            acc = (acc + (part << (8 * j))) & 0xFFFFFFFF
     return wrap_i32(acc)
 
 
@@ -123,7 +120,7 @@ def _matmul_mod32(a: torch.Tensor, g: torch.Tensor, *,
     """``a @ g`` for int32 ``a [R, K]``, ``g [K, N]``, exact mod 2**32.
 
     ``g_int8`` (values in [-128, 127], the packed weights) repeats the s8
-    kernel's byte-limb arithmetic (:func:`_limb_matmul`; K <= 65536).
+    kernel's byte-limb arithmetic (:func:`_limb_matmul`, any K).
     Otherwise, as the CUDA-core kernel takes any int32 weights: neither
     the CPU nor the GPU has an int32 matmul in torch, so the operands are
     split into 16-bit limbs (``x = hi * 2**16 + lo``, ``lo`` in [0,
@@ -158,8 +155,8 @@ def entangled_matmul_plain(c: torch.Tensor, g: torch.Tensor,
     returns ``[M, B, N]`` int32, bit-identical to the kernels and to the
     reference's Pallas kernel. The GEMM is exact mod 2**32 for any int32
     operands (float64 limb products, see :func:`_matmul_mod32`), with
-    K < 2**21, or K <= 65536 for packed weights as in the s8 kernel; the
-    codec runs in int32/int64 torch ops.
+    K < 2**21, or any K for packed weights (K slices of at most 65536, as
+    in the s8 kernel); the codec runs in int32/int64 torch ops.
     """
     _check_mode(fuse_epilogue)
     M, B, K = c.shape
@@ -239,11 +236,17 @@ def _s8_rows_per_block(Cg: int, ns: int) -> int:
     return min(Cg, per)
 
 
-def _split_k(n_tiles: int, K: int, block_k: int, sms: int) -> tuple:
-    """(splits, k_chunk): split K until about two blocks per SM exist."""
+def _split_k(n_tiles: int, K: int, block_k: int, sms: int,
+             max_chunk: int = 0) -> tuple:
+    """(splits, k_chunk): split K until about two blocks per SM exist,
+    and (``max_chunk`` > 0, a multiple of ``block_k``) into at least
+    ceil(K / max_chunk) splits, so that no split is deeper than
+    ``max_chunk``."""
     k_tiles = -(-K // block_k)
     want = max(1, -(-2 * sms // n_tiles))
     splits = min(k_tiles, want)
+    if max_chunk:
+        splits = max(splits, -(-K // max_chunk))
     per = -(-k_tiles // splits)
     k_chunk = per * block_k
     return -(-K // k_chunk), k_chunk
@@ -287,7 +290,6 @@ def launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *, E: int,
         raise ValueError(f"empty GEMM: E={E}, rows={Cg}, K={K}, N={N}")
     extract = fuse_epilogue in EXTRACT_MODES
     if route == "s8":  # packed weights only
-        check_s8_depth(K)
         lib = _load_s8()
         bb = _s8_rows_per_block(Cg, M - extract)
         block_n, block_k = lib.emm_s8_block_n(), lib.emm_s8_block_k()
@@ -299,7 +301,8 @@ def launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *, E: int,
         raise ValueError(f"unknown route {route!r}")
     n_tiles = -(-N // block_n) * E * -(-Cg // bb)
     sms = torch.cuda.get_device_properties(c.device).multi_processor_count
-    splits, k_chunk = _split_k(n_tiles, K, block_k, sms)
+    splits, k_chunk = _split_k(n_tiles, K, block_k, sms,
+                               S8_MAX_K if route == "s8" else 0)
     B = E * Cg
     if splits == 1:
         out = torch.empty((M, B, N), dtype=torch.int32, device=c.device)
@@ -340,7 +343,7 @@ def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
                           packed: bool = False) -> torch.Tensor:
     """Launch a CUDA kernel: c ``[M, B, K]`` int32, g ``[K, N]`` int32 or
     packed ``[ceil(K/4), N]``, both contiguous on one CUDA device. Packed
-    weights take the s8 tensor-core kernel (K <= 65536), unpacked ones the
+    weights take the s8 tensor-core kernel (any K), unpacked ones the
     CUDA-core kernel. Returns ``[M, B, N]`` int32 on
     ``torch.cuda.current_stream()``; raises on any input the kernel does
     not take and on a failed launch."""
@@ -348,8 +351,6 @@ def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
     _check_mode(fuse_epilogue)
     check_operands(c, g, 3)
     M, B, K = c.shape
-    if packed:
-        check_s8_depth(K)
     out = launch(c, g, plan, E=1, Cg=B, K=K, N=g.shape[1],
                  fuse_epilogue=fuse_epilogue, failed=failed, packed=packed,
                  route="s8" if packed else "cuda_core")

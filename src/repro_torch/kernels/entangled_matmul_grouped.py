@@ -74,8 +74,8 @@ def entangled_matmul_grouped_plain(c: torch.Tensor, g: torch.Tensor,
     N]``; returns ``[M, E, Cg, N]`` int32, bit-identical to the kernel and
     to the reference's Pallas kernel. Each expert's product is the dense
     plain version's limb product, batched over experts, so it is exact mod
-    2**32 for any int32 operands with K < 2**21 (K <= 65536 for packed
-    weights, as in the s8 kernel).
+    2**32 for any int32 operands with K < 2**21 (any K for packed weights,
+    in K slices of at most 65536 as in the s8 kernel).
     """
     _check_mode(fuse_epilogue)
     M, E, Cg, K = c.shape
@@ -104,8 +104,6 @@ def _launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan,
     M, E, Cg, K = c.shape
     if g.shape[0] != E:
         raise ValueError(f"g has {g.shape[0]} experts, c has E={E}")
-    if route == "s8":
-        emm.check_s8_depth(K)
     out = emm.launch(c, g, plan, E=E, Cg=Cg, K=K, N=g.shape[2],
                      fuse_epilogue=fuse_epilogue, failed=failed,
                      packed=packed, route=route)
@@ -118,7 +116,7 @@ def entangled_matmul_grouped_cuda(c: torch.Tensor, g: torch.Tensor,
                                   packed: bool = False) -> torch.Tensor:
     """Launch a CUDA kernel: c ``[M, E, Cg, K]`` int32, g ``[E, K, N]``
     int32 or packed ``[E, ceil(K/4), N]``, both contiguous on one CUDA
-    device. Packed weights take the s8 tensor-core kernel (K <= 65536),
+    device. Packed weights take the s8 tensor-core kernel (any K),
     unpacked ones the CUDA-core kernel. Returns ``[M, E, Cg, N]`` int32 on
     ``torch.cuda.current_stream()``; raises on any input the kernel does
     not take and on a failed launch."""

@@ -15,14 +15,26 @@ per-scope recovery summary (the head scope and the configured scope;
 healthy and injected tokens compared request by request), ending in
 ``EXACT ROLL-FORWARD`` or ``RECOVERY FAILED``; a mismatch exits 1.
 
+Admission: ``--prefill-buckets 8,16,32`` overrides the geometric length
+buckets, ``--prefill-chunk C`` interleaves C-token prefill chunks with the
+decode steps (0 = a whole bucket per call), ``--token-budget N`` packs up
+to N prompt tokens per step from every in-flight admission batch into one
+``[N / C, C]`` program (needs ``--prefill-chunk`` > 0, N a multiple of it,
+and N / C <= ``--max-batch``), and ``--no-refill`` admits one batch at a
+time. ``--arrival-rate r`` submits the wave as a seeded open-loop Poisson
+trace of r requests per second (0 = all at once), ``--deadline-ms d``
+gives every request a deadline past which it is shed from the queue. Every
+cross-flag rule is checked at parse time.
+
 Flags of the reference's launcher that belong to later slices of the port
-(fleet, token budget, chunked prefill, autotuned blocks, open-loop
-arrivals, checkpoints) are rejected at parse time with "not ported yet".
+(fleet, autotuned blocks, checkpoints) are rejected at parse time with
+"not ported yet".
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -38,21 +50,46 @@ MAX_WAVE_STEPS = 10_000
 # flag -> its "off" value; any other value is a later slice's feature
 _NOT_PORTED = {
     "replicas": 1, "kill_replica_at": -1, "kill_replica": 0,
-    "max_replicas": 0, "scale_up_depth": 4, "token_budget": 0,
-    "prefill_chunk": 0, "blocks": "", "arrival_rate": 0.0,
-    "deadline_ms": None, "no_refill": False, "ckpt_dir": "",
+    "max_replicas": 0, "scale_up_depth": 4, "blocks": "", "ckpt_dir": "",
 }
 
 
 def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
-          failed_group) -> dict:
+          failed_group, arrival_rate: float = 0.0, deadline_ms=None) -> dict:
+    """Serve the synthetic wave (8-token prompts from a seeded generator);
+    returns {rid: tokens} of the requests that completed. With
+    ``arrival_rate`` > 0 each request is submitted at its seeded Poisson
+    arrival time (wall clock), the engine stepping in between."""
     rng = np.random.default_rng(0)
-    for r in range(n_requests):
-        eng.submit(Request(rid=r, max_new=max_new, prompt=rng.integers(
-            0, vocab, size=8).astype(np.int32)))
-    done = eng.run_to_completion(max_steps=MAX_WAVE_STEPS,
-                                 failed_group=failed_group)
-    return {r.rid: np.asarray(r.out) for r in done}
+    reqs = [Request(rid=r, max_new=max_new, deadline_ms=deadline_ms,
+                    prompt=rng.integers(0, vocab, size=8).astype(np.int32))
+            for r in range(n_requests)]
+    if not arrival_rate:
+        for req in reqs:
+            eng.submit(req)
+        eng.run_to_completion(max_steps=MAX_WAVE_STEPS,
+                              failed_group=failed_group)
+    else:
+        arrivals = np.cumsum(rng.exponential(1.0 / arrival_rate,
+                                             size=n_requests))
+        t0, i, steps = time.monotonic(), 0, 0
+        while i < n_requests or not eng.idle():
+            now = time.monotonic() - t0
+            if i < n_requests and eng.idle() and arrivals[i] > now:
+                time.sleep(arrivals[i] - now)  # nothing to serve yet
+                now = time.monotonic() - t0
+            while i < n_requests and arrivals[i] <= now:
+                eng.submit(reqs[i])
+                i += 1
+            eng.step(failed_group=failed_group)
+            steps += 1
+            if steps >= MAX_WAVE_STEPS:
+                raise RuntimeError("open-loop wave failed to drain")
+    shed = sum(r.status == "shed" for r in reqs)
+    if shed:
+        print(f"[launch.serve] shed {shed} queued requests past "
+              f"--deadline-ms {deadline_ms}")
+    return {r.rid: np.asarray(r.out) for r in reqs if r.status == "done"}
 
 
 def _validate_args(ap: argparse.ArgumentParser, args):
@@ -73,6 +110,26 @@ def _validate_args(ap: argparse.ArgumentParser, args):
             ap.error("--failed-group requires --ft-mode entangle")
         if args.failed_group >= args.ft_M:
             ap.error(f"--failed-group must be < --ft-M ({args.ft_M})")
+    if args.prefill_chunk < 0:
+        ap.error(f"--prefill-chunk must be >= 0, got {args.prefill_chunk}")
+    if args.token_budget < 0:
+        ap.error(f"--token-budget must be >= 0, got {args.token_budget}")
+    if args.token_budget:
+        # the packed program is [token-budget / prefill-chunk rows,
+        # prefill-chunk tokens], each row staged in a distinct slot
+        if args.prefill_chunk <= 0:
+            ap.error(f"--token-budget ({args.token_budget}) requires "
+                     f"--prefill-chunk > 0: packed rows are prefill-chunk "
+                     f"tokens wide")
+        if args.token_budget % args.prefill_chunk:
+            ap.error(f"--token-budget ({args.token_budget}) must be a "
+                     f"multiple of --prefill-chunk ({args.prefill_chunk}): "
+                     f"the packed program has one shape")
+        if args.token_budget // args.prefill_chunk > args.max_batch:
+            ap.error(f"--token-budget/--prefill-chunk = "
+                     f"{args.token_budget // args.prefill_chunk} packed "
+                     f"rows > --max-batch ({args.max_batch}): every packed "
+                     f"row stages in a distinct slot")
     buckets = None
     if args.prefill_buckets:
         try:
@@ -83,6 +140,11 @@ def _validate_args(ap: argparse.ArgumentParser, args):
         if any(b < 1 or b > args.max_seq for b in buckets):
             ap.error(f"--prefill-buckets {list(buckets)} must lie in "
                      f"[1, max-seq={args.max_seq}]")
+    if args.arrival_rate < 0:
+        ap.error(f"--arrival-rate must be >= 0 (requests/sec; 0 = closed "
+                 f"wave), got {args.arrival_rate}")
+    if args.deadline_ms is not None and args.deadline_ms <= 0:
+        ap.error(f"--deadline-ms must be > 0, got {args.deadline_ms}")
     return buckets
 
 
@@ -105,19 +167,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-buckets", default="")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="> 0: prefill in chunks of this many tokens, one "
+                         "chunk per engine step before its decode")
+    ap.add_argument("--token-budget", type=int, default=0,
+                    help="> 0: token-packed admission, up to this many "
+                         "prompt tokens per step from every in-flight "
+                         "batch in one program")
+    ap.add_argument("--no-refill", action="store_true",
+                    help="admit one batch at a time (no mid-flight refill)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="> 0: seeded open-loop Poisson arrivals, requests "
+                         "per second (0 = the whole wave at once)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="deadline of every request; queued requests past "
+                         "it are shed")
     # later slices' flags: accepted by the parser so that using one gives
     # a clear "not ported yet" error
     ap.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--blocks", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--token-budget", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--arrival-rate", type=float, default=0.0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--deadline-ms", type=float, default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--no-refill", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--replicas", type=int, default=1, help=argparse.SUPPRESS)
     ap.add_argument("--kill-replica-at", type=int, default=-1,
                     help=argparse.SUPPRESS)
@@ -151,11 +219,16 @@ def main(argv=None) -> None:
                         max_seq=args.max_seq, device=dev)
     scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        ft_mode=args.ft_mode, ft_M=args.ft_M,
-                       ft_scope=args.ft_scope, prefill_buckets=buckets)
+                       ft_scope=args.ft_scope, prefill_buckets=buckets,
+                       prefill_chunk=args.prefill_chunk,
+                       token_budget=args.token_budget,
+                       refill=not args.no_refill)
     failed = args.failed_group if args.failed_group >= 0 else None
 
     eng = ServeEngine(cfg, scfg, params, device=dev)
-    outs = _wave(eng, args.requests, cfg.vocab_size, args.max_new, failed)
+    outs = _wave(eng, args.requests, cfg.vocab_size, args.max_new, failed,
+                 arrival_rate=args.arrival_rate,
+                 deadline_ms=args.deadline_ms)
     first = outs[0][:8].tolist() if 0 in outs else "<request 0 not completed>"
     print(f"[launch.serve] {len(outs)}/{args.requests} requests completed in "
           f"{eng.decode_calls} batched decode calls; first output: {first}")
@@ -165,8 +238,10 @@ def main(argv=None) -> None:
     if args.smoke and args.ft_mode == "entangle":
         # per-scope recovery summary: the head scope and the configured
         # scope; for the configured scope the wave above is one side of
-        # the comparison and only the other side runs
+        # the comparison and only the other side runs, unless it was an
+        # open-loop or deadline wave (then both sides run as closed waves)
         inj = failed if failed is not None else 0
+        closed = not args.arrival_rate and args.deadline_ms is None
         any_mismatch = False
         for scope in dict.fromkeys(["head", args.ft_scope]):
             sc = dataclasses.replace(scfg, ft_scope=scope)
@@ -175,7 +250,7 @@ def main(argv=None) -> None:
                 return _wave(ServeEngine(cfg, sc, params, device=dev),
                              args.requests, cfg.vocab_size, args.max_new, fg)
 
-            if scope == args.ft_scope:
+            if scope == args.ft_scope and closed:
                 other = wave(inj if failed is None else None)
                 healthy, injected = ((outs, other) if failed is None
                                      else (other, outs))

@@ -9,12 +9,21 @@ decoder)::
     cache = model.init_cache(cfg, batch, max_seq, device=dev)
     h, cache = model.prefill_chunk(params, tokens, cfg, cache,
                                    pos0=0, lengths=lens, ft=ctx)  # [B, C, D]
+    h, cache = model.prefill_packed(params, tokens, cfg, rows,
+                                    pos0=offs, lengths=lens, ft=ctx)
     h, cache = model.decode_hidden(params, tok, cache, pos, cfg, ft=ctx)
     logits = model.head_project(params, h, cfg)                     # [B, V]
+    logits, cache = model.prefill(params, {"tokens": t}, cfg, cache)  # [B, V]
+    logits, cache = model.decode_step(params, tok, cache, pos, cfg)   # [B, V]
 
 ``decode_hidden`` takes ``pos`` as a per-row position vector [B] and
 returns the final-norm'd hidden states [B, D] before the vocab projection,
 so serving can route the head through the protected entangled GEMM.
+``prefill_packed`` is the token-packed prefill: every row of tokens [R, C]
+is one chunk of a different request at its own offset ``offs`` [R].
+``prefill`` (a whole prompt from position 0) and ``decode_step`` (one
+token at an int or per-row position) return logits; they are the entries
+of the unprotected per-slot baseline engine.
 ``ft`` is an :class:`~repro_torch.ft.FTContext` threaded to every
 protected projection. Caches are written in place; the returned cache is
 the one passed in.
@@ -41,10 +50,13 @@ class Model(NamedTuple):
     init: Callable
     forward_train: Callable  # (params, batch, cfg) -> float32 logits [B, T, V]
     prefill_chunk: Callable
+    prefill_packed: Callable
     decode_hidden: Callable
     head_project: Callable  # (params, h [B, D], cfg) -> logits [B, V]
     head_weights: Callable  # (params, cfg) -> [D, V] float32
     init_cache: Callable
+    prefill: Callable  # (params, {"tokens": [B, T]}, cfg, cache) -> logits
+    decode_step: Callable  # (params, tok, cache, pos, cfg) -> logits
 
 
 def _init(gen: torch.Generator, cfg: ModelConfig, max_seq: int,
@@ -81,11 +93,44 @@ def _prefill_chunk(p, tokens, cfg: ModelConfig, cache, *, pos0: int = 0,
     return T.final_hidden(p["embed"], h, cfg), cache
 
 
+def _prefill_packed(p, tokens, cfg: ModelConfig, cache, *, pos0,
+                    lengths=None, ft=None):
+    """Token-packed prefill: tokens [R, C] where every row is one chunk of
+    a different request, row r at positions pos0[r]..pos0[r]+C-1 (``pos0``
+    an int vector [R]); ``lengths`` [R] are the rows' true prompt lengths
+    and ``cache`` holds the R rows' own state (the engine gathers them from
+    its staging cache). The linear caches are written per row and attended
+    over their full extent under a per-row causal mask. Returns the
+    final-norm'd hidden states [R, C, D] and the cache."""
+    x = T.embed_tokens(p["embed"], tokens, cfg)
+    h = T.apply_stack(p["stack"], x, cfg=cfg, caches=cache,
+                      pos=torch.as_tensor(pos0, device=tokens.device),
+                      mode="prefill", lengths=lengths, ft=ft)
+    return T.final_hidden(p["embed"], h, cfg), cache
+
+
 def _decode_hidden(p, tok, cache, pos, cfg: ModelConfig, ft=None):
     x = T.embed_tokens(p["embed"], tok, cfg)
     h = T.apply_stack(p["stack"], x, cfg=cfg, caches=cache, pos=pos,
                       mode="decode", ft=ft)
     return T.final_hidden(p["embed"], h, cfg)[:, 0], cache
+
+
+def _prefill(p, batch, cfg: ModelConfig, cache):
+    """A whole prompt batch ``{"tokens": [B, T]}`` from position 0, no
+    padding: the logits [B, V] of its last position and the cache."""
+    h, cache = _prefill_chunk(p, batch["tokens"], cfg, cache)
+    return T.head_project(p["embed"], h[:, -1], cfg), cache
+
+
+def _decode_step(p, tok, cache, pos, cfg: ModelConfig):
+    """One token per row, tok [B, 1], at ``pos`` (an int shared by every
+    row, or a per-row vector [B]): the logits [B, V] and the cache."""
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=tok.device)
+    if pos.dim() == 0:
+        pos = pos.expand(tok.shape[0])
+    h, cache = _decode_hidden(p, tok, cache, pos, cfg)
+    return T.head_project(p["embed"], h, cfg), cache
 
 
 def _head_project(p, h, cfg: ModelConfig):
@@ -98,9 +143,11 @@ def _head_weights(p, cfg: ModelConfig):
 
 DECODER_MODEL = Model(init=_init, forward_train=_forward_train,
                       prefill_chunk=_prefill_chunk,
+                      prefill_packed=_prefill_packed,
                       decode_hidden=_decode_hidden,
                       head_project=_head_project, head_weights=_head_weights,
-                      init_cache=_init_cache)
+                      init_cache=_init_cache, prefill=_prefill,
+                      decode_step=_decode_step)
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -1,5 +1,6 @@
-"""Attention core of the port: causal prefill and single-position decode
-(the dense-decoder part of :mod:`repro.models.attention_core`).
+"""Attention core of the port: causal prefill (one shared offset, or one
+offset per row for token-packed prefill) and single-position decode (the
+dense-decoder part of :mod:`repro.models.attention_core`).
 
 Heads layout is GQA-grouped, as in the reference: q ``[B, Hkv, G, T, dk]``,
 k ``[B, Hkv, S, dk]``, v ``[B, Hkv, S, dv]``; outputs are float32
@@ -54,6 +55,22 @@ def attend(q, k, v, *, kind: str, kv_len: int = 0,
     T, S = q.shape[3], k.shape[2]
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
     ok = _mask(MaskInfo(kind, kv_len or 0, q_off), T, S, q.device)
+    return _softmax_attend(q, k, v, ok, scale)
+
+
+def attend_prefill_packed(q, k, v, *, qpos: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Causal prefill attention with one query offset per row (token-packed
+    serving, where every row is a different request's chunk): row b's
+    queries sit at absolute positions ``qpos[b]`` ([B, T]); k/v
+    [B,Hkv,S,*] are each row's FULL linear cache (slot s holds position s)
+    with the chunk's keys already written at ``qpos``. A key is attended
+    iff its position is at most the query's, so keys past a row's written
+    prefix drop out by causality; their scores are NEG and softmax to
+    exact 0.0."""
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    kpos = torch.arange(k.shape[2], device=q.device)
+    ok = kpos[None, None, None, None, :] <= qpos[:, None, None, :, None]
     return _softmax_attend(q, k, v, ok, scale)
 
 

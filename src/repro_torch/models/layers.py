@@ -23,10 +23,19 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
+# the card's unprotected bf16 GEMMs take their rows in multiples of this
+# (zero rows appended, their outputs dropped): for fewer rows cuBLAS may
+# split a deep contraction (it does at K = 8192 for 128 rows or fewer),
+# so a row's bits would depend on how many rows share the call, and a
+# token's on how its prompt was chunked or packed; at 256, 512 and 2048
+# rows every row of llama3.2-1b's projections gets the same bits (on the
+# H100; tests/test_torch_cuda.py holds it)
+GEMM_ROWS = 256
 # largest T * S of the reference's materialized attention (FLASH_THRESHOLD
 # 2048: T * S <= 2048**2 / 4); train mode beyond it needs the flash path
 TRAIN_SCORES_MAX = 2048 * 2048 // 4
@@ -79,7 +88,21 @@ def dense(p, x: torch.Tensor, *, ft=None, site: Optional[str] = None):
     as a bfloat16 matmul (biases are not ported yet)."""
     if ft is not None and site is not None and ft.protects(site):
         return ft.matmul(site, x, _dense_w(p)).to(ACT_DTYPE)
-    return torch.matmul(x.to(ACT_DTYPE), p["w"].to(ACT_DTYPE))
+    return _bf16_matmul(x, p["w"])
+
+
+def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in bfloat16; on the card with the rows padded to a
+    multiple of :data:`GEMM_ROWS`, so that each row's result does not
+    depend on the other rows of the call."""
+    x, w = x.to(ACT_DTYPE), w.to(ACT_DTYPE)
+    K = x.shape[-1]
+    R = x.numel() // K
+    pad = (-R) % GEMM_ROWS if x.is_cuda else 0
+    if not pad:
+        return torch.matmul(x, w)
+    y = torch.matmul(F.pad(x.reshape(R, K), (0, 0, 0, pad)), w)
+    return y[:R].reshape(*x.shape[:-1], w.shape[-1])
 
 
 def dense_fanout(ps, x: torch.Tensor, *, ft, sites) -> list:
@@ -94,17 +117,33 @@ def dense_fanout(ps, x: torch.Tensor, *, ft, sites) -> list:
 
 # ------------------------------------------------------ positions / masks ----
 
+def is_pos_vector(pos) -> bool:
+    """True when ``pos`` is a per-row vector [B] (decode positions, or the
+    row offsets of a token-packed prefill) rather than one shared int."""
+    return isinstance(pos, torch.Tensor) and pos.dim() == 1
+
+
+def prefill_off(pos):
+    """Offset of a prefill call: an int shared by every row (bucketed,
+    chunked prefill; None = 0), or a per-row offset vector [B] (token-
+    packed prefill, every row a different request)."""
+    return pos.to(torch.int64) if is_pos_vector(pos) else int(pos or 0)
+
+
 def _positions(pos, mode: str, B: int, T: int, device) -> tuple:
     """``([B, T] absolute positions, prefill offset)`` of a step: decode
-    takes the per-row position vector ``pos`` [B] (T == 1), prefill the
-    chunk offset ``pos`` (int, None = 0) shared by every row, train the
-    whole sequence from position 0."""
+    takes the per-row position vector ``pos`` [B] (T == 1); prefill the
+    chunk offset ``pos``, an int shared by every row or a per-row vector
+    [B] (:func:`prefill_off`); train the whole sequence from position 0."""
     if mode == "decode":
         return pos.to(torch.int64)[:, None].expand(B, T), 0
     if mode not in ("prefill", "train"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported yet")
-    off = int(pos or 0)
-    return (torch.arange(T, device=device) + off)[None].expand(B, T), off
+    off = prefill_off(pos)
+    t = torch.arange(T, device=device)
+    if is_pos_vector(off):
+        return off[:, None] + t[None], off
+    return (t + off)[None].expand(B, T), off
 
 
 def _decode_abs_pos(S: int, positions: torch.Tensor) -> torch.Tensor:
@@ -114,14 +153,33 @@ def _decode_abs_pos(S: int, positions: torch.Tensor) -> torch.Tensor:
     return torch.where(slot <= positions[:, :1], slot, -1)
 
 
-def _prefill_valid(off: int, T: int, lengths) -> Optional[torch.Tensor]:
+def _write_rows(buf: torch.Tensor, new: torch.Tensor,
+                qpos: torch.Tensor) -> None:
+    """Write each row's chunk ``new`` [B, T, ...] into its cache row ``buf``
+    [B, S, ...] at absolute positions ``qpos`` [B, T] (consecutive per
+    row), in place. Positions past S are dropped, as the reference's
+    scatter drops them; every slot is selected from the old content or
+    the chunk, so no two writes meet."""
+    S, T = buf.shape[1], new.shape[1]
+    j = torch.arange(S, device=buf.device)[None, :] - qpos[:, :1]  # [B, S]
+    sel = (j >= 0) & (j < T)
+    idx = j.clamp(0, T - 1)
+    idx = idx.reshape(idx.shape + (1,) * (new.dim() - 2)).expand(
+        (-1, -1) + new.shape[2:])
+    sel = sel.reshape(sel.shape + (1,) * (new.dim() - 2))
+    buf.copy_(torch.where(sel, torch.gather(new, 1, idx), buf))
+
+
+def _prefill_valid(off, T: int, lengths) -> Optional[torch.Tensor]:
     """[B, T] mask of the REAL positions of a bucketed prefill chunk:
-    position off+t belongs to row b iff off+t < lengths_b. None when
-    ``lengths`` is None (the whole batch is real)."""
+    position off+t belongs to row b iff off+t < lengths_b. ``off`` is an
+    int shared by every row or a per-row vector [B] (token-packed
+    prefill). None when ``lengths`` is None (the whole batch is real)."""
     if lengths is None:
         return None
-    g = off + torch.arange(T, device=lengths.device)
-    return g[None, :] < lengths.to(torch.int64)[:, None]
+    t = torch.arange(T, device=lengths.device)
+    g = off[:, None] + t[None] if is_pos_vector(off) else (off + t)[None, :]
+    return g < lengths.to(torch.int64)[:, None]
 
 
 # ---------------------------------------------------------- GQA attention ----
@@ -155,14 +213,19 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     ``prefill``: ``pos`` is the chunk offset (int) of tokens [B, T]; keys
     and values of all T positions land at ``pos..pos+T-1`` (bucket padding
     included, as in the reference), and the queries attend causally to
-    every cached position before them. ``decode``: ``pos`` is the per-row
+    every cached position before them. Token-packed prefill: ``pos`` is a
+    per-row offset vector [B] (each row a different request); each row's
+    keys land at its own offset and its queries attend over the full
+    cache under a per-row causal mask (:func:`attend_prefill_packed`; the
+    masked keys add exact zeros). ``decode``: ``pos`` is the per-row
     position vector [B] of the one new token. ``train``: no cache (it must
     be None, so that nothing is written in place under autograd); the
     sequence attends causally to itself, through the materialized-score
     path, which the reference takes while ``T * T <= 2048**2 / 4`` (its
     flash path beyond that is not ported yet).
     """
-    from repro_torch.models.attention_core import attend, attend_decode
+    from repro_torch.models.attention_core import (attend, attend_decode,
+                                                   attend_prefill_packed)
 
     B, T, _ = x.shape
     hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -189,6 +252,10 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
         cache["k"][rows, positions[:, 0]] = k[:, 0]
         cache["v"][rows, positions[:, 0]] = v[:, 0]
         k_all, v_all = cache["k"], cache["v"]
+    elif is_pos_vector(off):
+        _write_rows(cache["k"], k, positions)
+        _write_rows(cache["v"], v, positions)
+        k_all, v_all = cache["k"], cache["v"]
     else:
         cache["k"][:, off:off + T] = k
         cache["v"][:, off:off + T] = v
@@ -202,6 +269,8 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     if mode == "decode":
         o = attend_decode(qg, kt, vt,
                           abs_pos=_decode_abs_pos(k_all.shape[1], positions))
+    elif is_pos_vector(off):
+        o = attend_prefill_packed(qg, kt, vt, qpos=positions)
     else:
         o = attend(qg, kt, vt, kind="causal", q_off=off)
     out = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
@@ -247,8 +316,9 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
     r] and the shared roped key [B, S, dr], written in place, and every
     step up-projects the cached latents to per-head keys and values
     (``wkv_b``, an unprotected projection). ``pos`` and ``mode`` as in
-    :func:`apply_attention`."""
-    from repro_torch.models.attention_core import attend, attend_decode
+    :func:`apply_attention`, the per-row prefill offsets included."""
+    from repro_torch.models.attention_core import (attend, attend_decode,
+                                                   attend_prefill_packed)
 
     m = cfg.mla
     if mode == "train":
@@ -276,6 +346,10 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
         cache["ckv"][rows, positions[:, 0]] = ckv[:, 0]
         cache["krope"][rows, positions[:, 0]] = k_rope[:, 0]
         ckv_s, kr_s = cache["ckv"], cache["krope"]
+    elif is_pos_vector(off):
+        _write_rows(cache["ckv"], ckv, positions)
+        _write_rows(cache["krope"], k_rope, positions)
+        ckv_s, kr_s = cache["ckv"], cache["krope"]
     else:
         cache["ckv"][:, off:off + T] = ckv
         cache["krope"][:, off:off + T] = k_rope
@@ -294,6 +368,8 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
     if mode == "decode":
         o = attend_decode(qg, kt, vt, abs_pos=_decode_abs_pos(Tk, positions),
                           scale=scale)
+    elif is_pos_vector(off):
+        o = attend_prefill_packed(qg, kt, vt, qpos=positions, scale=scale)
     else:
         o = attend(qg, kt, vt, kind="causal", scale=scale, q_off=off)
     out = o[:, :, 0].permute(0, 2, 1, 3).reshape(B, T, H * dv)

@@ -58,8 +58,9 @@ def _init_attn_moe(gen, cfg, repeat):
 
 def _apply_attn_moe(p, x, *, cfg, cache, pos, mode, lengths, ft):
     x = _attend(p, x, cfg=cfg, cache=cache, pos=pos, mode=mode, ft=ft)
-    # bucket padding: pad tokens must not take expert capacity
-    valid = (L._prefill_valid(int(pos or 0), x.shape[1], lengths)
+    # bucket padding: pad tokens must not take expert capacity (per row
+    # under token packing, where every row has its own offset)
+    valid = (L._prefill_valid(L.prefill_off(pos), x.shape[1], lengths)
              if mode == "prefill" else None)
     return x + L.apply_moe(p["moe"], x, cfg=cfg, valid=valid, ft=ft)
 
@@ -111,8 +112,11 @@ def apply_stack(units_params, x, *, cfg: ModelConfig, caches=None, pos=None,
                 mode: str, lengths=None, ft=None):
     """Run every layer of every pattern unit in order. ``mode`` is
     ``prefill`` / ``decode`` (the caches are written in place) or
-    ``train`` (no caches; the params may be autograd leaves). ``lengths``
-    [B] (bucketed prefill) are the rows' true prompt lengths. Each layer
+    ``train`` (no caches; the params may be autograd leaves). In prefill
+    ``pos`` is the chunk offset shared by every row, or a per-row offset
+    vector [B] (token-packed prefill: with the chunk width it gives every
+    row its own [T] position grid). ``lengths`` [B] (bucketed prefill)
+    are the rows' true prompt lengths. Each layer
     gets its slice of the stacked params — startup-quantized q8 stacks
     included, so an expert stack's scales ``[repeat, E]`` reach the grouped
     site as ``[E]``. Returns the hidden states."""

@@ -5,9 +5,12 @@ weights (four u8 limbs of eps, each times the int8 weights, recombined
 mod 2**32). Here it is held against the reference's jnp oracles
 (``repro.kernels.ref`` and ``repro.core.entangle.disentangle``) at the
 edge of the limb range: every limb at 255, weights at -128 and the
-deepest K the kernel takes (65536), and eps near +-2**31. The wrappers'
+deepest K of one limb product (65536), and eps near +-2**31; past it,
+at K = 65540 and 131073, the port's packed op (which cuts K into slices
+of at most 65536) against the reference's packed op. The wrappers'
 routing (packed calls to the s8 kernel, unpacked to the CUDA-core kernel)
-and their refusal of K > 65536 are checked with the launch stubbed; the
+and the split-K rule that keeps every split within 65536 are checked with
+the launch stubbed; the
 kernels themselves are held against the plain version on the GPU in
 ``test_torch_cuda.py``.
 """
@@ -104,17 +107,52 @@ def test_limb_product_grouped_at_the_edge_matches_oracle():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_plain_refuses_k_past_the_limb_range():
-    """Packed weights deeper than 65536 have no exact s8 form; the plain
-    version refuses them as the kernel does (unpacked weights still go)."""
-    plan = make_plan(4, 32)
-    c = torch.zeros((4, 1, K_MAX + 1), dtype=torch.int32)
-    gp = torch.zeros((-(-(K_MAX + 1) // 4), 2), dtype=torch.int32)
-    with pytest.raises(ValueError, match="too deep"):
-        ops.entangled_matmul(c, gp, plan, packed=True)
-    g = torch.zeros((K_MAX + 1, 2), dtype=torch.int32)
-    assert ops.entangled_matmul(c, g, plan, fuse_epilogue="chain").shape \
-        == (4, 1, 2)
+# one reference output per (form, K), every mode and failed stream stacked
+_DEEP_CASES = [(K, mode) for K in (K_MAX + 4, 2 * K_MAX + 1)
+               for mode in (True, False)]
+
+
+def _deep_operands(form, K):
+    """M = 4 full-range activations and int8 weights at depth K (ragged
+    when K % 4 != 0): dense c [4, 1, K], g [K, 4]; grouped c [4, 2, 1, K],
+    g [2, K, 4]."""
+    rng = np.random.default_rng(K)
+    lead = (4, 1) if form == "dense" else (4, 2, 1)
+    experts = () if form == "dense" else (2,)
+    c = rng.integers(I32_MIN, I32_MAX + 1, size=(*lead, K)).astype(np.int32)
+    g8 = rng.integers(-128, 128, size=(*experts, K, 4)).astype(np.int32)
+    return c, g8
+
+
+@pytest.mark.parametrize("form", ["dense", "grouped"])
+@pytest.mark.parametrize("K,mode", _DEEP_CASES)
+def test_plain_past_the_limb_range_matches_reference(form, K, mode):
+    """Packed weights deeper than 65536: the port's op (on the CPU, the
+    plain version, which cuts K into slices of at most 65536 as the s8
+    kernel splits it) equals the reference's packed op bit for bit, for
+    every failed stream, ragged K included."""
+    from repro.kernels import ops as jops
+
+    c, g8 = _deep_operands(form, K)
+    jp, tp = jmake_plan(4, 32), make_plan(4, 32)
+    axis = 0 if form == "dense" else 1
+    gp = pack_int8(torch.from_numpy(g8), axis=axis)
+    jfn = jops.entangled_matmul if form == "dense" \
+        else jops.entangled_matmul_grouped
+    tfn = ops.entangled_matmul if form == "dense" \
+        else ops.entangled_matmul_grouped
+    want = None
+    for r in [None] + list(range(4)):
+        # the reference takes seconds per call at this depth: without
+        # extraction its output does not depend on r, and None means 0
+        if want is None or (mode and r):
+            want = np.asarray(jfn(jnp.asarray(c), jnp.asarray(gp.numpy()),
+                                  jp, fuse_epilogue=mode, failed=r,
+                                  packed=True, backend="reference"))
+        got = tfn(torch.from_numpy(c), gp, tp, fuse_epilogue=mode,
+                  failed=r, packed=True)
+        np.testing.assert_array_equal(got.numpy(), want,
+                                      err_msg=f"{form} K={K} r={r}")
 
 
 @pytest.fixture
@@ -165,8 +203,11 @@ def test_wrappers_route_by_packed(stubbed_launch, form):
 
 
 @pytest.mark.parametrize("form", ["dense", "grouped"])
-def test_s8_route_raises_past_the_limb_range(stubbed_launch, form):
-    """K > 65536 raises before any launch (there is no reroute)."""
+def test_s8_route_splits_k_past_the_limb_range(stubbed_launch, form):
+    """K > 65536 reaches the s8 kernel (there is no refusal and no
+    reroute), and the launcher's split-K rule never hands one split more
+    than 65536 of K, whatever the grid and the card: the split each limb
+    product stays exact over."""
     plan = make_plan(4, 32)
     K = K_MAX + 1
     lead = (4, 1) if form == "dense" else (4, 2, 1)
@@ -175,11 +216,15 @@ def test_s8_route_raises_past_the_limb_range(stubbed_launch, form):
     gp = torch.zeros((*experts, -(-K // 4), 2), dtype=torch.int32)
     fn = (emm.entangled_matmul_cuda if form == "dense"
           else emmg.entangled_matmul_grouped_cuda)
-    with pytest.raises(ValueError, match="too deep"):
-        fn(c, gp, plan, packed=True)
-    assert stubbed_launch == []
+    fn(c, gp, plan, packed=True)
+    assert stubbed_launch == [("s8", True)]
     mod = emm if form == "dense" else emmg
-    assert mod.launches_s8 == mod.launches_cuda_core == 0
+    assert (mod.launches_s8, mod.launches_cuda_core) == (1, 0)
+    for K in (64, K_MAX, K_MAX + 1, K_MAX + 4, 2 * K_MAX + 1, 10**6):
+        for n_tiles, sms in ((1, 132), (64, 132), (10**4, 132), (3, 1)):
+            splits, chunk = emm._split_k(n_tiles, K, 64, sms, emm.S8_MAX_K)
+            assert chunk % 64 == 0 and chunk <= K_MAX
+            assert (splits - 1) * chunk < K <= splits * chunk
 
 
 def test_s8_rows_per_block_fit_the_pair_groups():

@@ -176,13 +176,17 @@ def test_failed_group_rolls_forward_exactly(ref, scope):
 
 
 def test_engine_rejects_unported_options(ref):
+    """Only autotuned blocks are still refused: chunked prefill, token
+    packing, boundary admission and warm replicas are ported (their tests
+    are in ``test_torch_serve_admission.py``)."""
     cfg = tget_smoke("llama3.2-1b")
-    for kw in (dict(prefill_chunk=4), dict(token_budget=8),
-               dict(blocks="auto")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ServeEngine(cfg, ServeConfig(**kw), ref["params"], device="cpu")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServeEngine(cfg, ServeConfig(), ref["params"], device="cpu", warm={})
+        ServeEngine(cfg, ServeConfig(blocks="auto"), ref["params"],
+                    device="cpu")
+    for kw in (dict(prefill_chunk=4), dict(prefill_chunk=4, token_budget=8),
+               dict(refill=False)):
+        ServeEngine(cfg, ServeConfig(max_seq=32, **kw), ref["params"],
+                    device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServeEngine(cfg, ServeConfig(), ref["params"])
@@ -207,8 +211,8 @@ def test_cli_reports_exact_roll_forward():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--replicas", "2"], ["--token-budget", "8"], ["--prefill-chunk", "4"],
-    ["--blocks", "auto"], ["--arrival-rate", "1.0"], ["--ckpt-dir", "x"]])
+    ["--replicas", "2"], ["--kill-replica-at", "5"], ["--max-replicas", "2"],
+    ["--blocks", "auto"], ["--kill-replica", "1"], ["--ckpt-dir", "x"]])
 def test_cli_rejects_later_slices_at_parse_time(flag):
     from repro_torch.launch import serve
 
