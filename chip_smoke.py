@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-It drives the port's two serving paths and its training path, each at its
+It drives the port's serving paths and its training path, each at its
 model's published widths with random weights from a seeded
-``torch.Generator``: llama3.2-1b (dense decoder, 16 layers) served and
-trained, and deepseek-v2-lite-16b (MLA attention, a dense first layer and
-64-expert top-6 MoE layers; cut to 8 of its 27 layers, since its float32
-masters and int8 copies at all 27 layers do not fit one 80 GB card)
-served; and the paper's own experiment, the Fig. 2 stream convolution
+``torch.Generator``: llama3.2-1b (dense decoder, 16 layers) served, served
+by a 4-replica fleet and trained; deepseek-v2-lite-16b (MLA attention, a
+dense first layer and 64-expert top-6 MoE layers; cut to 8 of its 27
+layers, since its float32 masters and int8 copies at all 27 layers do not
+fit one 80 GB card) served; qwen2-7b (28 layers, qkv bias) and
+minitron-8b (32 layers, ungated relu2 MLP) served whole, and granite-20b
+(MQA, ungated gelu MLP) served cut to 20 of its 52 layers (about 20.3 G
+parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20); and the
+paper's own experiment, the Fig. 2 stream convolution
 (M = 3 and 8 streams of 1e6 int32 samples, kernel sizes 100..4500, nothing
 cut) through the fail-stop engine ``run_protected``. Phases, each printing
 its results on lines of its own; any failed check raises and the script
@@ -54,6 +58,29 @@ exits nonzero:
                and without a prefill call, TTFT, tokens/s and the recycle
                zeroing's launches. deepseek: chunked and packed at scope
                all;
+  3c. fleet — llama3.2-1b on 4 warm replicas (scope all,
+               ``failed_group=1`` on every step), 16 requests (prompt
+               lengths from ``--seed`` in 5..128, buckets 8..128 under
+               max_seq 256, 16 new tokens); replica 2 is fail-stopped at
+               the first step it holds a decoding request, and every
+               request must finish with the tokens of a healthy
+               single-engine run in the same call (EXACT ROLL-FORWARD
+               (fleet)), with replay, prefix resume and recompute each
+               taken, plan misses 0 and no weight quantized after the
+               first replica; the same wave with no kill; then the
+               last-replica drill (one replica under autoscaling, killed,
+               revived by a warm spawn). Prints the time to recover (ms
+               from the kill until every migrated request streamed its
+               next token), fleet tokens/s with and without the kill, the
+               fleet steps and the migration counts;
+  3d. dense-decoders — qwen2-7b, minitron-8b, granite-20b (20 layers),
+               one at a time: every (site, shape) of the engine's startup
+               census at scope all and the vocab head held against the
+               plain version on the s8 route (granite's N = 128
+               included); the 8-request wave at ft_mode none and at
+               entangle / all, healthy and with ``failed_group=1`` (EXACT
+               ROLL-FORWARD); decode-step ms against none in the same
+               call, s8 launches per decode step, ``max_memory_allocated``;
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
                block at one step) and writes its final checkpoint; the
@@ -119,6 +146,18 @@ DEEPSEEK = "deepseek-v2-lite-16b"
 DEEPSEEK_LAYERS = 8  # 1 dense + 7 MoE layers at published widths
 SERVE = dict(max_batch=8, ft_M=4, max_seq=256, requests=8, prompt_len=8,
              max_new=8)
+# the fleet path: llama3.2-1b on 4 replicas of the serving geometry above,
+# 16 requests (prompt lengths from --seed in [5, 128]) of 16 new tokens,
+# the buckets 8 .. 128 under max_seq 256 (so that a prefix can outgrow the
+# largest bucket and recompute), one whole-bucket prefill call per step;
+# then the last-replica drill over the first 8 requests
+FLEET = dict(replicas=4, requests=16, max_new=16, max_prompt=128,
+             buckets=(8, 16, 32, 64, 128), drill_requests=8)
+# the other dense decoders at published widths: arch -> layers kept (None:
+# all). granite-20b's 52 layers hold about 20.3 G parameters, 81 GB of
+# float32 masters alone; 20 layers (8.2 G) leave room for the int8 copies
+# and the plain versions' operands on one 80 GB card
+DECODERS = {"qwen2-7b": None, "minitron-8b": None, "granite-20b": 20}
 # the serve-admission path: the same engine geometry with every bucket of
 # the geometric set (8 .. 256), a 24-request wave of seeded prompt lengths
 # in [5, 240] (one in every bucket, the rest log-uniform) and the four
@@ -241,6 +280,18 @@ class Checker:
     @property
     def n(self):
         return sum(self.n_by_route.values())
+
+    def spawn(self):
+        """A new checker over the same functions, with no comparisons yet
+        (to read one part's worst error); :meth:`absorb` folds it back."""
+        return Checker(self.cuda_fn, self.plain_fn, s8_fn=self.s8_fn)
+
+    def absorb(self, other):
+        for route, err in other.worst_by_route.items():
+            self.worst_by_route[route] = max(
+                self.worst_by_route.get(route, 0), err)
+            self.n_by_route[route] = (self.n_by_route.get(route, 0)
+                                      + other.n_by_route[route])
 
     def routes(self, packed):
         """(route, launch function) of each kernel that takes the call."""
@@ -503,11 +554,14 @@ def model_config(arch):
     cfg = get_config(arch)
     if arch == DEEPSEEK:
         cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_LAYERS)
+    if DECODERS.get(arch):
+        cfg = dataclasses.replace(cfg, n_layers=DECODERS[arch])
     return cfg
 
 
 def init_model(dev, arch):
-    """The published config (deepseek cut to DEEPSEEK_LAYERS layers) with
+    """The published config (deepseek cut to DEEPSEEK_LAYERS layers,
+    granite to DECODERS' count) with
     random weights from a seeded ``torch.Generator``; returns (cfg, model,
     params)."""
     import torch
@@ -545,6 +599,22 @@ def _leaves(node):
         yield node
 
 
+def census_shapes(cfg, census):
+    """The entangled-GEMM shapes of a protected-site census (a set of
+    (site, shape)): dense ``(B, K, N, sites)``, the vocab head first
+    (decode and admission both send it max_batch / M rows per group), and
+    grouped ``(E, Cg, K, N, sites)`` from the census's 5-tuples."""
+    dense = {(SERVE["max_batch"] // SERVE["ft_M"], cfg.d_model,
+              cfg.vocab_size): ["head"]}
+    grouped = {}
+    for site, shape in sorted(census):
+        d = dense if len(shape) == 4 else grouped
+        if site not in d.setdefault(shape[1:], []):
+            d[shape[1:]].append(site)
+    flat = lambda d: [(*k, "/".join(v)) for k, v in sorted(d.items())]  # noqa: E731
+    return flat(dense), flat(grouped)
+
+
 def main_path_shapes(cfg, params, dev):
     """Every entangled-GEMM shape the serving engine can launch: dense
     ``(B, K, N, sites)`` — the vocab head (decode and admission both send
@@ -556,9 +626,6 @@ def main_path_shapes(cfg, params, dev):
     and packed censuses add to the whole-bucket one."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-    dense = {(SERVE["max_batch"] // SERVE["ft_M"], cfg.d_model,
-              cfg.vocab_size): ["head"]}
-    grouped = {}
     census = {}
     for mode in ("whole", "chunked", "packed"):  # refill moves no shape
         kw = ADMIT_MODES[mode]
@@ -569,18 +636,13 @@ def main_path_shapes(cfg, params, dev):
         census[mode] = set(eng.protected_census)
         del eng
         free_cuda()
-    for site, shape in sorted(set().union(*census.values())):
-        d = dense if len(shape) == 4 else grouped
-        if site not in d.setdefault(shape[1:], []):
-            d[shape[1:]].append(site)
     new = {m: len(c - census["whole"]) for m, c in census.items()
            if m != "whole"}
     log(f"[kernels] {cfg.name} census at scope all: whole-bucket "
         f"{len(census['whole'])} (site, shape) entries; entries the "
         f"chunked and packed ([{ADMIT['budget'] // ADMIT['chunk']}, "
         f"{ADMIT['chunk']}]) censuses add: {new}")
-    flat = lambda d: [(*k, "/".join(v)) for k, v in sorted(d.items())]  # noqa: E731
-    return flat(dense), flat(grouped)
+    return census_shapes(cfg, set().union(*census.values()))
 
 
 def _wave_submit(eng, cfg):
@@ -714,8 +776,9 @@ def phase_serve(dev, kernels, path_kernels, cfg, model, params, scopes):
 def _breakdown(dev, cfg, params, base):
     """After the path's waves: the unprotected baseline (ft_mode none) and a
     profiler window over two decode steps at scope all, for PERF.md's
-    "where the time goes". A measurement, not a check: if the profiler
-    cannot trace the card, the share is reported as not measured."""
+    "where the time goes". If the profiler cannot trace the card, the
+    share is reported as not measured; an engine step or kernel that
+    fails inside the window raises like anywhere else."""
     import torch
 
     from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -734,14 +797,26 @@ def _breakdown(dev, cfg, params, base):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    # only the profiler's own start and reading may fail softly: a failed
+    # engine step or kernel inside the window raises
+    prof = torch.profiler.profile(activities=acts)
     try:
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(2):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = []  # device-side events only (kernels, memsets, copies)
+        prof.start()
+    except RuntimeError as err:
+        log(f"[profile] not measured: {err}")
+        prof = None
+    t0 = time.perf_counter()
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del eng
+    free_cuda()
+    if prof is None:
+        return dict(step_ms=none_ms)
+    rows = []  # device-side events only (kernels, memsets, copies)
+    try:
+        prof.stop()
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -751,9 +826,6 @@ def _breakdown(dev, cfg, params, base):
     except RuntimeError as err:
         log(f"[profile] not measured: {err}")
         return dict(step_ms=none_ms)
-    finally:
-        del eng
-        free_cuda()
     busy = sum(r[0] for r in rows) / 1e3
     rows.sort(reverse=True)
     log(f"[profile] {cfg.name} scope=all, 2 decode steps: wall "
@@ -1101,6 +1173,346 @@ def phase_serve_admission(dev, kernels, path_kernels, cfg, params, modes,
                              f"{core}")
     return counts, dict(lengths=lengths, modes=per, pairs=pairs,
                         max_memory_allocated=peak, seconds=secs)
+
+
+# ------------------------------------------------------------------ fleet --
+
+def fleet_lengths(seed):
+    """The fleet wave's 16 prompt lengths from ``seed``, in [5, 128].
+    Least-loaded dispatch deals the requests round-robin, so replica 2
+    holds requests 2, 6, 10 and 14; their lengths make its fail-stop take
+    every recovery path: 2 and 6 share bucket 128 and land first (one
+    prefill call per step), 2 short enough to prefix-resume and 6 at 127
+    or 128, which with its two tokens outgrows the bucket and recomputes;
+    10 and 14, in smaller buckets, are still queued in the replica at the
+    kill and replay. The other twelve are free in [5, 128]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = [int(rng.integers(5, FLEET["max_prompt"] + 1))
+           for _ in range(FLEET["requests"])]
+    out[2] = int(rng.integers(65, 121))
+    out[6] = int(rng.integers(127, 129))
+    out[10], out[14] = (int(v) for v in rng.integers(5, 65, size=2))
+    return out
+
+
+def _fleet_requests(cfg, lengths):
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(len(lengths))
+    return [Request(rid=r, prompt=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new=FLEET["max_new"])
+            for r, n in enumerate(lengths)]
+
+
+def _fleet_wave(fleet, reqs, failed_group, kill=None):
+    """Drive a fleet over ``reqs`` (all submitted at once). ``kill``
+    ("first" or "last"): fail-stop, before the first step at which it
+    holds a decoding request, replica 2 or the last live replica. Returns
+    stats: wall, steps, tokens/s and, with a kill, the replica killed, the
+    kill step, the migrated requests' token counts at the kill and the ms
+    until each has streamed its next token (the time to recover)."""
+    import torch
+
+    t0 = time.perf_counter()
+    for rq in reqs:
+        fleet.submit(rq)
+    st = dict(steps=0)
+    victim, pending, t_kill = None, None, None
+    while not fleet.idle():
+        if kill and victim is None:
+            live = [r for r, rep in fleet.replicas.items() if rep.live]
+            target = 2 if kill == "first" else live[-1]
+            held = [rec for rec in fleet.router.records.values()
+                    if rec.replica == target]
+            if any(rec.shadow.status == "decoding" for rec in held):
+                victim = target
+                pending = {id(rec.req): len(rec.toks) for rec in held}
+                st.update(killed=victim, kill_step=fleet.steps,
+                          held={rec.req.rid: dict(
+                              prompt=len(rec.req.prompt), toks=len(rec.toks),
+                              status=rec.shadow.status) for rec in held})
+                t_kill = time.perf_counter()
+                fleet.kill_replica(victim)
+        fleet.step(failed_group=failed_group)
+        torch.cuda.synchronize()
+        st["steps"] += 1
+        if pending:
+            done = [k for k, n in pending.items()
+                    if k not in fleet.router.records
+                    or len(fleet.router.records[k].toks) > n]
+            for k in done:
+                del pending[k]
+            if not pending:
+                st["recover_ms"] = 1e3 * (time.perf_counter() - t_kill)
+                st["recover_steps"] = fleet.steps - st["kill_step"]
+        if st["steps"] > 50 * FLEET["max_new"]:
+            raise AssertionError("fleet wave failed to drain")
+    st["wall_s"] = time.perf_counter() - t0
+    st["tokens"] = sum(len(r.out) for r in reqs)
+    st["tok_s"] = st["tokens"] / st["wall_s"]
+    if kill and victim is None:
+        raise AssertionError("the kill never found a decoding request")
+    return st
+
+
+def _check_fleet_tokens(reqs, want, what):
+    import numpy as np
+
+    bad = [r.rid for r in reqs if r.status != "done"
+           or not np.array_equal(np.asarray(r.out), want[r.rid])]
+    verdict = "EXACT ROLL-FORWARD (fleet)" if not bad else "RECOVERY FAILED"
+    log(f"[fleet] {what}: {len(reqs)} requests / "
+        f"{sum(len(r.out) for r in reqs)} tokens against the no-failure "
+        f"single engine; mismatching requests: {len(bad)} ({verdict})")
+    if bad:
+        raise AssertionError(f"fleet {what}: requests {bad} differ from the "
+                             f"no-failure run")
+
+
+def phase_fleet(dev, kernels, smi, seed, checked):
+    """The multi-replica fleet on llama3.2-1b at published widths: 4 warm
+    replicas at scope all with failed_group=1 on every step; replica 2
+    fail-stopped at the first step it holds a decoding request; every
+    request's tokens equal the no-failure single engine's (healthy, in the
+    same call), replay / prefix resume / recompute each taken, plans.misses
+    0, no weight quantized after the first replica; the same wave with no
+    kill for the tokens/s; then the last-replica drill (one replica under
+    autoscaling, killed, revived by a spawn). Every kernel's count is set
+    to 0 just before the fleet waves and read just after; the dense GEMM
+    must have launched (s8 route only). ``checked`` is llama's main-path
+    dense shapes, already held against the plain version; any shape of the
+    fleet's own census outside them is held against it here first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ft import quantize
+    from repro_torch.serve import (Fleet, FleetConfig, ScalingPolicy,
+                                   ServeConfig, ServeEngine)
+
+    cfg, _, params = init_model(dev, LLAMA)
+    scfg = ServeConfig(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+                       ft_mode="entangle", ft_M=SERVE["ft_M"], ft_scope="all",
+                       prefill_buckets=FLEET["buckets"],
+                       prefill_chunk=FLEET["buckets"][-1])
+    lengths = fleet_lengths(seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the oracle: one engine, no failure of any kind
+    wq0 = quantize.TRACE_STATS["weight_quantize_calls"]
+    eng = ServeEngine(cfg, scfg, params, device=dev)
+    startup_wq = quantize.TRACE_STATS["weight_quantize_calls"] - wq0
+    oracle = _fleet_requests(cfg, lengths)
+    for rq in oracle:
+        eng.submit(rq)
+    eng.run_to_completion(max_steps=50 * FLEET["max_new"])
+    want = {r.rid: np.asarray(r.out) for r in oracle}
+    if any(len(v) != FLEET["max_new"] for v in want.values()):
+        raise AssertionError("the no-failure run did not complete")
+    # the replicas share this engine's config, so its census is theirs
+    shapes, _ = census_shapes(cfg, eng.protected_census)
+    del eng
+    free_cuda()
+    seen = {s[:3] for s in checked}
+    missing = [s for s in shapes if s[:3] not in seen]
+    if missing:
+        check_dense(dev, next(k["checker"] for k in kernels
+                              if k["name"] == "entangled_matmul"),
+                    missing, ragged=False)
+    log(f"[fleet] census at buckets {FLEET['buckets']}: {len(shapes)} "
+        f"(rows, K, N) shapes with the head, {len(shapes) - len(missing)} "
+        f"among llama's checked main-path shapes; the other {len(missing)} "
+        f"held against the plain version here: {[s[:3] for s in missing]}")
+
+    reset_counts(kernels)
+    wq0 = quantize.TRACE_STATS["weight_quantize_calls"]
+    fleet = Fleet(cfg, scfg, params, FleetConfig(
+        replicas=FLEET["replicas"], device=dev))
+    wq_fleet = quantize.TRACE_STATS["weight_quantize_calls"] - wq0
+    if wq_fleet != startup_wq:
+        raise AssertionError(f"{FLEET['replicas']} replicas made {wq_fleet} "
+                             f"weight-quantize calls, one engine's startup "
+                             f"makes {startup_wq}")
+    reqs = _fleet_requests(cfg, lengths)
+    st = _fleet_wave(fleet, reqs, 1, kill="first")
+    m = fleet.fleet_metrics()
+    _check_fleet_tokens(reqs, want, f"kill replica {st['killed']} at fleet "
+                        f"step {st['kill_step']}, failed_group=1 on every "
+                        f"step")
+    mig = {k: m[f"router_{k}"] for k in ("migrated", "replayed",
+                                         "resume_prefix", "resume_recompute")}
+    misses = fleet._warm["plans"].misses
+    log(f"[fleet] replica {st['killed']} held {st['held']} at the kill; "
+        f"migrations {mig}; failed {m['failed']}; plans.misses {misses}; "
+        f"weight-quantize calls {wq_fleet} for {FLEET['replicas']} replicas "
+        f"(one engine's startup: {startup_wq})")
+    for k in ("replayed", "resume_prefix", "resume_recompute"):
+        if mig[k] < 1:
+            raise AssertionError(f"the fleet drill took no {k}: {mig}")
+    if misses or m["failed"] != 1:
+        raise AssertionError(f"misses {misses}, failed {m['failed']}")
+    del fleet
+    free_cuda()
+
+    fleet = Fleet(cfg, scfg, params, FleetConfig(
+        replicas=FLEET["replicas"], device=dev))
+    reqs = _fleet_requests(cfg, lengths)
+    st_nokill = _fleet_wave(fleet, reqs, 1)
+    _check_fleet_tokens(reqs, want, "no kill, failed_group=1 on every step")
+    del fleet
+    free_cuda()
+
+    # the last replica: one replica under autoscaling, killed; the policy
+    # revives the pool with a warm spawn
+    n = FLEET["drill_requests"]
+    pol = ScalingPolicy(min_replicas=1, max_replicas=2, scale_up_depth=99,
+                        decide_every=1)
+    wq0 = quantize.TRACE_STATS["weight_quantize_calls"]
+    fleet = Fleet(cfg, scfg, params, FleetConfig(replicas=1, policy=pol,
+                                                 device=dev))
+    wq_first = quantize.TRACE_STATS["weight_quantize_calls"] - wq0
+    reqs = _fleet_requests(cfg, lengths)[:n]
+    st_last = _fleet_wave(fleet, reqs, 1, kill="last")
+    wq_drill = quantize.TRACE_STATS["weight_quantize_calls"] - wq0
+    m_last = fleet.fleet_metrics()
+    _check_fleet_tokens(reqs, want, f"last replica killed at fleet step "
+                        f"{st_last['kill_step']}, revived by autoscaling")
+    log(f"[fleet] last-replica drill: spawned {m_last['spawned']}, failed "
+        f"{m_last['failed']}, migrations {m_last['router_migrated']}; "
+        f"weight-quantize calls {wq_drill} (the first replica's "
+        f"{wq_first}); plans.misses {fleet._warm['plans'].misses}")
+    if (m_last["spawned"] < 2 or m_last["failed"] != 1 or wq_drill != wq_first
+            or fleet._warm["plans"].misses):
+        raise AssertionError(f"last-replica drill: {m_last}")
+    del fleet
+    torch.cuda.synchronize()
+    counts = {k["name"]: count(k) for k in kernels}
+    core = {k["name"]: count(k, 1) for k in kernels
+            if len(k["counters"]) > 1}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[fleet] {cfg.name} x {FLEET['replicas']} replicas ({smi}): time to "
+        f"recover {st['recover_ms']:.3f} ms ({st['recover_steps']} fleet "
+        f"steps from the kill until every migrated request streamed its next "
+        f"token); fleet tokens/s {st['tok_s']:.2f} with the kill "
+        f"({st['steps']} fleet steps, {st['wall_s']:.3f} s) and "
+        f"{st_nokill['tok_s']:.2f} without ({st_nokill['steps']} fleet "
+        f"steps, {st_nokill['wall_s']:.3f} s); last-replica drill: time to "
+        f"recover {st_last['recover_ms']:.3f} ms, {st_last['steps']} steps")
+    log(f"[fleet] kernel launches over the fleet waves: {counts}; CUDA-core "
+        f"GEMM route {core}; max_memory_allocated {peak / 2**30:.2f} GiB")
+    if counts["entangled_matmul"] <= 0:
+        raise AssertionError("the fleet path never launched the dense GEMM")
+    if any(core.values()):
+        raise AssertionError(f"packed GEMMs reached the CUDA-core kernel: "
+                             f"{core}")
+    del params
+    free_cuda()
+    return counts, dict(lengths=lengths, kill=st, no_kill=st_nokill,
+                        last_replica=st_last, migrations=mig,
+                        weight_quantize_calls=wq_fleet,
+                        max_memory_allocated=peak)
+
+
+# --------------------------------------------------------- dense-decoders --
+
+def phase_decoders(dev, kernels, smi):
+    """qwen2-7b, minitron-8b and granite-20b (cut as DECODERS says), one at
+    a time at published widths: the engine's startup census at scope all,
+    every (site, shape) and the vocab head held against the plain version
+    on the s8 route; the 8-request wave at ft_mode none and at entangle /
+    all, healthy and with failed_group=1 on a warm replica (EXACT
+    ROLL-FORWARD, equal tokens); decode-step ms, s8 launches per decode
+    step and max_memory_allocated. Every kernel's count is set to 0 just
+    before each arch's waves and read just after. Returns (counts by arch,
+    record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    chk = next(k["checker"] for k in kernels
+               if k["name"] == "entangled_matmul")
+    out, counts_by = {}, {}
+    for arch in DECODERS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg, _, params = init_model(dev, arch)
+        base = dict(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+                    ft_M=SERVE["ft_M"])
+        scfg = ServeConfig(ft_mode="entangle", ft_scope="all", **base)
+        eng = ServeEngine(cfg, scfg, params, device=dev)
+        shapes, _ = census_shapes(cfg, eng.protected_census)
+        warm = eng.warm_state()
+        del eng
+        free_cuda()
+        arch_chk = chk.spawn()
+        check_dense(dev, arch_chk, shapes, ragged=False)
+        chk.absorb(arch_chk)
+        narrow = sorted({(K, N) for _, K, N, _ in shapes if N < 256})
+        log(f"[dense-decoders] {arch}: {len(warm['census'])} census "
+            f"entries at scope all, {len(shapes)} (rows, K, N) shapes with "
+            f"the head; {arch_chk.n} kernel-vs-plain comparisons, max_abs_err"
+            f" by route {arch_chk.worst_by_route}; narrower than one "
+            f"256-column tile: {narrow}")
+
+        reset_counts(kernels)
+        res = {}
+        for name, kw, fg in (("none", dict(ft_mode="none"), None),
+                             ("entangle", dict(ft_mode="entangle",
+                                               ft_scope="all"), None),
+                             ("entangle failed_group=1",
+                              dict(ft_mode="entangle", ft_scope="all"), 1)):
+            sc = ServeConfig(**kw, **base)
+            e = ServeEngine(cfg, sc, params, device=dev,
+                            warm=warm if kw["ft_mode"] == "entangle" else None)
+            outs, steps, launched = _wave(e, cfg, fg, kernels)
+            if e.plans is not None and e.plans.misses:
+                raise AssertionError(f"{arch} {name}: plan misses")
+            res[name] = dict(outs=outs, step_ms=1e3 * float(np.mean(steps[1:])),
+                             first_step_ms=1e3 * steps[0],
+                             per_decode_step={k: sorted(set(v[1:])) for k, v
+                                              in launched.items()})
+            del e
+            free_cuda()
+        healthy, injected = (res["entangle"]["outs"],
+                             res["entangle failed_group=1"]["outs"])
+        bad = sum(not np.array_equal(healthy[r], injected[r])
+                  for r in healthy)
+        verdict = "EXACT ROLL-FORWARD" if bad == 0 else "RECOVERY FAILED"
+        log(f"[dense-decoders] {arch} recovery summary [scope=all]: "
+            f"failed_group=1 injected on every step; {len(healthy)} requests "
+            f"/ {sum(len(v) for v in healthy.values())} tokens compared; "
+            f"mismatching requests: {bad} ({verdict})")
+        if bad:
+            raise AssertionError(f"{arch}: {verdict}")
+        counts = {k["name"]: count(k) for k in kernels}
+        core = {k["name"]: count(k, 1) for k in kernels
+                if len(k["counters"]) > 1}
+        if counts["entangled_matmul"] <= 0 or any(core.values()):
+            raise AssertionError(f"{arch}: s8 launches {counts}, CUDA-core "
+                                 f"{core}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        secs = time.perf_counter() - t0
+        rec = dict(
+            n_layers=cfg.n_layers, census_shapes=len(shapes),
+            step_ms={n: r["step_ms"] for n, r in res.items()},
+            first_step_ms={n: r["first_step_ms"] for n, r in res.items()},
+            launches_per_decode_step={n: r["per_decode_step"]
+                                      for n, r in res.items()},
+            max_memory_allocated=peak, seconds=secs)
+        s8_steps = {n: r["per_decode_step"]["entangled_matmul"]
+                    for n, r in res.items()}
+        log(f"[dense-decoders] {arch} ({cfg.n_layers} layers; {smi}): mean "
+            f"decode-step ms {rec['step_ms']} (admission + first step "
+            f"{rec['first_step_ms']}); s8 launches per decode step "
+            f"{s8_steps}; kernel launches {counts}; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; {secs:.1f} s")
+        out[arch], counts_by[arch] = rec, counts
+        del params, warm
+        free_cuda()
+    return counts_by, out
 
 
 # ------------------------------------------------------------------ train --
@@ -2120,7 +2532,7 @@ def run_path(dev, kernels, arch, path_kernels, scopes, admission, smi,
     free_cuda()
     return dict(counts=counts, core_counts=core, results=results,
                 breakdown=breakdown, admission_counts=admit_counts,
-                admission=admit,
+                admission=admit, dense=dense,
                 n_dense_shapes=len(dense), n_grouped_shapes=len(grouped))
 
 
@@ -2204,6 +2616,9 @@ def main() -> int:
                            ("moe", "all"), (("chunked", "packed"), ("all",),
                                             False), smi, args.seed),
     }
+    fleet_counts, fleet = phase_fleet(dev, kernels, smi, args.seed,
+                                      paths[LLAMA]["dense"])
+    decoder_counts, decoders = phase_decoders(dev, kernels, smi)
     grad_shapes = llama_grad_shapes(dev)
     check_codec(dev, {n: by_name[n]["checker"]
                       for n in ("entangle", "disentangle")}, grad_shapes)
@@ -2226,6 +2641,9 @@ def main() -> int:
         by_path = {a: p["counts"][name] for a, p in paths.items()}
         by_path.update({f"{a} serve-admission": p["admission_counts"][name]
                         for a, p in paths.items()})
+        by_path["fleet"] = fleet_counts[name]
+        by_path.update({f"{a} dense-decoders": c[name]
+                        for a, c in decoder_counts.items()})
         by_path[train_path] = train_counts[name]
         by_path["stream-conv"] = stream["counts"][name]
         if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
@@ -2247,10 +2665,14 @@ def main() -> int:
                 launches=paths[DEEPSEEK]["counts"][name],
                 launches_by_route={"s8": dict(by_path),
                                    "cuda_core": core_by_path},
-                launches_per_decode_step={
+                launches_per_decode_step=dict({
                     a: {s: r["launches_per_decode_step"][name]
                         for s, r in p["results"].items()}
-                    for a, p in paths.items()},
+                    for a, p in paths.items()}, **{
+                    f"{a} dense-decoders": {
+                        w: per[name] for w, per in
+                        r["launches_per_decode_step"].items()}
+                    for a, r in decoders.items()}),
                 cuda_core=dict(
                     source=k["core_source"],
                     launches=paths[DEEPSEEK]["core_counts"][name],
@@ -2270,6 +2692,8 @@ def main() -> int:
             bound_by=head["bound_by"], library_ms=head.get("library_ms"),
             shape=head["shape"], **extra))
     record["serve_admission"] = {a: p["admission"] for a, p in paths.items()}
+    record["fleet"] = fleet
+    record["dense_decoders"] = decoders
     record["train"] = train
     record["stream_conv"] = stream
     print(smi, flush=True)

@@ -19,6 +19,9 @@ ARCH_IDS = (
 )
 
 _MODULES: Dict[str, str] = {
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
 }

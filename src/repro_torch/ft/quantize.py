@@ -27,9 +27,16 @@ from repro_torch.core.plan import EntanglePlan
 from repro_torch.kernels.codec import PACK_LANES, pack_int8
 
 
+# how often the weight quantization runs (each call counts one, a stack
+# included): the engine quantizes every protected site once at startup, so
+# a step, or a replica built from a sibling's warm state, never adds to it
+TRACE_STATS = {"weight_quantize_calls": 0}
+
+
 def quantize_weight(w: torch.Tensor) -> tuple:
     """Symmetric per-tensor int8 weight quantization (int32 container).
     Returns ``(int32 values, float32 scalar scale)``."""
+    TRACE_STATS["weight_quantize_calls"] += 1
     w = w.to(torch.float32)
     amax = torch.clamp(w.abs().amax(), min=1e-9)
     scale = torch.full_like(amax, 127.0) / amax
@@ -45,6 +52,7 @@ def quantize_weight_stacked(w: torch.Tensor, *, packed: bool = False) -> dict:
     result, so the float32 and int64 temporaries are one matrix's, not the
     whole stack's (an expert stack [layers, E, K, N] would otherwise need
     several times its size at once); the bits are the same."""
+    TRACE_STATS["weight_quantize_calls"] += 1
     lead, (K, N) = w.shape[:-2], w.shape[-2:]
     rows = -(-K // PACK_LANES) if packed else K
     out = torch.empty((*lead, rows, N), dtype=torch.int32, device=w.device)

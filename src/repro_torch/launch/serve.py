@@ -3,10 +3,12 @@
 
 Boots the batched serving engine with random weights (from a seeded
 ``torch.Generator``) on ``--device`` (default ``cuda``) and runs a
-synthetic request wave. The ported archs are llama3.2-1b (dense) and
-deepseek-v2-lite-16b (MLA + MoE); ``--n-layers`` cuts the depth of the
-published config (deepseek-v2-lite's 27 layers of float32 masters alone
-take about 63 GB). ``--ft-mode entangle`` runs the vocab projection
+synthetic request wave. The ported archs are the dense decoders
+llama3.2-1b, qwen2-7b (qkv bias), minitron-8b (ungated relu2 MLP) and
+granite-20b (MQA, ungated gelu MLP), and deepseek-v2-lite-16b (MLA +
+MoE); ``--n-layers`` cuts the depth of the published config (float32
+masters alone take about 63 GB for deepseek-v2-lite's 27 layers and 81 GB
+for granite-20b's 52). ``--ft-mode entangle`` runs the vocab projection
 of every decode step and admission batch as the fused entangled int8 GEMM
 (slot -> group = slot % ft_M); ``--ft-scope`` widens protection to the
 in-model projections; ``--failed-group r`` fail-stops group r on every
@@ -26,9 +28,17 @@ trace of r requests per second (0 = all at once), ``--deadline-ms d``
 gives every request a deadline past which it is shed from the queue. Every
 cross-flag rule is checked at parse time.
 
+Fleet flags: ``--replicas N`` (N > 1, or any fleet flag) serves the wave
+through the multi-replica fleet (:mod:`repro_torch.serve.fleet`): the
+router admits, and N in-process engines serve. ``--kill-replica-at S
+--kill-replica R`` fail-stops replica R at fleet step S (the router
+migrates its requests and the wave still completes; an incomplete wave
+exits 1), and ``--max-replicas M --scale-up-depth D`` turns on
+queue-depth autoscaling between the initial pool and M.
+
 Flags of the reference's launcher that belong to later slices of the port
-(fleet, autotuned blocks, checkpoints) are rejected at parse time with
-"not ported yet".
+(autotuned blocks, checkpoints) are rejected at parse time with "not
+ported yet".
 """
 from __future__ import annotations
 
@@ -44,14 +54,14 @@ from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.ft import SCOPES
 from repro_torch.models import get_model
 from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+from repro_torch.serve.fleet import Fleet, FleetConfig, ScalingPolicy
 
+# the drain bound of a closed wave; kill schedules are checked against it
+# at parse time
 MAX_WAVE_STEPS = 10_000
 
 # flag -> its "off" value; any other value is a later slice's feature
-_NOT_PORTED = {
-    "replicas": 1, "kill_replica_at": -1, "kill_replica": 0,
-    "max_replicas": 0, "scale_up_depth": 4, "blocks": "", "ckpt_dir": "",
-}
+_NOT_PORTED = {"blocks": "", "ckpt_dir": ""}
 
 
 def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
@@ -90,6 +100,52 @@ def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
         print(f"[launch.serve] shed {shed} queued requests past "
               f"--deadline-ms {deadline_ms}")
     return {r.rid: np.asarray(r.out) for r in reqs if r.status == "done"}
+
+
+def _fleet_wave(cfg, scfg: ServeConfig, params, args, failed_group,
+                dev) -> None:
+    """Serve the synthetic wave through the fleet, with the scheduled
+    replica fail-stop if any, and print the migration summary. Every
+    request must complete (or be shed past its deadline) even when a
+    replica is killed mid-wave; otherwise it exits 1."""
+    pol = None
+    if args.max_replicas:
+        pol = ScalingPolicy(min_replicas=args.replicas,
+                            max_replicas=args.max_replicas,
+                            scale_up_depth=args.scale_up_depth)
+    fleet = Fleet(cfg, scfg, params,
+                  FleetConfig(replicas=args.replicas, policy=pol, device=dev))
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=r, max_new=args.max_new, deadline_ms=args.deadline_ms,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        size=8).astype(np.int32))
+            for r in range(args.requests)]
+    for req in reqs:
+        fleet.submit(req)
+    steps = 0
+    while not fleet.idle():
+        if steps == args.kill_replica_at:
+            print(f"[launch.serve] killing replica {args.kill_replica} at "
+                  f"fleet step {steps} (fail-stop injected)")
+            fleet.kill_replica(args.kill_replica)
+        fleet.step(failed_group=failed_group)
+        steps += 1
+        if steps >= MAX_WAVE_STEPS:
+            raise RuntimeError("fleet wave failed to drain")
+    m = fleet.fleet_metrics()
+    states = {rid: rep["state"] for rid, rep in m["replicas"].items()}
+    done = sum(r.status == "done" for r in reqs)
+    print(f"[launch.serve] fleet: {done}/{args.requests} requests completed "
+          f"in {steps} fleet steps over {m['spawned']} replicas (states: "
+          f"{states})")
+    print(f"[launch.serve] fleet migration summary: failed={m['failed']} "
+          f"migrated={m['router_migrated']} "
+          f"(prefix-resume={m['router_resume_prefix']}, "
+          f"recompute={m['router_resume_recompute']}, "
+          f"replayed={m['router_replayed']}) scale_ups={m['scale_ups']} "
+          f"scale_downs={m['scale_downs']} shed={m['router_shed']}")
+    if done + sum(r.status == "shed" for r in reqs) != args.requests:
+        raise SystemExit(1)
 
 
 def _validate_args(ap: argparse.ArgumentParser, args):
@@ -145,6 +201,31 @@ def _validate_args(ap: argparse.ArgumentParser, args):
                  f"wave), got {args.arrival_rate}")
     if args.deadline_ms is not None and args.deadline_ms <= 0:
         ap.error(f"--deadline-ms must be > 0, got {args.deadline_ms}")
+    # -- fleet flags ---------------------------------------------------------
+    if args.replicas < 1:
+        ap.error(f"--replicas must be >= 1, got {args.replicas}")
+    if args.max_replicas and args.max_replicas < args.replicas:
+        ap.error(f"--max-replicas ({args.max_replicas}) must be >= "
+                 f"--replicas ({args.replicas}): autoscaling grows the "
+                 f"pool above its initial size, never below it")
+    if args.scale_up_depth < 1:
+        ap.error(f"--scale-up-depth must be >= 1 (queued requests per "
+                 f"healthy replica), got {args.scale_up_depth}")
+    if args.kill_replica_at >= 0:
+        if args.replicas < 2 and not args.max_replicas:
+            ap.error("--kill-replica-at requires --replicas >= 2 or "
+                     "--max-replicas autoscaling: a surviving replica must "
+                     "take the migrated requests or the wave cannot drain")
+        if args.kill_replica_at >= MAX_WAVE_STEPS:
+            ap.error(f"--kill-replica-at ({args.kill_replica_at}) must be "
+                     f"< {MAX_WAVE_STEPS}, the wave's drain bound; a later "
+                     f"kill step would never fire")
+        if not 0 <= args.kill_replica < args.replicas:
+            ap.error(f"--kill-replica ({args.kill_replica}) must name a "
+                     f"replica in the initial pool [0, {args.replicas})")
+    elif args.kill_replica:
+        ap.error(f"--kill-replica ({args.kill_replica}) requires "
+                 f"--kill-replica-at to schedule the fail-stop")
     return buckets
 
 
@@ -182,19 +263,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="deadline of every request; queued requests past "
                          "it are shed")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="> 1 (or any fleet flag): serve through the "
+                         "fleet, router-owned admission over this many "
+                         "in-process engine replicas")
+    ap.add_argument("--kill-replica-at", type=int, default=-1,
+                    help=">= 0: fail-stop a whole replica at this fleet "
+                         "step; the router migrates its requests")
+    ap.add_argument("--kill-replica", type=int, default=0,
+                    help="the replica --kill-replica-at kills (in the "
+                         "initial pool)")
+    ap.add_argument("--max-replicas", type=int, default=0,
+                    help="> 0: queue-depth autoscaling between --replicas "
+                         "and this bound (0 = a fixed pool)")
+    ap.add_argument("--scale-up-depth", type=int, default=4,
+                    help="spawn a replica when the router queue exceeds "
+                         "this many requests per healthy replica")
     # later slices' flags: accepted by the parser so that using one gives
     # a clear "not ported yet" error
     ap.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--blocks", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--replicas", type=int, default=1, help=argparse.SUPPRESS)
-    ap.add_argument("--kill-replica-at", type=int, default=-1,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--kill-replica", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--max-replicas", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--scale-up-depth", type=int, default=4,
-                    help=argparse.SUPPRESS)
     return ap
 
 
@@ -224,6 +312,11 @@ def main(argv=None) -> None:
                        token_budget=args.token_budget,
                        refill=not args.no_refill)
     failed = args.failed_group if args.failed_group >= 0 else None
+
+    if (args.replicas > 1 or args.max_replicas > 0
+            or args.kill_replica_at >= 0):
+        _fleet_wave(cfg, scfg, params, args, failed, dev)
+        return
 
     eng = ServeEngine(cfg, scfg, params, device=dev)
     outs = _wave(eng, args.requests, cfg.vocab_size, args.max_new, failed,

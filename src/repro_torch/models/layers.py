@@ -82,13 +82,21 @@ def _dense_w(p):
     return (p["q8"]["w"], p["q8"]["scale"]) if "q8" in p else p["w"]
 
 
+def _add_bias(p, y: torch.Tensor) -> torch.Tensor:
+    """Add the site's bias ``b`` (qwen2's q/k/v), if it has one, in
+    bfloat16 after the projection; it is never quantized."""
+    return y + p["b"].to(ACT_DTYPE) if "b" in p else y
+
+
 def dense(p, x: torch.Tensor, *, ft=None, site: Optional[str] = None):
     """Dense projection — THE protected-GEMM chokepoint: with ``ft``
     covering ``site`` it runs as the fused entangled int8 GEMM, otherwise
-    as a bfloat16 matmul (biases are not ported yet)."""
+    as a bfloat16 matmul; the bias stays in float either way."""
     if ft is not None and site is not None and ft.protects(site):
-        return ft.matmul(site, x, _dense_w(p)).to(ACT_DTYPE)
-    return _bf16_matmul(x, p["w"])
+        y = ft.matmul(site, x, _dense_w(p)).to(ACT_DTYPE)
+    else:
+        y = _bf16_matmul(x, p["w"])
+    return _add_bias(p, y)
 
 
 def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -112,7 +120,7 @@ def dense_fanout(ps, x: torch.Tensor, *, ft, sites) -> list:
     if ft is None or not all(ft.protects(s) for s in sites):
         return [dense(p, x, ft=ft, site=s) for p, s in zip(ps, sites)]
     ys = ft.matmul_fanout(tuple(sites), x, tuple(_dense_w(p) for p in ps))
-    return [y.to(ACT_DTYPE) for y in ys]
+    return [_add_bias(p, y.to(ACT_DTYPE)) for p, y in zip(ps, ys)]
 
 
 # ------------------------------------------------------ positions / masks ----
@@ -185,14 +193,21 @@ def _prefill_valid(off, T: int, lengths) -> Optional[torch.Tensor]:
 # ---------------------------------------------------------- GQA attention ----
 
 def init_attention(gen, cfg: ModelConfig, repeat: int) -> dict:
+    """GQA projections; with ``cfg.qkv_bias`` (qwen2) q, k and v each get
+    a bias ``b``, zeros as in the reference."""
     hd, D = cfg.resolved_head_dim, cfg.d_model
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias is not ported yet")
+
+    def proj(n_out, bias=False):
+        p = {"w": he_init(gen, (repeat, D, n_out), D)}
+        if bias:
+            p["b"] = torch.zeros((repeat, n_out), device=gen.device)
+        return p
+
     return {
         "norm": {"scale": torch.ones((repeat, D), device=gen.device)},
-        "wq": {"w": he_init(gen, (repeat, D, cfg.n_heads * hd), D)},
-        "wk": {"w": he_init(gen, (repeat, D, cfg.n_kv_heads * hd), D)},
-        "wv": {"w": he_init(gen, (repeat, D, cfg.n_kv_heads * hd), D)},
+        "wq": proj(cfg.n_heads * hd, cfg.qkv_bias),
+        "wk": proj(cfg.n_kv_heads * hd, cfg.qkv_bias),
+        "wv": proj(cfg.n_kv_heads * hd, cfg.qkv_bias),
         "wo": {"w": he_init(gen, (repeat, cfg.n_heads * hd, D),
                             cfg.n_heads * hd)},
     }
@@ -380,15 +395,18 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
 
 def init_mlp(gen, cfg: ModelConfig, repeat: int,
              d_ff: Optional[int] = None) -> dict:
-    if cfg.mlp_gated is False or cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError("only the gated MLP is ported yet")
+    """The gated MLP (gate, up, down), or with ``cfg.mlp_gated`` False the
+    ungated one (up, down: minitron's relu2, granite's gelu)."""
+    if cfg.norm_kind != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm_kind!r} is not ported "
+                                  f"yet")
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
-    return {
-        "norm": {"scale": torch.ones((repeat, D), device=gen.device)},
-        "gate": {"w": he_init(gen, (repeat, D, Fd), D)},
-        "up": {"w": he_init(gen, (repeat, D, Fd), D)},
-        "down": {"w": he_init(gen, (repeat, Fd, D), Fd)},
-    }
+    p = {"norm": {"scale": torch.ones((repeat, D), device=gen.device)}}
+    if cfg.mlp_gated is not False:
+        p["gate"] = {"w": he_init(gen, (repeat, D, Fd), D)}
+    p["up"] = {"w": he_init(gen, (repeat, D, Fd), D)}
+    p["down"] = {"w": he_init(gen, (repeat, Fd, D), Fd)}
+    return p
 
 
 def silu(a: torch.Tensor) -> torch.Tensor:
@@ -399,18 +417,44 @@ def silu(a: torch.Tensor) -> torch.Tensor:
     return a * torch.reciprocal(torch.exp(-a) + 1)
 
 
+def relu2(a: torch.Tensor) -> torch.Tensor:
+    """``jnp.square(jax.nn.relu(a))``, Nemotron's squared ReLU."""
+    return torch.square(torch.relu(a))
+
+
+def gelu(a: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form, its default) as the reference
+    evaluates it on bfloat16: every op rounded to the working dtype, the
+    cube as two products and the constants rounded to it first (a Python
+    float meets a bfloat16 array as a bfloat16 there). ``F.gelu(a,
+    approximate="tanh")`` rounds once, which moves many of the bf16
+    outputs by an ulp against the reference."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=a.dtype, device=a.device)
+    k = torch.tensor(0.044715, dtype=a.dtype, device=a.device)
+    return a * (0.5 * (1.0 + torch.tanh(c * (a + k * (a * a * a)))))
+
+
+_ACTS = {"silu": silu, "relu2": relu2, "gelu": gelu}
+
+
 def _mlp_act(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
-    if cfg.mlp_act != "silu":
+    if cfg.mlp_act not in _ACTS:
         raise NotImplementedError(f"mlp_act {cfg.mlp_act!r} is not ported yet")
-    return silu(a)
+    return _ACTS[cfg.mlp_act](a)
 
 
 def apply_mlp(p, x: torch.Tensor, *, cfg: ModelConfig, ft=None):
-    """Gated MLP: down(act(gate(h)) * up(h)) with gate/up one fanout group."""
+    """Gated MLP: down(act(gate(h)) * up(h)) with gate/up one fanout group;
+    ungated (no ``gate``): down(act(up(h))), each a protected site of its
+    own."""
     h = apply_norm(p["norm"], x, cfg)
-    gate, up = dense_fanout((p["gate"], p["up"]), h, ft=ft,
-                            sites=("mlp.gate", "mlp.up"))
-    return dense(p["down"], _mlp_act(cfg, gate) * up, ft=ft, site="mlp.down")
+    if "gate" in p:
+        gate, up = dense_fanout((p["gate"], p["up"]), h, ft=ft,
+                                sites=("mlp.gate", "mlp.up"))
+        a = _mlp_act(cfg, gate) * up
+    else:
+        a = _mlp_act(cfg, dense(p["up"], h, ft=ft, site="mlp.up"))
+    return dense(p["down"], a, ft=ft, site="mlp.down")
 
 
 # ------------------------------------------------------------------- MoE ----

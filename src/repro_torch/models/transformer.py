@@ -3,7 +3,7 @@ dense-decoder and MoE parts of :mod:`repro.models.transformer`).
 
 Blocks (``cfg.layer_pattern()`` names them):
 
-  attn_dense  GQA attention (or MLA if cfg.mla) + gated MLP
+  attn_dense  GQA attention (or MLA if cfg.mla) + MLP (gated, or ungated)
   attn_moe    GQA attention (or MLA if cfg.mla) + MoE FFN
 
 Params keep the reference's stacked layout — a list over pattern units,

@@ -424,3 +424,83 @@ def test_bf16_dense_rows_do_not_depend_on_the_call(cuda_device):
         for rows in (8, 64, 128, 256, 300):
             torch.testing.assert_close(dense(p, x[:rows]), whole[:rows],
                                        rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("N", [128, 512])
+def test_cuda_s8_kernel_narrow_projections(cuda_device, N):
+    """The s8 route at the new archs' narrow projections: granite-20b's
+    MQA k / v (N = 128, half of one 256-column tile) and qwen2-7b's (N =
+    512), at K = 6144 / 3584, decode and prefill row counts, every mode
+    and failed stream, equal to the plain version bit for bit."""
+    plan = make_plan(4, 32)
+    K = 6144 if N == 128 else 3584
+    rng = np.random.default_rng(N)
+    gp = pack_int8(torch.from_numpy(rng.integers(
+        -128, 128, size=(K, N)).astype(np.int32)), axis=0)
+    gp = gp.contiguous().to(cuda_device)
+    for B in (2, 16):
+        c = torch.from_numpy(rng.integers(
+            -2**31, 2**31, size=(4, B, K), dtype=np.int64).astype(
+                np.int32)).to(cuda_device)
+        before = emm.launches_s8
+        for mode in MODES:
+            for r in [None] + list(range(4)):
+                kw = dict(fuse_epilogue=mode, failed=r, packed=True)
+                torch.testing.assert_close(
+                    emm.entangled_matmul_cuda(c, gp, plan, **kw),
+                    emm.entangled_matmul_plain(c, gp, plan, **kw),
+                    rtol=0, atol=0)
+        assert emm.launches_s8 == before + len(MODES) * 5
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("ft", ["none", "all"])
+def test_prefill_and_decode_give_a_position_the_same_bits_on_the_card(
+        cuda_device, ft):
+    """The fleet's prefix resume on the card: llama3.2-1b at published
+    widths (cut to 2 layers) gives the position after ``prompt + k``
+    generated tokens the same final hidden state and logits, bit for bit,
+    decoded (the no-failure run) and prefilled as ``prompt + prefix``
+    (the resume), for a long and a short prompt."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, max_seq=256,
+        device=cuda_device)
+    kw = dict(ft_mode="none") if ft == "none" else dict(
+        ft_mode="entangle", ft_scope="all")
+    scfg = ServeConfig(max_batch=8, max_seq=256, ft_M=4,
+                       prefill_buckets=(8, 16, 32, 64, 128), **kw)
+
+    class Rec(ServeEngine):
+        def _head_logits(self, h, mask, failed_group, ft_fn):
+            logits = super()._head_logits(h, mask, failed_group, ft_fn)
+            self.log.append((h[0].clone(), logits[0].clone()))
+            return logits
+
+    warm = []
+
+    def run(prompt, max_new):
+        eng = Rec(cfg, scfg, params, device=cuda_device,
+                  warm=warm[0] if warm else None)
+        warm[:] = [eng.warm_state()]
+        eng.log = []
+        h = eng.submit(Request(rid=0, prompt=prompt, max_new=max_new))
+        eng.run_to_completion()
+        return np.asarray(h.req.out), eng.log
+
+    rng = np.random.default_rng(1)
+    for n in (100, 7):
+        prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+        out, log = run(prompt, 16)
+        for k in (3, 9):
+            tail, log_k = run(np.concatenate([prompt, out[:k]]), 16 - k)
+            for a, b in zip(log[k], log_k[0]):
+                torch.testing.assert_close(b, a, rtol=0, atol=0)
+            np.testing.assert_array_equal(tail, out[k:])
