@@ -12,7 +12,9 @@ layers, since its float32 masters and int8 copies at all 27 layers do not
 fit one 80 GB card) served; qwen2-7b (28 layers, qkv bias) and
 minitron-8b (32 layers, ungated relu2 MLP) served whole, and granite-20b
 (MQA, ungated gelu MLP) served cut to 20 of its 52 layers (about 20.3 G
-parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20); and the
+parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20);
+falcon-mamba-7b (Mamba-1, 64 layers) and recurrentgemma-2b (RG-LRU and
+rolling-window MQA, 26 layers) served whole; and the
 paper's own experiment, the Fig. 2 stream convolution
 (M = 3 and 8 streams of 1e6 int32 samples, kernel sizes 100..4500, nothing
 cut) through the fail-stop engine ``run_protected``. Phases, each printing
@@ -81,6 +83,22 @@ exits nonzero:
                entangle / all, healthy and with ``failed_group=1`` (EXACT
                ROLL-FORWARD); decode-step ms against none in the same
                call, s8 launches per decode step, ``max_memory_allocated``;
+  3e. recurrent — falcon-mamba-7b and recurrentgemma-2b at published
+               widths, nothing cut, one at a time: the census shapes of
+               every admission mode at scope all, the vocab head and the
+               model's own quantized head held against the plain version on
+               the s8 route; the 8-request wave at ft_mode none and at
+               entangle / head and all, healthy and with
+               ``failed_group=1`` (EXACT ROLL-FORWARD (recurrent)); chunked
+               (32, refill) and token-packed (4 rows of 32) admission of 12
+               requests (prompt lengths from ``--seed`` in 5..240) at scope
+               all, healthy and injected, the modes compared under the
+               near-tie rule; for recurrentgemma one request of 2200
+               prompt tokens (chunked, ``max_seq`` 4096) and 16 new ones,
+               healthy and injected, so that its 2048-token rolling buffer
+               wraps in prefill and in decode; decode-step ms against none,
+               s8 launches per decode step, ``max_memory_allocated`` and a
+               profiler window of 2 decode steps at scope all;
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
                block at one step) and writes its final checkpoint; the
@@ -100,7 +118,8 @@ exits nonzero:
                recover exactly at the demo's size; then the Fig. 2 overheads
                of each family against the conventional conv on the card;
   6. timings — each kernel, its plain version and its bound at its
-               main-path shapes, after warm-up: device time per call from
+               main-path shapes (the dense GEMM also at the recurrent
+               families' new shapes), after warm-up: device time per call from
                the replay of a CUDA graph of many calls, and the kernel's
                own time per launch from a profiler trace; the GEMMs' two
                kernels in turns in the same call, and the grouped GEMM
@@ -158,6 +177,15 @@ FLEET = dict(replicas=4, requests=16, max_new=16, max_prompt=128,
 # float32 masters alone; 20 layers (8.2 G) leave room for the int8 copies
 # and the plain versions' operands on one 80 GB card
 DECODERS = {"qwen2-7b": None, "minitron-8b": None, "granite-20b": 20}
+# the recurrent families at published widths, nothing cut: the 8-request
+# wave at none / head / all; chunked (32, refill) and token-packed (4 rows
+# of 32) admission of REC_REQUESTS seeded prompts in [5, 240] at scope
+# all; for recurrentgemma one LONG request past its 2048-token window,
+# chunked, so that the rolling buffer wraps in prefill and in decode
+RECURRENT = ("falcon-mamba-7b", "recurrentgemma-2b")
+REC_REQUESTS = 12
+REC_MODES = ("chunked", "packed")
+LONG = dict(prompt=2200, max_new=16, max_seq=4096, bucket=2208, chunk=32)
 # the serve-admission path: the same engine geometry with every bucket of
 # the geometric set (8 .. 256), a 24-request wave of seeded prompt lengths
 # in [5, 240] (one in every bucket, the rest log-uniform) and the four
@@ -581,6 +609,12 @@ def init_model(dev, arch):
                  f" experts top-{cfg.moe.top_k} (d_ff {cfg.moe.d_ff_expert},"
                  f" {cfg.moe.n_shared} shared), dense first layer d_ff "
                  f"{cfg.d_ff}")
+    if cfg.ssm:
+        extra = (f", d_inner {cfg.ssm.expand * cfg.d_model}, d_state "
+                 f"{cfg.ssm.d_state}, d_conv {cfg.ssm.d_conv}")
+    if cfg.rglru:
+        extra = (f", lru width {cfg.rglru.lru_width}, local window "
+                 f"{cfg.local_window}, head_dim {cfg.resolved_head_dim}")
     log(f"[serve] {arch} full width: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}{extra}; {n / 1e9:.3f} G float32 "
@@ -773,12 +807,13 @@ def phase_serve(dev, kernels, path_kernels, cfg, model, params, scopes):
     return counts, core, results, _breakdown(dev, cfg, params, base)
 
 
-def _breakdown(dev, cfg, params, base):
+def _breakdown(dev, cfg, params, base, tag="serve"):
     """After the path's waves: the unprotected baseline (ft_mode none) and a
     profiler window over two decode steps at scope all, for PERF.md's
-    "where the time goes". If the profiler cannot trace the card, the
-    share is reported as not measured; an engine step or kernel that
-    fails inside the window raises like anywhere else."""
+    "where the time goes"; ``tag`` prefixes the baseline's line. If the
+    profiler cannot trace the card, the share is reported as not measured;
+    an engine step or kernel that fails inside the window raises like
+    anywhere else."""
     import torch
 
     from repro_torch.serve.engine import ServeConfig, ServeEngine
@@ -787,7 +822,7 @@ def _breakdown(dev, cfg, params, base):
                       device=dev)
     _, st, _ = _wave(eng, cfg, None, [])
     none_ms = 1e3 * sum(st[1:]) / len(st[1:])
-    log(f"[serve] {cfg.name} ft_mode=none: mean decode-step {none_ms:.3f} "
+    log(f"[{tag}] {cfg.name} ft_mode=none: mean decode-step {none_ms:.3f} "
         f"ms, admission+first step {1e3 * st[0]:.3f} ms")
     del eng
     eng = ServeEngine(cfg, ServeConfig(**dict(base, ft_scope="all")), params,
@@ -839,10 +874,10 @@ def _breakdown(dev, cfg, params, base):
 
 # ------------------------------------------------------- serve-admission --
 
-def admission_lengths(seed):
-    """The wave's prompt lengths from ``seed``: one in each bucket's range
-    of the geometric set (within [len_lo, len_hi]), the rest log-uniform
-    over [len_lo, len_hi], shuffled."""
+def admission_lengths(seed, n=ADMIT["requests"]):
+    """The wave's ``n`` prompt lengths from ``seed``: one in each bucket's
+    range of the geometric set (within [len_lo, len_hi]), the rest
+    log-uniform over [len_lo, len_hi], shuffled."""
     import numpy as np
 
     from repro_torch.serve.engine import geometric_buckets
@@ -855,7 +890,7 @@ def admission_lengths(seed):
         if a <= z:
             out.append(int(rng.integers(a, z + 1)))
         prev = b
-    while len(out) < ADMIT["requests"]:
+    while len(out) < n:
         out.append(int(np.exp(rng.uniform(np.log(lo), np.log(hi + 1)))))
     rng.shuffle(out)
     return out
@@ -1511,6 +1546,217 @@ def phase_decoders(dev, kernels, smi):
             f"max_memory_allocated {peak / 2**30:.2f} GiB; {secs:.1f} s")
         out[arch], counts_by[arch] = rec, counts
         del params, warm
+        free_cuda()
+    return counts_by, out
+
+
+# -------------------------------------------------------------- recurrent --
+
+def _long_request(dev, cfg, params, failed_group, warm):
+    """recurrentgemma's long request: LONG["prompt"] seeded tokens under
+    chunked prefill (one bucket, LONG["bucket"]) and LONG["max_new"] new
+    tokens at scope all; returns (tokens, engine, seconds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    scfg = ServeConfig(max_batch=SERVE["max_batch"], max_seq=LONG["max_seq"],
+                       ft_mode="entangle", ft_M=SERVE["ft_M"],
+                       ft_scope="all", prefill_buckets=(LONG["bucket"],),
+                       prefill_chunk=LONG["chunk"])
+    eng = ServeEngine(cfg, scfg, params, device=dev, warm=warm)
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, LONG["prompt"]).astype(np.int32)
+    t0 = time.perf_counter()
+    h = eng.submit(Request(rid=0, prompt=prompt, max_new=LONG["max_new"]))
+    eng.run_to_completion(failed_group=failed_group)
+    torch.cuda.synchronize()
+    out = np.asarray(h.req.out)
+    if out.shape != (LONG["max_new"],) or eng.plans.misses:
+        raise AssertionError(f"long request: output {out}, misses "
+                             f"{eng.plans.misses}")
+    return out, eng, time.perf_counter() - t0
+
+
+def phase_recurrent(dev, kernels, smi, seed):
+    """falcon-mamba-7b and recurrentgemma-2b, one at a time at published
+    widths, nothing cut: the engine's startup census at scope all in
+    every admission mode, every (site, shape) and the vocab head held
+    against the plain version on the s8 route (and the real tied / untied
+    head, quantized once, at the head's shape); the 8-request wave at
+    ft_mode none and at entangle head and all, healthy and with
+    failed_group=1 (EXACT ROLL-FORWARD (recurrent)); chunked and packed
+    admission of a seeded 12-request wave at scope all, healthy and
+    injected, the modes compared under the near-tie rule; for
+    recurrentgemma the long request past its window, healthy and
+    injected; decode-step ms against none in the same call, s8 launches
+    per decode step, max_memory_allocated and a profiler window. Every
+    kernel's count is set to 0 just before each arch's serving waves and
+    read just after. Returns (counts by arch, record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.quantize import activation_budget
+    from repro_torch.ft.quantize import quantize_weight_stacked
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    emm_k = next(k for k in kernels if k["name"] == "entangled_matmul")
+    chk = emm_k["checker"]
+    lengths = admission_lengths(seed, REC_REQUESTS)
+    Recording = _recording_engine()
+    out, counts_by = {}, {}
+    for arch in RECURRENT:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg, model, params = init_model(dev, arch)
+        shapes, _ = main_path_shapes(cfg, params, dev)
+        arch_chk = chk.spawn()
+        check_dense(dev, arch_chk, shapes, ragged=False)
+        # the model's own head, quantized once from a contiguous copy of
+        # the [D, V] matrix (the tied embedding's transpose for gemma)
+        plan = make_plan(SERVE["ft_M"], 32)
+        hq = quantize_weight_stacked(
+            model.head_weights(params, cfg).contiguous()[None],
+            packed=True)["w"][0]
+        bud = activation_budget(plan, cfg.d_model)
+        gen = torch.Generator(device=dev).manual_seed(99)
+        c = _rand(gen, -bud, bud + 1, (plan.M, SERVE["max_batch"]
+                                       // SERVE["ft_M"], cfg.d_model), dev)
+        arch_chk.sweep(c, hq, plan, True, f"{arch} model head", DENSE_MODES)
+        del hq, c
+        chk.absorb(arch_chk)
+        narrow = sorted({(K, N) for _, K, N, _ in shapes if N < 256})
+        log(f"[recurrent] {arch}: {len(shapes)} (rows, K, N) shapes of the "
+            f"census at scope all (every admission mode) with the head, and "
+            f"the model's own quantized head: {arch_chk.n} kernel-vs-plain "
+            f"comparisons, max_abs_err by route {arch_chk.worst_by_route}; "
+            f"narrower than one 256-column tile: {narrow}; shapes "
+            f"{[s[:3] for s in shapes]}")
+        free_cuda()
+
+        reset_counts(kernels)
+        base = dict(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+                    ft_M=SERVE["ft_M"])
+        res = {}
+        for scope in ("head", "all"):
+            scfg = ServeConfig(ft_mode="entangle", ft_scope=scope, **base)
+            e = ServeEngine(cfg, scfg, params, device=dev)
+            healthy, st_h, ln_h = _wave(e, cfg, None, kernels)
+            warm = e.warm_state()
+            del e
+            e = ServeEngine(cfg, scfg, params, device=dev, warm=warm)
+            injected, st_i, ln_i = _wave(e, cfg, 1, kernels)
+            if e.plans is not None and e.plans.misses:
+                raise AssertionError(f"{arch} scope {scope}: plan misses")
+            del e, warm
+            free_cuda()
+            bad = sum(not np.array_equal(healthy[r], injected[r])
+                      for r in healthy)
+            verdict = ("EXACT ROLL-FORWARD (recurrent)" if bad == 0
+                       else "RECOVERY FAILED")
+            log(f"[recurrent] {arch} recovery summary [scope={scope}]: "
+                f"failed_group=1 injected on every step; {len(healthy)} "
+                f"requests / {sum(len(v) for v in healthy.values())} tokens "
+                f"compared; mismatching requests: {bad} ({verdict})")
+            if bad:
+                raise AssertionError(f"{arch} scope {scope}: {verdict}")
+            dec = st_h[1:] + st_i[1:]
+            res[scope] = dict(
+                step_ms=1e3 * float(np.mean(dec)),
+                first_step_ms=1e3 * (st_h[0] + st_i[0]) / 2,
+                per_decode_step={k: sorted(set(v[1:] + ln_i[k][1:]))
+                                 for k, v in ln_h.items()})
+        torch.cuda.synchronize()
+        wave_counts = {k["name"]: count(k) for k in kernels}
+
+        # chunked and packed admission at scope all, healthy and injected
+        admit, healthy_modes = {}, {}
+        for mode in REC_MODES:
+            scfg = ServeConfig(ft_mode="entangle", ft_scope="all",
+                               **base, **ADMIT_MODES[mode])
+            e = Recording(cfg, scfg, params, device=dev)
+            e.logits_by_rid = {}
+            outs, st = _admit_wave(e, cfg, lengths, None)
+            healthy_modes[mode] = (outs, e.logits_by_rid)
+            warm = e.warm_state()
+            del e
+            inj, st_i = _admit_wave(ServeEngine(cfg, scfg, params,
+                                                device=dev, warm=warm),
+                                    cfg, lengths, 1)
+            del warm
+            free_cuda()
+            bad = sum(not np.array_equal(outs[r], inj[r]) for r in outs)
+            verdict = ("EXACT ROLL-FORWARD (recurrent)" if bad == 0
+                       else "RECOVERY FAILED")
+            log(f"[recurrent] {arch} mode={mode} scope=all: failed_group=1 "
+                f"injected on every step; {len(outs)} requests (prompts "
+                f"{min(lengths)}..{max(lengths)}) / "
+                f"{sum(len(v) for v in outs.values())} tokens compared; "
+                f"mismatching requests: {bad} ({verdict}); misses 0; "
+                f"{st['steps']} steps, {st['prefill_calls']} prefill calls, "
+                f"wave {st['wall_s']:.2f} s, TTFT p50 {st['ttft_p50_ms']:.1f}"
+                f" ms, {st['tok_s']:.2f} tokens/s ({smi})")
+            if bad:
+                raise AssertionError(f"{arch} {mode}: {verdict}")
+            admit[mode] = dict(healthy=st, injected=st_i)
+        pair = _mode_pair(healthy_modes["chunked"], healthy_modes["packed"],
+                          f"{arch} chunked vs packed")
+        log(f"[recurrent] {arch} chunked vs packed scope=all: "
+            f"{pair['agree']} of {pair['total']} tokens agree; {pair}")
+        del healthy_modes
+        free_cuda()
+
+        long = None
+        if cfg.local_window:
+            toks, e, secs = _long_request(dev, cfg, params, None, None)
+            warm = e.warm_state()
+            del e
+            toks_i, e, secs_i = _long_request(dev, cfg, params, 1, warm)
+            del e, warm
+            free_cuda()
+            ok = np.array_equal(toks, toks_i)
+            verdict = ("EXACT ROLL-FORWARD (recurrent)" if ok
+                       else "RECOVERY FAILED")
+            log(f"[recurrent] {arch} long request: {LONG['prompt']} prompt "
+                f"tokens (window {cfg.local_window}, chunks of "
+                f"{LONG['chunk']}), {LONG['max_new']} new at scope all; "
+                f"healthy {secs:.2f} s, failed_group=1 {secs_i:.2f} s; "
+                f"tokens {toks.tolist()} ({verdict})")
+            if not ok:
+                raise AssertionError(f"{arch} long request: {verdict}")
+            long = dict(prompt=LONG["prompt"], healthy_s=secs,
+                        injected_s=secs_i)
+        torch.cuda.synchronize()
+        counts = {k["name"]: count(k) for k in kernels}
+        core = {k["name"]: count(k, 1) for k in kernels
+                if len(k["counters"]) > 1}
+        if counts["entangled_matmul"] <= 0 or any(core.values()):
+            raise AssertionError(f"{arch}: s8 launches {counts}, CUDA-core "
+                                 f"{core}")
+        bd = _breakdown(dev, cfg, params, dict(base, ft_mode="entangle"),
+                        tag="recurrent")
+        peak = torch.cuda.max_memory_allocated(dev)
+        secs = time.perf_counter() - t0
+        s8_steps = {n: r["per_decode_step"]["entangled_matmul"]
+                    for n, r in res.items()}
+        rec = dict(n_layers=cfg.n_layers, census_shapes=len(shapes),
+                   step_ms=dict({n: r["step_ms"] for n, r in res.items()},
+                                none=bd["step_ms"]),
+                   first_step_ms={n: r["first_step_ms"]
+                                  for n, r in res.items()},
+                   s8_launches_per_decode_step=s8_steps,
+                   wave_counts=wave_counts, admission=admit, mode_pair=pair,
+                   long=long, profile=bd, max_memory_allocated=peak,
+                   seconds=secs)
+        log(f"[recurrent] {arch} ({cfg.n_layers} layers; {smi}): mean "
+            f"decode-step ms {rec['step_ms']} (admission + first step "
+            f"{rec['first_step_ms']}); s8 launches per decode step "
+            f"{s8_steps}; kernel launches {counts}; max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB; {secs:.1f} s")
+        out[arch], counts_by[arch] = rec, counts
+        del params, model
         free_cuda()
     return counts_by, out
 
@@ -2438,7 +2684,9 @@ def decode_occupancy(E, top_k, tokens, seed):
 
 def phase_timings(dev):
     """Both GEMM kernels at the llama decode head and largest MLP shapes,
-    and the grouped kernels at the deepseek decode MoE shapes with every
+    then at the recurrent families' new decode shapes (falcon-mamba's
+    in_proj, out_proj and head, recurrentgemma's in_gate / in_x, MQA k /
+    v, MLP and tied head), and the grouped kernels at the deepseek decode MoE shapes with every
     expert occupied and at decode occupancy (8 tokens x top-6 experts from
     the seed; the other experts' rows zero, as the dispatch leaves them,
     so the bound counts only the occupied experts' weights). Weights are
@@ -2460,16 +2708,28 @@ def phase_timings(dev):
     cfg = model_config(LLAMA)
     dense_fns = dict(s8=emm.entangled_matmul_cuda,
                      cuda_core=emm.entangled_matmul_cuda_core)
-    for site, (B, K, N) in (("head", (gsz, cfg.d_model, cfg.vocab_size)),
-                            ("mlp.down", (gsz, cfg.d_ff, cfg.d_model)),
-                            ("mlp.gate/up", (gsz, cfg.d_model, cfg.d_ff))):
+    fm, rg = model_config(RECURRENT[0]), model_config(RECURRENT[1])
+    fm_di = fm.ssm.expand * fm.d_model
+    rg_kv = rg.n_kv_heads * rg.resolved_head_dim
+    for site, (B, K, N) in (
+            (f"{LLAMA} head", (gsz, cfg.d_model, cfg.vocab_size)),
+            (f"{LLAMA} mlp.down", (gsz, cfg.d_ff, cfg.d_model)),
+            (f"{LLAMA} mlp.gate/up", (gsz, cfg.d_model, cfg.d_ff)),
+            (f"{fm.name} qkv.in", (gsz, fm.d_model, 2 * fm_di)),
+            (f"{fm.name} out.o", (gsz, fm_di, fm.d_model)),
+            (f"{fm.name} head", (gsz, fm.d_model, fm.vocab_size)),
+            (f"{rg.name} qkv.gate/in", (gsz, rg.d_model,
+                                        rg.rglru.lru_width)),
+            (f"{rg.name} qkv.k/v", (gsz, rg.d_model, rg_kv)),
+            (f"{rg.name} mlp.gate/up", (gsz, rg.d_model, rg.d_ff)),
+            (f"{rg.name} tied head", (gsz, rg.d_model, rg.vocab_size))):
         bud = activation_budget(plan, K)
         c = _rand(gen, -bud, bud + 1, (M, B, K), dev)
         wbytes = (K // 4) * N * 4
         gs = [pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
               for _ in range(max(1, -(-2 * L2_BYTES // wbytes)))]
         rows["entangled_matmul"].append(_timing_row(
-            dev, f"{LLAMA} {site}", c, gs, plan, dense_fns,
+            dev, site, c, gs, plan, dense_fns,
             emm.entangled_matmul_plain, macs=(M - 1) * B * K * N,
             nbytes=4 * (M * B * K + (K // 4) * N + M * B * N), wbytes=wbytes,
             iters=20 if N > 100_000 else 50))
@@ -2619,6 +2879,8 @@ def main() -> int:
     fleet_counts, fleet = phase_fleet(dev, kernels, smi, args.seed,
                                       paths[LLAMA]["dense"])
     decoder_counts, decoders = phase_decoders(dev, kernels, smi)
+    recurrent_counts, recurrent = phase_recurrent(dev, kernels, smi,
+                                                  args.seed)
     grad_shapes = llama_grad_shapes(dev)
     check_codec(dev, {n: by_name[n]["checker"]
                       for n in ("entangle", "disentangle")}, grad_shapes)
@@ -2644,6 +2906,8 @@ def main() -> int:
         by_path["fleet"] = fleet_counts[name]
         by_path.update({f"{a} dense-decoders": c[name]
                         for a, c in decoder_counts.items()})
+        by_path.update({f"{a} recurrent": c[name]
+                        for a, c in recurrent_counts.items()})
         by_path[train_path] = train_counts[name]
         by_path["stream-conv"] = stream["counts"][name]
         if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
@@ -2672,7 +2936,10 @@ def main() -> int:
                     f"{a} dense-decoders": {
                         w: per[name] for w, per in
                         r["launches_per_decode_step"].items()}
-                    for a, r in decoders.items()}),
+                    for a, r in decoders.items()}, **{
+                    f"{a} recurrent": r["s8_launches_per_decode_step"]
+                    for a, r in recurrent.items()
+                    if name == "entangled_matmul"}),
                 cuda_core=dict(
                     source=k["core_source"],
                     launches=paths[DEEPSEEK]["core_counts"][name],
@@ -2694,6 +2961,7 @@ def main() -> int:
     record["serve_admission"] = {a: p["admission"] for a, p in paths.items()}
     record["fleet"] = fleet
     record["dense_decoders"] = decoders
+    record["recurrent"] = recurrent
     record["train"] = train
     record["stream_conv"] = stream
     print(smi, flush=True)

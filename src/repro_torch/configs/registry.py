@@ -1,8 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
 Every arch id of :mod:`repro.configs.registry` is known here, but only the
-ones in :data:`PORTED` have a module in the port yet; the others raise a
-clear "not ported yet" error instead of a ``KeyError``.
+ones in :data:`PORTED` have a module in the port yet: the dense decoders
+(llama3.2-1b, qwen2-7b, minitron-8b, granite-20b), deepseek-v2-lite-16b
+(MLA + MoE), falcon-mamba-7b (Mamba-1) and recurrentgemma-2b (RG-LRU +
+rolling-window MQA). The others (deepseek-v3-671b, whisper-small,
+internvl2-2b) raise a clear "not ported yet" error, which lists
+:data:`PORTED`, instead of a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ _MODULES: Dict[str, str] = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 
 PORTED = tuple(_MODULES)

@@ -21,15 +21,18 @@ from repro_torch.ft.quantize import quantize_weight_stacked
 from repro_torch.ft.registry import PlanRegistry, ProtectionPlan
 
 # param-tree key -> scope category, for every protectable projection of
-# the ported blocks (the reference's table also names the Mamba and RG-LRU
-# keys, which belong to later slices). Dense sites are dicts holding a
-# float "w"; raw sites (MoE expert stacks, the router) are bare arrays.
+# the ported blocks. Dense sites are dicts holding a float "w"; raw sites
+# (MoE expert stacks, the router) are bare arrays.
 PROTECTED_WEIGHT_KEYS: dict[str, str] = {
-    "wq": "qkv", "wk": "qkv", "wv": "qkv",          # GQA attention
+    "wq": "qkv", "wk": "qkv", "wv": "qkv",          # GQA / MQA attention
     "wq_a": "qkv", "wq_b": "qkv", "wkv_a": "qkv",   # MLA low-rank q / kv
+    "in_proj": "qkv",                               # Mamba
+    "in_x": "qkv", "in_gate": "qkv",                # RG-LRU
     "gate": "mlp", "up": "mlp", "down": "mlp",      # MLP, MoE shared expert
     "router": "mlp",                                # raw [D, E] array
     "wo": "out",                                    # attention / MLA
+    "out_proj": "out",                              # Mamba
+    "out": "out",                                   # RG-LRU
     "we_gate": "moe", "we_up": "moe", "we_down": "moe",  # raw [E, D, F]
 }
 

@@ -1,6 +1,6 @@
-"""Model API of the port, decoder-only: the dense and MoE families (the
-serving part of :mod:`repro.models.api`, and training for the dense
-decoder)::
+"""Model API of the port, decoder-only: the dense, MoE, SSM (Mamba-1) and
+hybrid (RG-LRU + rolling-window attention) families (the serving part of
+:mod:`repro.models.api`, and training for the dense decoder)::
 
     model = get_model(cfg)
     params = model.init(gen, cfg, max_seq, device=dev)  # gen: torch.Generator
@@ -72,8 +72,9 @@ def _init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 
 def _forward_train(p, batch, cfg: ModelConfig):
     """Logits of a training batch ``{"tokens": [B, T]}``: the whole
-    sequence, causal, no cache (the dense decoder; MLA and MoE blocks raise
-    "not ported yet" in train mode). The params may be autograd leaves."""
+    sequence, causal, no cache (the dense decoder; MLA, MoE, local
+    attention, Mamba and RG-LRU blocks raise "not ported yet" in train
+    mode). The params may be autograd leaves."""
     if cfg.mtp:
         raise NotImplementedError("the MTP head is not ported yet")
     x = T.embed_tokens(p["embed"], batch["tokens"], cfg)
@@ -85,8 +86,10 @@ def _prefill_chunk(p, tokens, cfg: ModelConfig, cache, *, pos0: int = 0,
                    lengths=None, ft=None):
     """Batched prefill of tokens [B, C] at positions pos0..pos0+C-1.
     ``lengths`` [B] (the rows' true prompt lengths) keep the MoE blocks'
-    pad tokens out of expert capacity; the linear KV and latent caches
-    store the bucket padding like the reference."""
+    pad tokens out of expert capacity, hold the recurrent blocks' state
+    over pad steps and keep pads out of the rolling window's buffer; the
+    linear KV and latent caches store the bucket padding like the
+    reference."""
     x = T.embed_tokens(p["embed"], tokens, cfg)
     h = T.apply_stack(p["stack"], x, cfg=cfg, caches=cache, pos=pos0,
                       mode="prefill", lengths=lengths, ft=ft)
@@ -151,7 +154,7 @@ DECODER_MODEL = Model(init=_init, forward_train=_forward_train,
 
 
 def get_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet")
     return DECODER_MODEL

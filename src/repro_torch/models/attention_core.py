@@ -1,6 +1,8 @@
-"""Attention core of the port: causal prefill (one shared offset, or one
-offset per row for token-packed prefill) and single-position decode (the
-dense-decoder part of :mod:`repro.models.attention_core`).
+"""Attention core of the port: causal and sliding-window prefill (one
+shared offset, or one offset per row for token-packed prefill), the
+rolling-window prefill against a cache plus the chunk's own keys, and
+single-position decode (the decoder part of
+:mod:`repro.models.attention_core`).
 
 Heads layout is GQA-grouped, as in the reference: q ``[B, Hkv, G, T, dk]``,
 k ``[B, Hkv, S, dk]``, v ``[B, Hkv, S, dv]``; outputs are float32
@@ -18,12 +20,20 @@ from typing import NamedTuple, Optional
 import torch
 
 NEG = -1e30
+# the reference's materialization limit: T * S <= FLASH_THRESHOLD**2 / 4
+# scores at once; the rolling-window prefill bands its queries beyond it
+FLASH_THRESHOLD = 2048
+DEFAULT_QB = 512
+# the card's attention GEMMs take their queries in blocks of this many
+# (_softmax_attend)
+Q_BLOCK = 16
 
 
 class MaskInfo(NamedTuple):
-    kind: str  # causal | full
+    kind: str  # causal | window | full
     kv_len: int = 0  # true (unpadded) kv length; 0 = all
     q_off: int = 0  # absolute position of query 0
+    window: int = 0  # kind "window": keys in (q - window, q]
 
 
 def _mask(info: MaskInfo, T: int, S: int, device) -> Optional[torch.Tensor]:
@@ -32,14 +42,46 @@ def _mask(info: MaskInfo, T: int, S: int, device) -> Optional[torch.Tensor]:
     ok = (kpos[None, :] < info.kv_len) if info.kv_len else None
     if info.kind == "full":
         return ok
-    if info.kind != "causal":
+    if info.kind not in ("causal", "window"):
         raise NotImplementedError(f"mask kind {info.kind!r} is not ported yet")
     qpos = torch.arange(T, device=device) + info.q_off
     causal = kpos[None, :] <= qpos[:, None]
+    if info.kind == "window":
+        causal &= kpos[None, :] > qpos[:, None] - info.window
     return causal if ok is None else (causal & ok)
 
 
 def _softmax_attend(q, k, v, ok, scale: float) -> torch.Tensor:
+    """Masked softmax attention, scores and weighted sum in float32. On
+    the card the queries go in blocks of :data:`Q_BLOCK` (the last block
+    padded with masked zero queries), one pair of GEMMs of one shape per
+    block: cuBLAS picks its kernel by the query rows, and a decode step's
+    single query got other bits than the same query inside a prefill
+    chunk (recurrentgemma-2b's MQA, 10 query heads of 256 on one key head,
+    on the H100), which a position's prefill / decode bit-identity (the
+    fleet's prefix resume) cannot have. A training forward (under
+    autograd) keeps one pair of GEMMs."""
+    if not q.is_cuda or q.requires_grad:
+        return _softmax_block(q, k, v, ok, scale)
+    T = q.shape[3]
+    pad = (-T) % Q_BLOCK
+    if pad:
+        q = torch.cat([q, q.new_zeros(q.shape[:3] + (pad,) + q.shape[4:])],
+                      dim=3)
+    if ok is not None and ok.shape[-2] != 1:
+        if pad:
+            ok = torch.cat([ok, ok.new_zeros(ok.shape[:-2]
+                                             + (pad, ok.shape[-1]))], dim=-2)
+        oks = [ok[..., i:i + Q_BLOCK, :] for i in range(0, T + pad, Q_BLOCK)]
+    else:
+        oks = [ok] * ((T + pad) // Q_BLOCK)
+    outs = [_softmax_block(q[:, :, :, i * Q_BLOCK:(i + 1) * Q_BLOCK], k, v,
+                           m, scale) for i, m in enumerate(oks)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=3)
+    return out[:, :, :, :T]
+
+
+def _softmax_block(q, k, v, ok, scale: float) -> torch.Tensor:
     s = torch.einsum("bhgqd,bhkd->bhgqk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
     if ok is not None:
@@ -49,13 +91,66 @@ def _softmax_attend(q, k, v, ok, scale: float) -> torch.Tensor:
 
 
 def attend(q, k, v, *, kind: str, kv_len: int = 0,
-           scale: Optional[float] = None, q_off: int = 0) -> torch.Tensor:
+           scale: Optional[float] = None, q_off: int = 0,
+           window: int = 0) -> torch.Tensor:
     """q [B,Hkv,G,T,dk], k [B,Hkv,S,dk], v [B,Hkv,S,dv] -> [B,Hkv,G,T,dv]
-    (float32). ``q_off`` is the absolute position of query 0."""
+    (float32). ``q_off`` is the absolute position of query 0; kind
+    ``window`` attends to the keys in (q - window, q]."""
     T, S = q.shape[3], k.shape[2]
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
-    ok = _mask(MaskInfo(kind, kv_len or 0, q_off), T, S, q.device)
+    ok = _mask(MaskInfo(kind, kv_len or 0, q_off, window), T, S, q.device)
     return _softmax_attend(q, k, v, ok, scale)
+
+
+def _prefill_window_inner(q, k, v, qpos, kabs, window: int, scale: float):
+    """Materialized attention masked on absolute positions: ``qpos`` [T]
+    (one shared offset) or [B, T] (per row), ``kabs`` [B, S] (-1 = not a
+    key); a key is attended iff it lies in (q - window, q]."""
+    ka = kabs[:, None, None, None, :]
+    qp = (qpos[:, None, None, :, None] if qpos.dim() == 2
+          else qpos[None, None, None, :, None])
+    ok = (ka >= 0) & (ka <= qp)
+    if window:
+        ok = ok & (ka > qp - window)
+    return _softmax_attend(q, k, v, ok, scale)
+
+
+def attend_prefill_window(q, k, v, *, qpos: torch.Tensor, kabs: torch.Tensor,
+                          window: int, scale: Optional[float] = None,
+                          qb: int = DEFAULT_QB,
+                          slots: bool = False) -> torch.Tensor:
+    """Bucketed, chunked or token-packed prefill of a rolling-window layer.
+
+    q [B,Hkv,G,T,dk] are the chunk's queries at absolute positions
+    ``qpos`` ([T], or [B, T] per row); k/v [B,Hkv,S,*] are the rolling
+    cache's S_c = S - T slots (earlier chunks, slot order) followed by the
+    chunk's own T keys in position order, or with ``slots`` the buffer
+    alone (S slots) with the chunk already written; ``kabs`` [B, S] holds
+    each key's absolute position (-1: an empty slot, or a pad past the
+    row's prompt). The buffer's slot order is undone by masking on
+    absolute positions, as at decode. Past the reference's materialization
+    limit the queries go in bands of ``qb``: band [i0, i1) needs only the
+    cache slots and the chunk keys (i0 - window, i1), so the scores never
+    grow as T * S."""
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    T, S = q.shape[3], k.shape[2]
+    if T * S <= FLASH_THRESHOLD * FLASH_THRESHOLD // 4:
+        return _prefill_window_inner(q, k, v, qpos, kabs, window, scale)
+    if slots:  # every band against the whole buffer
+        return torch.cat([_prefill_window_inner(
+            q[:, :, :, i0:i0 + qb], k, v, qpos[..., i0:i0 + qb], kabs,
+            window, scale) for i0 in range(0, T, qb)], dim=3)
+    S_c = S - T
+    outs = []
+    for i0 in range(0, T, qb):
+        i1 = min(i0 + qb, T)
+        lo = S_c + max(0, i0 - window + 1)
+        ks = torch.cat([k[:, :, :S_c], k[:, :, lo:S_c + i1]], dim=2)
+        vs = torch.cat([v[:, :, :S_c], v[:, :, lo:S_c + i1]], dim=2)
+        kab = torch.cat([kabs[:, :S_c], kabs[:, lo:S_c + i1]], dim=1)
+        outs.append(_prefill_window_inner(
+            q[:, :, :, i0:i1], ks, vs, qpos[..., i0:i1], kab, window, scale))
+    return torch.cat(outs, dim=3)
 
 
 def attend_prefill_packed(q, k, v, *, qpos: torch.Tensor,

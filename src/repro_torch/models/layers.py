@@ -1,12 +1,14 @@
 """Model building blocks of the ported decoders, in PyTorch (port of the
-dense-decoder, MLA and MoE parts of :mod:`repro.models.layers`).
+dense-decoder, MLA, MoE, rolling-window attention, Mamba-1 and RG-LRU
+parts of :mod:`repro.models.layers`).
 
 Conventions, as in the reference:
   * params are nested dicts of tensors (float32 masters; matmuls run in
     bfloat16, :data:`ACT_DTYPE`);
   * ``mode`` is ``prefill``, ``decode`` or ``train``; decode processes
-    T=1 tokens against a KV cache with a per-row position vector ``pos``
-    [B]; train runs a whole sequence with no cache (dense decoder only);
+    T=1 tokens against a KV cache (or a recurrent state) with a per-row
+    position vector ``pos`` [B]; train runs a whole sequence with no
+    cache (dense decoder only);
   * :func:`dense` / :func:`dense_fanout` are the protected-GEMM
     chokepoints: with an :class:`~repro_torch.ft.FTContext` whose scope
     covers the site, the projection runs as the fused entangled int8 GEMM;
@@ -28,13 +30,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 ACT_DTYPE = torch.bfloat16
-# the card's unprotected bf16 GEMMs take their rows in multiples of this
-# (zero rows appended, their outputs dropped): for fewer rows cuBLAS may
-# split a deep contraction (it does at K = 8192 for 128 rows or fewer),
-# so a row's bits would depend on how many rows share the call, and a
-# token's on how its prompt was chunked or packed; at 256, 512 and 2048
-# rows every row of llama3.2-1b's projections gets the same bits (on the
-# H100; tests/test_torch_cuda.py holds it)
+# the card's unprotected GEMMs run in blocks of this many rows (the last
+# block padded with zero rows, their outputs dropped), one GEMM of one
+# shape per block: cuBLAS picks its kernel by the row count (it splits a
+# deep contraction, K = 8192, for 128 rows or fewer), so a row's bits
+# would depend on how many rows share the call, and a token's on how its
+# prompt was chunked or packed; on the H100 even padded calls of 256 and
+# 1024 rows of falcon-mamba-7b's 4096 x 16384 in_proj differed
+# (tests/test_torch_cuda.py holds every served projection shape)
 GEMM_ROWS = 256
 # largest T * S of the reference's materialized attention (FLASH_THRESHOLD
 # 2048: T * S <= 2048**2 / 4); train mode beyond it needs the flash path
@@ -100,16 +103,24 @@ def dense(p, x: torch.Tensor, *, ft=None, site: Optional[str] = None):
 
 
 def _bf16_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in bfloat16; on the card with the rows padded to a
-    multiple of :data:`GEMM_ROWS`, so that each row's result does not
-    depend on the other rows of the call."""
-    x, w = x.to(ACT_DTYPE), w.to(ACT_DTYPE)
+    """``x @ w`` in bfloat16 (:func:`_rows_matmul`)."""
+    return _rows_matmul(x.to(ACT_DTYPE), w.to(ACT_DTYPE))
+
+
+def _rows_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the operands' dtype; on the card in blocks of
+    :data:`GEMM_ROWS` rows (the last one padded with zero rows), one GEMM
+    of the same shape per block, so that each row's result does not depend
+    on how many rows share the call. A training forward (weights under
+    autograd) keeps one GEMM: no other call must reproduce its bits."""
+    if not x.is_cuda or w.requires_grad:
+        return torch.matmul(x, w)
     K = x.shape[-1]
     R = x.numel() // K
-    pad = (-R) % GEMM_ROWS if x.is_cuda else 0
-    if not pad:
-        return torch.matmul(x, w)
-    y = torch.matmul(F.pad(x.reshape(R, K), (0, 0, 0, pad)), w)
+    xr = F.pad(x.reshape(R, K), (0, 0, 0, (-R) % GEMM_ROWS))
+    ys = [torch.matmul(xr[i:i + GEMM_ROWS], w)
+          for i in range(0, xr.shape[0], GEMM_ROWS)]
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
     return y[:R].reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -154,11 +165,21 @@ def _positions(pos, mode: str, B: int, T: int, device) -> tuple:
     return (t + off)[None].expand(B, T), off
 
 
-def _decode_abs_pos(S: int, positions: torch.Tensor) -> torch.Tensor:
-    """[B, S] absolute position of each linear-cache slot at decode, -1
-    past the row's position (slot s holds position s)."""
-    slot = torch.arange(S, device=positions.device)[None, :]
-    return torch.where(slot <= positions[:, :1], slot, -1)
+def _cache_abs_pos(S: int, pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """[B, S] absolute position of each cache slot of a row whose last
+    written position is ``pos`` [B], -1 where the slot holds none. Linear
+    cache: slot s holds position s, valid while s <= pos. Rolling window
+    cache: slot s holds the latest position congruent to s (mod
+    ``window``) that is at most pos and within the window."""
+    slot = torch.arange(S, device=pos.device)[None, :]
+    pos = pos.to(torch.int64)[:, None]
+    if not window:
+        return torch.where(slot <= pos, slot, -1)
+    base = (pos // window) * window
+    abs_pos = torch.where(slot <= pos % window, base + slot,
+                          base - window + slot)
+    ok = (abs_pos >= 0) & (abs_pos <= pos) & (abs_pos > pos - window)
+    return torch.where(ok, abs_pos, -1)
 
 
 def _write_rows(buf: torch.Tensor, new: torch.Tensor,
@@ -178,16 +199,56 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor,
     buf.copy_(torch.where(sel, torch.gather(new, 1, idx), buf))
 
 
-def _prefill_valid(off, T: int, lengths) -> Optional[torch.Tensor]:
-    """[B, T] mask of the REAL positions of a bucketed prefill chunk:
-    position off+t belongs to row b iff off+t < lengths_b. ``off`` is an
-    int shared by every row or a per-row vector [B] (token-packed
-    prefill). None when ``lengths`` is None (the whole batch is real)."""
+def _prefill_valid(off, T: int, lengths, *,
+                   time_major: bool = False) -> Optional[torch.Tensor]:
+    """[B, T] (``time_major``: [T, B]) mask of the REAL positions of a
+    bucketed prefill chunk: position off+t belongs to row b iff off+t <
+    lengths_b. ``off`` is an int shared by every row or a per-row vector
+    [B] (token-packed prefill). None when ``lengths`` is None (the whole
+    batch is real)."""
     if lengths is None:
         return None
     t = torch.arange(T, device=lengths.device)
     g = off[:, None] + t[None] if is_pos_vector(off) else (off + t)[None, :]
-    return g < lengths.to(torch.int64)[:, None]
+    m = g < lengths.to(torch.int64)[:, None]
+    return m.T if time_major else m
+
+
+def _off_any(off) -> bool:
+    """True when any row of this prefill call may start past position 0
+    (an earlier chunk's conv tail and state exist). Always True for a
+    per-row offset vector: rows at offset 0 read a zeroed cache row,
+    which is bit-identical to the fresh-state branch."""
+    return is_pos_vector(off) or bool(off)
+
+
+def _conv_tail_state(xp: torch.Tensor, off, T: int, lengths,
+                     d_conv: int) -> torch.Tensor:
+    """Per-row depthwise-conv tail of a bucketed prefill chunk: the last
+    ``d_conv - 1`` REAL inputs of each row, gathered from ``xp = [previous
+    tail (d_conv - 1), inputs (T)]``; a row with no real position in the
+    chunk keeps its previous tail. Shared by Mamba and RG-LRU."""
+    B = xp.shape[0]
+    if lengths is None:
+        e = torch.full((B,), T, dtype=torch.int64, device=xp.device)
+    else:
+        e = torch.clamp(lengths.to(torch.int64) - off, 0, T)
+    gidx = e[:, None] + torch.arange(d_conv - 1, device=xp.device)[None]
+    gidx = gidx[..., None].expand(-1, -1, xp.shape[-1])
+    return torch.gather(xp, 1, gidx).to(ACT_DTYPE)
+
+
+def _causal_conv(xp: torch.Tensor, w: torch.Tensor, T: int) -> torch.Tensor:
+    """Depthwise causal conv in float32: ``xp`` [B, d_conv - 1 + T, d] (the
+    tail, then the inputs), ``w`` [d, d_conv] -> [B, T, d], summed over
+    the taps in order, j = 0 first. Prefill and decode (T = 1, xp the
+    window of the tail and the new input) share it, so that a position
+    gets the same bits from both."""
+    wf = w.to(torch.float32)
+    acc = xp[:, 0:T].to(torch.float32) * wf[:, 0]
+    for j in range(1, w.shape[-1]):
+        acc = acc + xp[:, j:j + T].to(torch.float32) * wf[:, j]
+    return acc
 
 
 # ---------------------------------------------------------- GQA attention ----
@@ -214,15 +275,95 @@ def init_attention(gen, cfg: ModelConfig, repeat: int) -> dict:
 
 
 def init_attn_cache(cfg: ModelConfig, repeat: int, batch: int, max_seq: int,
-                    device) -> dict:
-    shape = (repeat, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+                    device, window: int = 0) -> dict:
+    """The KV cache: ``max_seq`` slots, or with ``window`` a rolling buffer
+    of min(max_seq, window) slots (position p in slot p % window)."""
+    S = min(max_seq, window) if window else max_seq
+    shape = (repeat, batch, S, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=ACT_DTYPE, device=device),
             "v": torch.zeros(shape, dtype=ACT_DTYPE, device=device)}
 
 
+def _buffer_holds_chunk(S: int, off, T: int, window: int) -> bool:
+    """True when no position of a prefill chunk reaches the window, so
+    that the rolling buffer, once the chunk is written, still holds every
+    key its queries attend to: always when the buffer is shorter than the
+    window (max_seq < window: no position ever reaches it), else when the
+    chunk (one shared offset) ends within the first window."""
+    return S < window or (not is_pos_vector(off) and off + T <= window)
+
+
+def _window_prefill_write(cache: dict, k: torch.Tensor, v: torch.Tensor, *,
+                          off, lengths, window: int) -> None:
+    """Masked rolling-buffer write of a bucketed, chunked or token-packed
+    prefill chunk, in place: per row, the last min(T, window) REAL
+    positions before ``end_b = min(lengths_b, off + T)`` go to slot
+    p % window. Pad positions and positions of earlier chunks leave the
+    buffer as it was, so padding a prompt to its bucket never clobbers a
+    real key. Written as a gather over the buffer's S slots: slot s takes
+    the one position of the row's written range [start_b, end_b) (at most
+    ``window`` long) congruent to s, if there is one, so no two writes
+    meet and no index leaves the buffer, also when it holds fewer slots
+    than the window (S = max_seq < window)."""
+    B, T = k.shape[0], k.shape[1]
+    S, dev = cache["k"].shape[1], k.device
+    off_b = (off if is_pos_vector(off) else
+             torch.full((B,), off, dtype=torch.int64, device=dev))
+    if lengths is None:
+        end = off_b + T
+    else:
+        end = torch.minimum(torch.maximum(lengths.to(torch.int64), off_b),
+                            off_b + T)
+    start = torch.maximum(end - min(T, window), off_b)[:, None]
+    p = start + torch.remainder(torch.arange(S, device=dev)[None] - start,
+                                window)  # [B, S]
+    hit = (p < end[:, None])[..., None, None]
+    local = torch.clamp(p - off_b[:, None], 0, T - 1)
+    for name, new in (("k", k), ("v", v)):
+        idx = local[..., None, None].expand(-1, -1, *new.shape[2:])
+        buf = cache[name]
+        buf.copy_(torch.where(hit, torch.gather(new, 1, idx), buf))
+
+
+def _window_prefill(cache: dict, k, v, positions, *, off, lengths,
+                    window: int) -> tuple:
+    """The batched rolling-window prefill: write the chunk's real keys
+    into the buffer (in place) and return ``(keys, values, their absolute
+    positions [B, S'] (-1: none), slots)``, what its queries attend to.
+    While no position of the chunk reaches the window
+    (:func:`_buffer_holds_chunk`) that is the written buffer itself, in
+    the slot order decode reads it in (``slots`` True; so a position gets
+    decode's bits); else, as in the reference, the OLD buffer (earlier
+    chunks) followed by the chunk's own keys."""
+    B, T = k.shape[0], k.shape[1]
+    S = cache["k"].shape[1]
+    if _buffer_holds_chunk(S, off, T, window):
+        _window_prefill_write(cache, k, v, off=off, lengths=lengths,
+                              window=window)
+        last = positions[:, -1]
+        if lengths is not None:
+            last = torch.minimum(lengths.to(torch.int64) - 1, last)
+        return (cache["k"], cache["v"], _cache_abs_pos(S, last, window),
+                True)
+    prev_end = torch.zeros((B,), dtype=torch.int64, device=k.device) + off
+    if lengths is not None:  # the real positions of earlier chunks
+        prev_end = torch.minimum(lengths.to(torch.int64).clamp(min=0),
+                                 prev_end)
+    valid_new = _prefill_valid(off, T, lengths)
+    if valid_new is None:
+        valid_new = torch.ones((B, T), dtype=torch.bool, device=k.device)
+    kabs = torch.cat([_cache_abs_pos(S, prev_end - 1, window),
+                      torch.where(valid_new, positions, -1)], dim=1)
+    k_all = torch.cat([cache["k"], k], dim=1)
+    v_all = torch.cat([cache["v"], v], dim=1)
+    _window_prefill_write(cache, k, v, off=off, lengths=lengths,
+                          window=window)
+    return k_all, v_all, kabs, False
+
+
 def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
                     pos, mode: str, rope_theta: Optional[float] = None,
-                    ft=None):
+                    window: int = 0, lengths=None, ft=None):
     """GQA attention against the KV cache, writing it in place.
 
     ``prefill``: ``pos`` is the chunk offset (int) of tokens [B, T]; keys
@@ -238,9 +379,23 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     sequence attends causally to itself, through the materialized-score
     path, which the reference takes while ``T * T <= 2048**2 / 4`` (its
     flash path beyond that is not ported yet).
+
+    With ``window`` (recurrentgemma's local attention) the cache is a
+    rolling buffer: decode writes slot pos % window and masks the slots on
+    their absolute positions; a bucketed, chunked or packed prefill
+    (``lengths`` [B], the rows' true prompt lengths, or an offset) writes
+    its last real keys (:func:`_window_prefill_write`) and attends, masked
+    on per-row absolute positions so that a pad or another row's length
+    never enters a window: over the written buffer in slot order (decode's
+    layout) while no position reaches the window
+    (:func:`_buffer_holds_chunk`), else, as the reference, against the OLD
+    buffer plus its own keys; a whole prompt from position 0 with
+    no ``lengths`` attends to itself under the window mask and writes its
+    last min(T, window) keys.
     """
     from repro_torch.models.attention_core import (attend, attend_decode,
-                                                   attend_prefill_packed)
+                                                   attend_prefill_packed,
+                                                   attend_prefill_window)
 
     B, T, _ = x.shape
     hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -254,6 +409,7 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     if rope_theta:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
+    win_kabs = win_slots = None  # set by the batched rolling-window prefill
     if mode == "train":
         if cache is not None:
             raise ValueError("train mode takes no cache")
@@ -264,9 +420,19 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
         k_all, v_all = k, v
     elif mode == "decode":
         rows = torch.arange(B, device=x.device)
-        cache["k"][rows, positions[:, 0]] = k[:, 0]
-        cache["v"][rows, positions[:, 0]] = v[:, 0]
+        slot = positions[:, 0] % window if window else positions[:, 0]
+        cache["k"][rows, slot] = k[:, 0]
+        cache["v"][rows, slot] = v[:, 0]
         k_all, v_all = cache["k"], cache["v"]
+    elif window and (lengths is not None or is_pos_vector(off) or off):
+        k_all, v_all, win_kabs, win_slots = _window_prefill(
+            cache, k, v, positions, off=off, lengths=lengths, window=window)
+    elif window:  # a whole prompt from position 0: its last window keys
+        keep = min(T, window)
+        slots = torch.arange(T - keep, T, device=x.device) % window
+        cache["k"][:, slots] = k[:, T - keep:]
+        cache["v"][:, slots] = v[:, T - keep:]
+        k_all, v_all = k, v
     elif is_pos_vector(off):
         _write_rows(cache["k"], k, positions)
         _write_rows(cache["v"], v, positions)
@@ -282,12 +448,18 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     kt = k_all.permute(0, 2, 1, 3)
     vt = v_all.permute(0, 2, 1, 3)
     if mode == "decode":
-        o = attend_decode(qg, kt, vt,
-                          abs_pos=_decode_abs_pos(k_all.shape[1], positions))
+        o = attend_decode(qg, kt, vt, abs_pos=_cache_abs_pos(
+            k_all.shape[1], positions[:, 0], window))
+    elif win_kabs is not None:
+        o = attend_prefill_window(qg, kt, vt, qpos=positions if
+                                  is_pos_vector(off) else positions[0],
+                                  kabs=win_kabs, window=window,
+                                  slots=win_slots)
     elif is_pos_vector(off):
         o = attend_prefill_packed(qg, kt, vt, qpos=positions)
     else:
-        o = attend(qg, kt, vt, kind="causal", q_off=off)
+        o = attend(qg, kt, vt, kind="window" if window else "causal",
+                   q_off=off, window=window)
     out = o.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
     return dense(p["wo"], out.to(ACT_DTYPE), ft=ft, site="out.o"), cache
 
@@ -381,7 +553,8 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
     vt = v.permute(0, 2, 1, 3)
     scale = 1.0 / math.sqrt(dn + dr)
     if mode == "decode":
-        o = attend_decode(qg, kt, vt, abs_pos=_decode_abs_pos(Tk, positions),
+        o = attend_decode(qg, kt, vt,
+                          abs_pos=_cache_abs_pos(Tk, positions[:, 0]),
                           scale=scale)
     elif is_pos_vector(off):
         o = attend_prefill_packed(qg, kt, vt, qpos=positions, scale=scale)
@@ -583,3 +756,266 @@ def apply_moe(p, x: torch.Tensor, *, cfg: ModelConfig, valid=None, ft=None):
         out = out + dense(sp["down"], silu(g_s) * u_s, ft=ft,
                           site="mlp.down")
     return out.reshape(B, T, D)
+
+
+# ------------------------------------------------- recurrent float pieces ----
+
+def softplus(a: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(a, 0)`` written as jnp writes
+    it: ``max(a, 0) + log1p(exp(-|a|))``. (``F.softplus`` returns ``a``
+    itself above its threshold of 20 and is another formula below.)"""
+    return torch.clamp_min(a, 0) + torch.log1p(torch.exp(-torch.abs(a)))
+
+
+def log_sigmoid(a: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-a)``."""
+    return -softplus(-a)
+
+
+def _sum_last(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by pairwise halving, one fixed order for
+    every batch size (a library reduction may pick its order by the shape
+    of the call, and a position must get the same bits from prefill and
+    from decode). An odd length adds its last element first."""
+    while a.shape[-1] > 1:
+        n = a.shape[-1]
+        if n % 2:
+            a = torch.cat([a[..., :1] + a[..., -1:], a[..., 1:-1]], dim=-1)
+            n -= 1
+        a = a[..., :n // 2] + a[..., n // 2:]
+    return a[..., 0]
+
+
+def _state_in(cache, off, mode: str, shape: tuple, device) -> torch.Tensor:
+    """The carried state h a recurrent block starts from: the cache's at
+    decode and past position 0 (and under token packing, whose fresh rows
+    the engine zeroes), else zeros."""
+    if cache is not None and (mode == "decode" or _off_any(off)):
+        return cache["h"]
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def _conv_inputs(cache, xs: torch.Tensor, off, mode: str, d_conv: int):
+    """``xp = [tail (d_conv - 1), xs]``: the tail is the cache's at decode
+    and past position 0, zeros at a fresh prompt's start."""
+    B, _, d = xs.shape
+    if cache is not None and (mode == "decode" or _off_any(off)):
+        pad = cache["conv"].to(xs.dtype)
+    else:
+        pad = xs.new_zeros((B, d_conv - 1, d))
+    return torch.cat([pad, xs], dim=1)
+
+
+def _new_conv_tail(xp, off, T: int, lengths, mode: str, d_conv: int):
+    if mode == "decode":
+        return xp[:, 1:]
+    if lengths is not None or _off_any(off):
+        return _conv_tail_state(xp, off, T, lengths, d_conv)
+    return xp[:, -(d_conv - 1):].to(ACT_DTYPE)
+
+
+def _mamba_scan(dt, dtu, Bc, Cc, A, h, valid) -> tuple:
+    """Mamba-1's selective scan over the chunk's T steps, sequential:
+    h = exp(dt_t * A) * h + (dt_t * u_t) B_t, y_t = h . C_t, with ``da``
+    and ``db`` formed per step ([B, d_inner, d_state], never over T) and
+    h held where ``valid`` [T, B] is False (a pad step). dt, dtu [B, T,
+    di]; Bc, Cc [B, T, S]; A [di, S]; h [B, di, S]. Returns (y [B, T, di],
+    the last h). On the ``meta`` device (the engine's shape census; no
+    protected site lies inside) the steps are skipped."""
+    B, T, di = dt.shape
+    if h.is_meta:
+        return dt.new_empty((B, T, di)), h
+    dts, dbu = dt[..., None].unbind(1), dtu[..., None].unbind(1)
+    bs, cs = Bc[:, :, None, :].unbind(1), Cc[:, :, None, :].unbind(1)
+    vs = valid[..., None, None].unbind(0) if valid is not None else None
+    ys = []
+    for t in range(T):
+        h_new = torch.addcmul(dbu[t] * bs[t], torch.exp(dts[t] * A), h)
+        h = h_new if vs is None else torch.where(vs[t], h_new, h)
+        ys.append(_sum_last(h * cs[t]))
+    return torch.stack(ys, dim=1), h
+
+
+def _lru_scan(a, x, h, valid) -> tuple:
+    """The RG-LRU recurrence h = a_t * h + x_t over the chunk's T steps,
+    h held where ``valid`` [T, B] is False. a, x [B, T, w]; h [B, w].
+    Returns (every step's h [B, T, w], the last h); on the ``meta`` device
+    the steps are skipped, as in :func:`_mamba_scan`."""
+    if h.is_meta:
+        return a.new_empty(a.shape), h
+    a_s, x_s = a.unbind(1), x.unbind(1)
+    vs = valid[..., None].unbind(0) if valid is not None else None
+    hs = []
+    for t in range(a.shape[1]):
+        h_new = torch.addcmul(x_s[t], a_s[t], h)
+        h = h_new if vs is None else torch.where(vs[t], h_new, h)
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def _store_state(cache, conv_tail, h) -> None:
+    """Write a recurrent block's new conv tail and state into its cache
+    (in place; no cache in train mode)."""
+    if cache is not None:
+        cache["conv"].copy_(conv_tail)
+        cache["h"].copy_(h)
+
+
+# ----------------------------------------------------------------- Mamba ----
+
+def _mamba_dims(cfg: ModelConfig) -> tuple:
+    di = cfg.ssm.expand * cfg.d_model
+    return di, cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def init_mamba(gen, cfg: ModelConfig, repeat: int) -> dict:
+    sc, D, dev = cfg.ssm, cfg.d_model, gen.device
+    di, dtr = _mamba_dims(cfg)
+    a = torch.log(torch.arange(1, sc.d_state + 1, dtype=torch.float32,
+                               device=dev))
+    dt_b = torch.log(torch.expm1(torch.tensor(0.01, dtype=torch.float32)))
+    return {
+        "norm": {"scale": torch.ones((repeat, D), device=dev)},
+        "in_proj": {"w": he_init(gen, (repeat, D, 2 * di), D)},
+        "conv_w": he_init(gen, (repeat, di, sc.d_conv), sc.d_conv),
+        "conv_b": torch.zeros((repeat, di), device=dev),
+        "x_proj": {"w": he_init(gen, (repeat, di, dtr + 2 * sc.d_state),
+                                di)},
+        "dt_proj": {"w": he_init(gen, (repeat, dtr, di), dtr),
+                    "b": torch.full((repeat, di), float(dt_b), device=dev)},
+        "A_log": a.expand(repeat, di, sc.d_state).clone(),
+        "D_skip": torch.ones((repeat, di), device=dev),
+        "out_proj": {"w": he_init(gen, (repeat, di, D), di)},
+    }
+
+
+def init_mamba_cache(cfg: ModelConfig, repeat: int, batch: int, max_seq: int,
+                     device) -> dict:
+    """The conv tail (the last d_conv - 1 inputs) and the SSM state h."""
+    sc = cfg.ssm
+    di, _ = _mamba_dims(cfg)
+    return {"conv": torch.zeros((repeat, batch, sc.d_conv - 1, di),
+                                dtype=ACT_DTYPE, device=device),
+            "h": torch.zeros((repeat, batch, di, sc.d_state),
+                             dtype=torch.float32, device=device)}
+
+
+def apply_mamba(p, x: torch.Tensor, *, cfg: ModelConfig, cache, pos,
+                mode: str, lengths=None, ft=None):
+    """Mamba-1 mixer, writing its conv tail and state into ``cache`` in
+    place. The GEMMs are hoisted out of the recurrence: ``in_proj`` is the
+    protected site ``qkv.in``, ``out_proj`` ``out.o``; ``x_proj`` (bf16)
+    and ``dt_proj`` (float32) are unprotected, as in the reference. The
+    selective scan walks the chunk's steps with the discretized ``da`` /
+    ``db`` formed per step (never over [B, T, d_inner, d_state]).
+
+    Prefill: ``pos`` is the chunk offset (int, or per row under token
+    packing); past position 0 the conv reads the cached tail. ``lengths``
+    [B] gates the recurrence per row, so a pad step holds h and the tail
+    keeps the last real inputs: bucket padding never enters the carried
+    state. Decode (T = 1) runs the same conv and step functions as
+    prefill, so a position gets the same bits from both."""
+    sc = cfg.ssm
+    if mode == "train":
+        raise NotImplementedError("Mamba in train mode is not ported yet")
+    B, T, _ = x.shape
+    di, dtr = _mamba_dims(cfg)
+    S = sc.d_state
+    off = 0 if mode == "decode" else prefill_off(pos)
+    h_in = apply_norm(p["norm"], x, cfg)
+    xz = dense(p["in_proj"], h_in, ft=ft, site="qkv.in")
+    xs, z = xz[..., :di], xz[..., di:]
+    xp = _conv_inputs(cache, xs, off, mode, sc.d_conv)
+    conv = _causal_conv(xp, p["conv_w"], T)
+    u = silu(conv + p["conv_b"].to(torch.float32))  # [B, T, di] float32
+
+    proj = dense(p["x_proj"], u.to(ACT_DTYPE)).to(torch.float32)
+    dt = softplus(_rows_matmul(proj[..., :dtr],
+                               p["dt_proj"]["w"].to(torch.float32))
+                  + p["dt_proj"]["b"])
+    Bc = proj[..., dtr:dtr + S]
+    Cc = proj[..., dtr + S:]
+    A = -torch.exp(p["A_log"])  # [di, S]
+    valid = (_prefill_valid(off, T, lengths, time_major=True)
+             if mode == "prefill" else None)  # [T, B]
+    h = _state_in(cache, off, mode, (B, di, S), x.device)
+    ys, h = _mamba_scan(dt, dt * u, Bc, Cc, A, h, valid)
+    y = ys + u * p["D_skip"].to(torch.float32)
+    y = y.to(ACT_DTYPE) * silu(z)
+    _store_state(cache, _new_conv_tail(xp, off, T, lengths, mode, sc.d_conv),
+                 h)
+    return dense(p["out_proj"], y, ft=ft, site="out.o")
+
+
+# ---------------------------------------------------------------- RG-LRU ----
+
+def init_rglru(gen, cfg: ModelConfig, repeat: int) -> dict:
+    rc, D, dev = cfg.rglru, cfg.d_model, gen.device
+    w = rc.lru_width or D
+
+    def proj(n_in, n_out, bias=False):
+        q = {"w": he_init(gen, (repeat, n_in, n_out), n_in)}
+        if bias:
+            q["b"] = torch.zeros((repeat, n_out), device=dev)
+        return q
+
+    return {
+        "norm": {"scale": torch.ones((repeat, D), device=dev)},
+        "in_x": proj(D, w),
+        "in_gate": proj(D, w),
+        "conv_w": he_init(gen, (repeat, w, rc.d_conv), rc.d_conv),
+        "conv_b": torch.zeros((repeat, w), device=dev),
+        "w_a": proj(w, w, bias=True),
+        "w_i": proj(w, w, bias=True),
+        "lam": torch.full((repeat, w), 4.0, device=dev),
+        "out": proj(w, D),
+    }
+
+
+def init_rglru_cache(cfg: ModelConfig, repeat: int, batch: int, max_seq: int,
+                     device) -> dict:
+    rc = cfg.rglru
+    w = rc.lru_width or cfg.d_model
+    return {"conv": torch.zeros((repeat, batch, rc.d_conv - 1, w),
+                                dtype=ACT_DTYPE, device=device),
+            "h": torch.zeros((repeat, batch, w), dtype=torch.float32,
+                             device=device)}
+
+
+def apply_rglru(p, x: torch.Tensor, *, cfg: ModelConfig, cache, pos,
+                mode: str, lengths=None, ft=None):
+    """RG-LRU mixer (RecurrentGemma), writing its conv tail and state into
+    ``cache`` in place. ``in_gate`` / ``in_x`` project the same normed
+    input, one protected fanout group (``qkv.gate``, ``qkv.in``); the
+    gate goes through ``gelu``, the input through the causal conv, then
+    the unprotected bf16 gates ``w_a`` / ``w_i`` and the scan
+    h = a * h + sqrt(1 - a^2) * (i * u); ``out`` is ``out.o``. ``pos``,
+    ``lengths`` and the gating of pad steps as in :func:`apply_mamba`."""
+    rc = cfg.rglru
+    if mode == "train":
+        raise NotImplementedError("RG-LRU in train mode is not ported yet")
+    B, T, _ = x.shape
+    w = rc.lru_width or cfg.d_model
+    off = 0 if mode == "decode" else prefill_off(pos)
+    h_in = apply_norm(p["norm"], x, cfg)
+    gate_p, u = dense_fanout((p["in_gate"], p["in_x"]), h_in, ft=ft,
+                             sites=("qkv.gate", "qkv.in"))
+    gate = gelu(gate_p)
+    up = _conv_inputs(cache, u, off, mode, rc.d_conv)
+    u = (_causal_conv(up, p["conv_w"], T)
+         + p["conv_b"].to(torch.float32)).to(ACT_DTYPE)
+
+    r = torch.sigmoid(dense(p["w_a"], u).to(torch.float32))
+    i = torch.sigmoid(dense(p["w_i"], u).to(torch.float32))
+    log_a = rc.c * r * log_sigmoid(p["lam"].to(torch.float32))
+    a = torch.exp(log_a)
+    inp = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * (i * u.to(torch.float32))
+    valid = (_prefill_valid(off, T, lengths, time_major=True)
+             if mode == "prefill" else None)  # [T, B]
+    h = _state_in(cache, off, mode, (B, w), x.device)
+    hs, h = _lru_scan(a, inp, h, valid)
+    rec = hs.to(ACT_DTYPE)
+    _store_state(cache, _new_conv_tail(up, off, T, lengths, mode, rc.d_conv),
+                 h)
+    return dense(p["out"], rec * gate, ft=ft, site="out.o")

@@ -1,10 +1,13 @@
-"""Decoder assembly: stacked layer params, embedding and head (port of the
-dense-decoder and MoE parts of :mod:`repro.models.transformer`).
+"""Decoder assembly: stacked layer params, embedding and head (port of
+the decoder part of :mod:`repro.models.transformer`).
 
-Blocks (``cfg.layer_pattern()`` names them):
+Blocks (``cfg.layer_pattern()`` names them), each with its cache:
 
   attn_dense  GQA attention (or MLA if cfg.mla) + MLP (gated, or ungated)
   attn_moe    GQA attention (or MLA if cfg.mla) + MoE FFN
+  local_attn  rolling-window GQA/MQA attention + gated MLP
+  mamba       Mamba-1 selective-SSM mixer (no MLP)
+  rglru       RG-LRU recurrent mixer + gated MLP
 
 Params keep the reference's stacked layout — a list over pattern units,
 each a tuple (one entry per block of the unit) of dicts whose leaves carry
@@ -65,14 +68,58 @@ def _apply_attn_moe(p, x, *, cfg, cache, pos, mode, lengths, ft):
     return x + L.apply_moe(p["moe"], x, cfg=cfg, valid=valid, ft=ft)
 
 
+def _init_local_attn(gen, cfg, repeat):
+    return {"attn": L.init_attention(gen, cfg, repeat),
+            "mlp": L.init_mlp(gen, cfg, repeat)}
+
+
+def _apply_local_attn(p, x, *, cfg, cache, pos, mode, lengths, ft):
+    a, _ = L.apply_attention(p["attn"], x, cfg=cfg, cache=cache, pos=pos,
+                             mode=mode, rope_theta=cfg.rope_theta,
+                             window=cfg.local_window, lengths=lengths, ft=ft)
+    x = x + a
+    return x + L.apply_mlp(p["mlp"], x, cfg=cfg, ft=ft)
+
+
+def _apply_mamba(p, x, *, cfg, cache, pos, mode, lengths, ft):
+    return x + L.apply_mamba(p, x, cfg=cfg, cache=cache, pos=pos, mode=mode,
+                             lengths=lengths, ft=ft)
+
+
+def _init_rglru(gen, cfg, repeat):
+    return {"rec": L.init_rglru(gen, cfg, repeat),
+            "mlp": L.init_mlp(gen, cfg, repeat)}
+
+
+def _apply_rglru(p, x, *, cfg, cache, pos, mode, lengths, ft):
+    x = x + L.apply_rglru(p["rec"], x, cfg=cfg, cache=cache, pos=pos,
+                          mode=mode, lengths=lengths, ft=ft)
+    return x + L.apply_mlp(p["mlp"], x, cfg=cfg, ft=ft)
+
+
+def _attn_cache(cfg, repeat, batch, max_seq, device):
+    """MLA's latent cache, or the linear KV cache."""
+    init = L.init_mla_cache if cfg.mla else L.init_attn_cache
+    return init(cfg, repeat, batch, max_seq, device)
+
+
+def _window_cache(cfg, repeat, batch, max_seq, device):
+    return L.init_attn_cache(cfg, repeat, batch, max_seq, device,
+                             window=cfg.local_window)
+
+
 class Block(NamedTuple):
     init: Callable  # (gen, cfg, repeat) -> stacked params
     apply: Callable  # (params, x, *, cfg, cache, pos, mode, lengths, ft) -> x
+    init_cache: Callable  # (cfg, repeat, batch, max_seq, device) -> cache
 
 
 BLOCKS = {
-    "attn_dense": Block(_init_attn_dense, _apply_attn_dense),
-    "attn_moe": Block(_init_attn_moe, _apply_attn_moe),
+    "attn_dense": Block(_init_attn_dense, _apply_attn_dense, _attn_cache),
+    "attn_moe": Block(_init_attn_moe, _apply_attn_moe, _attn_cache),
+    "local_attn": Block(_init_local_attn, _apply_local_attn, _window_cache),
+    "mamba": Block(L.init_mamba, _apply_mamba, L.init_mamba_cache),
+    "rglru": Block(_init_rglru, _apply_rglru, L.init_rglru_cache),
 }
 
 
@@ -93,10 +140,12 @@ def init_stack(gen, cfg: ModelConfig) -> list:
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      device) -> list:
-    """Both blocks cache their attention: the latent cache under MLA, the
-    KV cache otherwise."""
-    init = L.init_mla_cache if cfg.mla else L.init_attn_cache
-    return [tuple(init(cfg, repeat, batch, max_seq, device) for _ in blocks)
+    """Every block's cache, stacked per pattern unit like the params (the
+    slot on axis 1 of every leaf): the attention blocks' KV or latent
+    cache, a rolling buffer for ``local_attn``, the conv tail and state h
+    of a recurrent block."""
+    return [tuple(BLOCKS[b].init_cache(cfg, repeat, batch, max_seq, device)
+                  for b in blocks)
             for blocks, repeat in _check_pattern(cfg)]
 
 

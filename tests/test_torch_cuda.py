@@ -504,3 +504,87 @@ def test_prefill_and_decode_give_a_position_the_same_bits_on_the_card(
             for a, b in zip(log[k], log_k[0]):
                 torch.testing.assert_close(b, a, rtol=0, atol=0)
             np.testing.assert_array_equal(tail, out[k:])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["whole", "chunked"])
+@pytest.mark.parametrize("ft", ["none", "all"])
+@pytest.mark.parametrize("arch,layers", [("falcon-mamba-7b", 2),
+                                         ("recurrentgemma-2b", 3)])
+def test_recurrent_prefill_and_decode_give_a_position_the_same_bits_on_the_card(
+        cuda_device, arch, layers, ft, mode):
+    """The prefix-resume pin for the recurrent families on the card, at
+    published widths cut to 2 layers (recurrentgemma to 3, one whole
+    (rglru, rglru, local_attn) unit, so that its rolling-window attention
+    is in): the position after ``prompt + k`` generated tokens gets the
+    same final hidden state and logits, bit for bit, decoded and
+    prefilled as ``prompt + prefix``, under whole-bucket and chunked (32)
+    admission. The conv, the scan step and the state's reductions are one
+    function for both paths; the GEMMs' rows are padded so that a row's
+    bits do not depend on the call."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, max_seq=256,
+        device=cuda_device)
+    kw = dict(ft_mode="none") if ft == "none" else dict(
+        ft_mode="entangle", ft_scope="all")
+    if mode == "chunked":
+        kw["prefill_chunk"] = 32
+    scfg = ServeConfig(max_batch=8, max_seq=256, ft_M=4,
+                       prefill_buckets=(8, 16, 32, 64, 128), **kw)
+
+    class Rec(ServeEngine):
+        def _head_logits(self, h, mask, failed_group, ft_fn):
+            logits = super()._head_logits(h, mask, failed_group, ft_fn)
+            self.log.append((h[0].clone(), logits[0].clone()))
+            return logits
+
+    warm = []
+
+    def run(prompt, max_new):
+        eng = Rec(cfg, scfg, params, device=cuda_device,
+                  warm=warm[0] if warm else None)
+        warm[:] = [eng.warm_state()]
+        eng.log = []
+        h = eng.submit(Request(rid=0, prompt=prompt, max_new=max_new))
+        eng.run_to_completion()
+        return np.asarray(h.req.out), eng.log
+
+    rng = np.random.default_rng(1)
+    for n in (100, 7):
+        prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+        out, log = run(prompt, 16)
+        for k in (3, 9):
+            tail, log_k = run(np.concatenate([prompt, out[:k]]), 16 - k)
+            for a, b in zip(log[k], log_k[0]):
+                torch.testing.assert_close(b, a, rtol=0, atol=0)
+            np.testing.assert_array_equal(tail, out[k:])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,N,dtype", [
+    (4096, 16384, "bf16"), (8192, 4096, "bf16"), (8192, 288, "bf16"),
+    (256, 8192, "f32"), (2560, 2560, "bf16"), (2560, 7680, "bf16"),
+    (7680, 2560, "bf16"), (2560, 256, "bf16")])
+def test_recurrent_projection_rows_do_not_depend_on_the_call(cuda_device, K,
+                                                             N, dtype):
+    """The recurrent families' unprotected projections (falcon-mamba's
+    in_proj / out_proj at ft none, x_proj, and dt_proj in float32;
+    recurrentgemma's) give a row the same bits in calls of 8 to 2048
+    rows: every call runs as GEMMs of GEMM_ROWS rows each."""
+    from repro_torch.models.layers import _rows_matmul
+
+    gen = torch.Generator(device=cuda_device).manual_seed(K + N)
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    w = torch.randn(K, N, generator=gen, device=cuda_device).to(dt)
+    x = torch.randn(2048, K, generator=gen, device=cuda_device).to(dt)
+    whole = _rows_matmul(x, w)
+    for rows in (8, 32, 256, 300, 1024):
+        torch.testing.assert_close(_rows_matmul(x[:rows], w), whole[:rows],
+                                   rtol=0, atol=0)

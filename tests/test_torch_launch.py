@@ -1,8 +1,9 @@
 """The port's serving launcher: its parse-time checks of the admission
 flags (the cases of the reference's ``tests/test_launch_validation.py``
 whose flags the port has: FT, admission geometry, buckets, arrivals,
-deadlines), the same messages and exit code 2, and one CPU run with
-chunked, token-packed admission under an injected fail-stop at scope all.
+deadlines), the same messages and exit code 2, one CPU run with
+chunked, token-packed admission under an injected fail-stop at scope all,
+and one such run per recurrent family (falcon-mamba-7b, recurrentgemma-2b).
 """
 import os
 import subprocess
@@ -71,6 +72,20 @@ def test_cli_packed_chunked_admission_rolls_forward():
     assert res.returncode == 0, res.stderr
     assert "'prefill': {(2, 8):" in res.stdout  # the one packed shape
     lines = [ln for ln in res.stdout.splitlines() if "recovery summary" in ln]
+    assert len(lines) == 2
+    assert "[scope=head]" in lines[0] and "[scope=all]" in lines[1]
+    assert all("EXACT ROLL-FORWARD" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_cli_recurrent_archs_roll_forward(capsys, arch):
+    """The recurrent families through ``--arch``: an injected fail-stop at
+    scope all rolls forward exactly (scope head, then all)."""
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--ft-mode",
+                "entangle", "--ft-scope", "all", "--failed-group", "1",
+                "--max-new", "4"])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if "recovery summary" in ln]
     assert len(lines) == 2
     assert "[scope=head]" in lines[0] and "[scope=all]" in lines[1]
     assert all("EXACT ROLL-FORWARD" in ln for ln in lines)
