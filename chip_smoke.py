@@ -14,7 +14,9 @@ minitron-8b (32 layers, ungated relu2 MLP) served whole, and granite-20b
 (MQA, ungated gelu MLP) served cut to 20 of its 52 layers (about 20.3 G
 parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20);
 falcon-mamba-7b (Mamba-1, 64 layers) and recurrentgemma-2b (RG-LRU and
-rolling-window MQA, 26 layers) served whole; and the
+rolling-window MQA, 26 layers) served whole; internvl2-2b (24 layers
+behind 256 patch embeddings) and whisper-small (12 encoder and 12 decoder
+layers over 1500 frames) whole; and the
 paper's own experiment, the Fig. 2 stream convolution
 (M = 3 and 8 streams of 1e6 int32 samples, kernel sizes 100..4500, nothing
 cut) through the fail-stop engine ``run_protected``. Phases, each printing
@@ -99,6 +101,27 @@ exits nonzero:
                wraps in prefill and in decode; decode-step ms against none,
                s8 launches per decode step, ``max_memory_allocated`` and a
                profiler window of 2 decode steps at scope all;
+  3f. families — internvl2-2b and whisper-small at published widths,
+               nothing cut: internvl's census shapes at scope all, the
+               vocab head and its own quantized head (92553 columns) held
+               against the plain version on both routes; its 8-request
+               wave at scopes head and all, healthy and with
+               ``failed_group=1`` (EXACT ROLL-FORWARD (vlm)), and at
+               ft_mode none; 8 rows of 256 seeded patch embeddings and
+               8-token prompts through ``prefill``, 8 ``decode_hidden``
+               steps and the protected head at head and all, healthy and
+               injected (EXACT ROLL-FORWARD (vlm)); a profiler window;
+               whisper's head (51865 columns) likewise, the engine's
+               refusals on the card, 8 rows of 1500 seeded frames and
+               8-token prompts through ``prefill``, then 16 steps of
+               ``decode_hidden`` with the bf16 head and with the
+               protected head, healthy and injected (EXACT ROLL-FORWARD
+               (encdec)); ``entangled_chain`` (two feasible chains at M =
+               8, one falling back per hop at M = 4) with every stream
+               failed in turn, equal to healthy and to the plain version;
+               decode-step ms, the encoder's ms, s8 launches per step,
+               ``max_memory_allocated``; the s8 kernel's time at the two
+               odd-width heads against its bytes bound;
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
                block at one step) and writes its final checkpoint; the
@@ -119,8 +142,9 @@ exits nonzero:
                of each family against the conventional conv on the card;
   6. timings — each kernel, its plain version and its bound at its
                main-path shapes (the dense GEMM also at the recurrent
-               families' new shapes), after warm-up: device time per call from
-               the replay of a CUDA graph of many calls, and the kernel's
+               families' new shapes, and at the odd-width heads in
+               3f), after warm-up: device time per call from the replay
+               of a CUDA graph of many calls, and the kernel's
                own time per launch from a profiler trace; the GEMMs' two
                kernels in turns in the same call, and the grouped GEMM
                also at decode occupancy (most experts empty).
@@ -186,6 +210,22 @@ RECURRENT = ("falcon-mamba-7b", "recurrentgemma-2b")
 REC_REQUESTS = 12
 REC_MODES = ("chunked", "packed")
 LONG = dict(prompt=2200, max_new=16, max_seq=4096, bucket=2208, chunk=32)
+# the encoder-decoder and vision-language families at published widths,
+# nothing cut: internvl2-2b serves the 8-request wave through the engine
+# and runs 8 rows of PREFIX["patches"] seeded patch embeddings and
+# 8-token prompts through prefill, PREFIX["steps"] decode_hidden steps and
+# the protected head; whisper-small runs 8 rows of its 1500 frames and
+# 8-token prompts through prefill, WHISPER["steps"] decode_hidden steps and
+# the protected head (the engine refuses it, as the reference's does)
+VLM = "internvl2-2b"
+ENCDEC = "whisper-small"
+PREFIX = dict(patches=256, max_seq=512, steps=8)
+WHISPER = dict(max_seq=448, steps=16)
+# entangled_chain over the serving batch's rows, (M, widths): two feasible
+# chains at M = 8 (64 -> 64 -> 32, one extraction after 2 hops; 4 -> 4 ->
+# 2 -> 16, 3 hops, the middle one in mode "chain") and one that falls back
+# per hop (M = 4, llama's mlp 2048 -> 8192 -> 2048)
+CHAINS = ((8, (64, 64, 32)), (8, (4, 4, 2, 16)), (4, (2048, 8192, 2048)))
 # the serve-admission path: the same engine geometry with every bucket of
 # the geometric set (8 .. 256), a 24-request wave of seeded prompt lengths
 # in [5, 240] (one in every bucket, the rest log-uniform) and the four
@@ -587,10 +627,11 @@ def model_config(arch):
     return cfg
 
 
-def init_model(dev, arch):
+def init_model(dev, arch, max_seq=SERVE["max_seq"]):
     """The published config (deepseek cut to DEEPSEEK_LAYERS layers,
     granite to DECODERS' count) with
-    random weights from a seeded ``torch.Generator``; returns (cfg, model,
+    random weights from a seeded ``torch.Generator`` (``max_seq`` rows of
+    learned positions where the model has them); returns (cfg, model,
     params)."""
     import torch
 
@@ -600,7 +641,7 @@ def init_model(dev, arch):
     model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
-                        max_seq=SERVE["max_seq"], device=dev)
+                        max_seq=max_seq, device=dev)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
     extra = ""
@@ -615,6 +656,12 @@ def init_model(dev, arch):
     if cfg.rglru:
         extra = (f", lru width {cfg.rglru.lru_width}, local window "
                  f"{cfg.local_window}, head_dim {cfg.resolved_head_dim}")
+    if cfg.encoder:
+        extra = (f", encoder {cfg.encoder.n_layers} layers over "
+                 f"{cfg.encoder.n_frames} frames, layernorm, learned "
+                 f"positions ({max_seq})")
+    if cfg.vision:
+        extra = f", {cfg.vision.n_patches} patch embeddings (stub frontend)"
     log(f"[serve] {arch} full width: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
         f"{cfg.d_ff}, vocab {cfg.vocab_size}{extra}; {n / 1e9:.3f} G float32 "
@@ -1597,9 +1644,6 @@ def phase_recurrent(dev, kernels, smi, seed):
     import numpy as np
     import torch
 
-    from repro_torch.core.plan import make_plan
-    from repro_torch.ft.quantize import activation_budget
-    from repro_torch.ft.quantize import quantize_weight_stacked
     from repro_torch.serve.engine import ServeConfig, ServeEngine
 
     emm_k = next(k for k in kernels if k["name"] == "entangled_matmul")
@@ -1614,18 +1658,8 @@ def phase_recurrent(dev, kernels, smi, seed):
         shapes, _ = main_path_shapes(cfg, params, dev)
         arch_chk = chk.spawn()
         check_dense(dev, arch_chk, shapes, ragged=False)
-        # the model's own head, quantized once from a contiguous copy of
-        # the [D, V] matrix (the tied embedding's transpose for gemma)
-        plan = make_plan(SERVE["ft_M"], 32)
-        hq = quantize_weight_stacked(
-            model.head_weights(params, cfg).contiguous()[None],
-            packed=True)["w"][0]
-        bud = activation_budget(plan, cfg.d_model)
-        gen = torch.Generator(device=dev).manual_seed(99)
-        c = _rand(gen, -bud, bud + 1, (plan.M, SERVE["max_batch"]
-                                       // SERVE["ft_M"], cfg.d_model), dev)
-        arch_chk.sweep(c, hq, plan, True, f"{arch} model head", DENSE_MODES)
-        del hq, c
+        _check_model_head(dev, arch_chk, cfg, model, params,
+                          f"{arch} model head")
         chk.absorb(arch_chk)
         narrow = sorted({(K, N) for _, K, N, _ in shapes if N < 256})
         log(f"[recurrent] {arch}: {len(shapes)} (rows, K, N) shapes of the "
@@ -1759,6 +1793,457 @@ def phase_recurrent(dev, kernels, smi, seed):
         del params, model
         free_cuda()
     return counts_by, out
+
+
+# --------------------------------------------------------------- families --
+
+def _check_model_head(dev, chk, cfg, model, params, what):
+    """The model's own head (the tied embedding's transpose where tied),
+    quantized once from a contiguous copy of the [D, V] matrix as the
+    engine does, held against the plain version in every mode on both
+    routes, at the serving batch's rows per group."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.quantize import activation_budget
+    from repro_torch.ft.quantize import quantize_weight_stacked
+
+    plan = make_plan(SERVE["ft_M"], 32)
+    hq = quantize_weight_stacked(
+        model.head_weights(params, cfg).contiguous()[None],
+        packed=True)["w"][0]
+    bud = activation_budget(plan, cfg.d_model)
+    gen = torch.Generator(device=dev).manual_seed(99)
+    c = _rand(gen, -bud, bud + 1, (plan.M, SERVE["max_batch"]
+                                   // SERVE["ft_M"], cfg.d_model), dev)
+    chk.sweep(c, hq, plan, True, what, DENSE_MODES)
+    del hq, c
+    free_cuda()
+
+
+def _snapshot(cache):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.clone(), cache)
+
+
+def _restore(cache, snap):
+    from repro_torch.tree import tree_map
+
+    tree_map(lambda t, s: t.copy_(s), cache, snap)
+
+
+def _decode_run(model, cfg, params, cache, tok, pos0, steps, head, ftx,
+                failed_group, kernels):
+    """``steps`` greedy steps from ``tok`` [B, 1] at positions ``pos0``
+    [B] + t: ``decode_hidden`` (with ``ftx`` failed at ``failed_group``
+    when given), then the protected head ``head`` = (wq, scale, plan)
+    failed at ``failed_group`` (``ft_logits_decode``), or the plain bf16
+    head when ``head`` is None. Returns (tokens [B, steps], step seconds,
+    s8 launches per step)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ft.heads import ft_logits_decode
+
+    emm_k = next(k for k in kernels if k["name"] == "entangled_matmul")
+    ctx = None if ftx is None else ftx.with_failed(failed_group)
+    out, secs, s8 = [], [], []
+    for t in range(steps):
+        before = count(emm_k)
+        t0 = time.perf_counter()
+        h, cache = model.decode_hidden(params, tok, cache, pos0 + t, cfg,
+                                       ft=ctx)
+        if head is None:
+            logits = model.head_project(params, h, cfg)
+        else:
+            logits = ft_logits_decode(h, head[0], head[1], plan=head[2],
+                                      failed_group=failed_group)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        s8.append(count(emm_k) - before)
+        out.append(tok[:, 0])
+    toks = torch.stack(out, 1).cpu().numpy()
+    if not np.isfinite(logits.float().cpu().numpy()).all() \
+            or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: bad decode output {toks}")
+    return toks, secs, s8
+
+
+def _protected_head(cfg, model, params):
+    """(packed int8 head, scale, plan) as the engine makes them."""
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.heads import quantize_head
+    from repro_torch.kernels.codec import pack_int8
+
+    hq, scale = quantize_head(model.head_weights(params, cfg))
+    return pack_int8(hq, axis=0), scale, make_plan(SERVE["ft_M"], 32)
+
+
+def _rollforward(runs, tag, what):
+    """Log and check one EXACT ROLL-FORWARD (``tag``) verdict: ``runs``
+    maps a run's name to its tokens; every run must equal the first."""
+    import numpy as np
+
+    names = list(runs)
+    base = runs[names[0]]
+    bad = [n for n in names[1:] if not np.array_equal(runs[n], base)]
+    verdict = f"EXACT ROLL-FORWARD ({tag})" if not bad else "RECOVERY FAILED"
+    log(f"[families] {what}: {base.shape[0]} rows x {base.shape[1]} tokens;"
+        f" runs {names} against {names[0]!r}; mismatching runs {bad} "
+        f"({verdict})")
+    if bad:
+        raise AssertionError(f"{what}: {verdict}")
+
+
+def _vlm_path(dev, kernels, smi, chk):
+    """internvl2-2b: census shapes and heads against the plain version;
+    the engine's wave at head and all, healthy and injected, and none;
+    the 256-patch prefix path at head and all; a profiler window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ft import FTContext, PlanRegistry, prepare_params
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, model, params = init_model(dev, VLM)
+    shapes, _ = main_path_shapes(cfg, params, dev)
+    arch_chk = chk.spawn()
+    check_dense(dev, arch_chk, shapes, ragged=False)
+    _check_model_head(dev, arch_chk, cfg, model, params, f"{VLM} model head")
+    chk.absorb(arch_chk)
+    log(f"[families] {VLM}: {len(shapes)} (rows, K, N) shapes of the census "
+        f"at scope all (every admission mode) with the head, and the "
+        f"model's own quantized head: {arch_chk.n} kernel-vs-plain "
+        f"comparisons, max_abs_err by route {arch_chk.worst_by_route}")
+
+    reset_counts(kernels)
+    base = dict(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+                ft_M=SERVE["ft_M"])
+    wave = {}
+    for scope in ("head", "all"):
+        scfg = ServeConfig(ft_mode="entangle", ft_scope=scope, **base)
+        e = ServeEngine(cfg, scfg, params, device=dev)
+        healthy, st_h, ln_h = _wave(e, cfg, None, kernels)
+        warm = e.warm_state()
+        del e
+        e = ServeEngine(cfg, scfg, params, device=dev, warm=warm)
+        injected, st_i, ln_i = _wave(e, cfg, 1, kernels)
+        if e.plans is not None and e.plans.misses:
+            raise AssertionError(f"{VLM} scope {scope}: plan misses")
+        del e, warm
+        free_cuda()
+        _rollforward({"healthy": np.stack(list(healthy.values())),
+                      "failed_group=1": np.stack(list(injected.values()))},
+                     "vlm", f"{VLM} engine wave, scope={scope}, "
+                     f"failed_group=1 on every step")
+        wave[scope] = dict(
+            step_ms=1e3 * float(np.mean(st_h[1:] + st_i[1:])),
+            s8_per_decode_step=sorted(set(ln_h["entangled_matmul"][1:]
+                                          + ln_i["entangled_matmul"][1:])))
+
+    # the prefix path: prefill of 256 patch embeddings and 8 tokens, then
+    # decode_hidden and the protected head at positions P + T + t
+    B, P = SERVE["max_batch"], PREFIX["patches"]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    patches = torch.randn((B, P, cfg.d_model), generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, SERVE["prompt_len"]),
+                            generator=gen, device=dev)
+    cache = model.init_cache(cfg, B, PREFIX["max_seq"], device=dev)
+    t1 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts,
+                                           "patch_embeds": patches}, cfg,
+                                  cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    if logits.shape != (B, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{VLM} prefix prefill: bad logits")
+    tok0 = logits.argmax(-1, keepdim=True)
+    pos0 = torch.full((B,), P + SERVE["prompt_len"], device=dev)
+    snap = _snapshot(cache)
+    head = _protected_head(cfg, model, params)
+    ft_params = prepare_params(params, scope="all")
+    prefix = {}
+    for scope in ("head", "all"):
+        ftx = (None if scope == "head" else
+               FTContext(registry=PlanRegistry(head[2]), scope="all"))
+        p = params if scope == "head" else ft_params
+        runs, ms, s8 = {}, [], []
+        for fg in (None, 1):
+            _restore(cache, snap)
+            runs[f"failed_group={fg}"], secs, per_step = _decode_run(
+                model, cfg, p, cache, tok0, pos0, PREFIX["steps"], head, ftx,
+                fg, kernels)
+            ms += secs[1:]
+            s8 += per_step
+        _rollforward(runs, "vlm", f"{VLM} prefix path, {P} patch embeddings "
+                     f"+ {SERVE['prompt_len']} tokens, scope={scope}, "
+                     f"failed_group=1 on every step")
+        prefix[scope] = dict(step_ms=1e3 * float(np.mean(ms)),
+                             s8_per_decode_step=sorted(set(s8)))
+    del cache, snap, ft_params, head
+    free_cuda()
+    torch.cuda.synchronize()
+    counts = {k["name"]: count(k) for k in kernels}
+    core = {k["name"]: count(k, 1) for k in kernels
+            if len(k["counters"]) > 1}
+    if counts["entangled_matmul"] <= 0 or any(core.values()):
+        raise AssertionError(f"{VLM}: s8 launches {counts}, CUDA-core "
+                             f"{core}")
+    bd = _breakdown(dev, cfg, params, dict(base, ft_mode="entangle"),
+                    tag="families")
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = dict(census_shapes=len(shapes),
+               step_ms=dict({s: r["step_ms"] for s, r in wave.items()},
+                            none=bd["step_ms"]),
+               s8_launches_per_decode_step={
+                   s: r["s8_per_decode_step"] for s, r in wave.items()},
+               prefix=dict(prefill_s=prefill_s, **prefix), profile=bd,
+               max_memory_allocated=peak,
+               seconds=time.perf_counter() - t0)
+    log(f"[families] {VLM} ({cfg.n_layers} layers; {smi}): engine decode-"
+        f"step ms {rec['step_ms']}, s8 launches per decode step "
+        f"{rec['s8_launches_per_decode_step']}; prefix path: prefill of "
+        f"{B} x ({P} + {SERVE['prompt_len']}) {1e3 * prefill_s:.3f} ms, "
+        f"decode-step ms and s8 launches per step {prefix}; kernel "
+        f"launches {counts}; max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"{rec['seconds']:.1f} s")
+    del params, model
+    free_cuda()
+    return counts, rec
+
+
+def _encdec_path(dev, kernels, smi, chk):
+    """whisper-small: its head against the plain version; the engine's
+    refusals; prefill of 8 rows of 1500 frames and 8-token prompts, then
+    16 decode steps with the bf16 head (ft none) and with the protected
+    head, healthy and with failed_group=1 on every step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, model, params = init_model(dev, ENCDEC, max_seq=WHISPER["max_seq"])
+    shapes, _ = census_shapes(cfg, set())  # scope head: the head alone
+    arch_chk = chk.spawn()
+    check_dense(dev, arch_chk, shapes, ragged=False)
+    _check_model_head(dev, arch_chk, cfg, model, params,
+                      f"{ENCDEC} model head")
+    chk.absorb(arch_chk)
+    log(f"[families] {ENCDEC}: the head {shapes} and the model's own "
+        f"quantized head: {arch_chk.n} kernel-vs-plain comparisons, "
+        f"max_abs_err by route {arch_chk.worst_by_route}")
+
+    kw = dict(max_batch=SERVE["max_batch"], max_seq=WHISPER["max_seq"],
+              ft_mode="entangle", ft_M=SERVE["ft_M"])
+    refusals = {}
+    try:
+        ServeEngine(cfg, ServeConfig(ft_scope="all", **kw), params,
+                    device=dev)
+    except ValueError as err:
+        refusals["scope all"] = f"ValueError: {err}"
+    eng = ServeEngine(cfg, ServeConfig(ft_scope="head", **kw), params,
+                      device=dev)
+    eng.submit(Request(rid=0, prompt=np.arange(8, dtype=np.int32),
+                       max_new=2))
+    try:
+        eng.step()
+    except NotImplementedError as err:
+        refusals["scope head step"] = f"NotImplementedError: {err}"
+    del eng
+    free_cuda()
+    log(f"[families] {ENCDEC} engine on the card, as the reference's: "
+        f"{refusals}")
+    if len(refusals) != 2:
+        raise AssertionError(f"{ENCDEC}: the engine did not refuse: "
+                             f"{refusals}")
+
+    reset_counts(kernels)
+    B = SERVE["max_batch"]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    frames = torch.randn((B, cfg.encoder.n_frames, cfg.d_model),
+                         generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, SERVE["prompt_len"]),
+                            generator=gen, device=dev)
+    cache = model.init_cache(cfg, B, WHISPER["max_seq"], device=dev)
+    t1 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts,
+                                           "frames": frames}, cfg, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    enc = api._encode(params, frames, cfg)
+    torch.cuda.synchronize()
+    encoder_ms = 1e3 * (time.perf_counter() - t1)
+    if logits.shape != (B, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or \
+            not torch.isfinite(enc.float()).all():
+        raise AssertionError(f"{ENCDEC} prefill: bad output")
+    del enc
+    tok0 = logits.argmax(-1, keepdim=True)
+    pos0 = torch.full((B,), SERVE["prompt_len"], device=dev)
+    snap = _snapshot(cache)
+    head = _protected_head(cfg, model, params)
+    runs, ms, s8 = {}, {}, {}
+    # a warm-up run first (not kept), so that no timed run pays the first
+    # calls' set-up
+    for name, h, fg in (("warm-up", head, None), ("none", None, None),
+                        ("head", head, None),
+                        ("head failed_group=1", head, 1)):
+        _restore(cache, snap)
+        runs[name], secs, s8[name] = _decode_run(
+            model, cfg, params, cache, tok0, pos0, WHISPER["steps"], h, None,
+            fg, kernels)
+        ms[name] = 1e3 * float(np.mean(secs[1:]))
+    for d in (runs, ms, s8):
+        del d["warm-up"]
+    _rollforward({n: runs[n] for n in ("head", "head failed_group=1")},
+                 "encdec", f"{ENCDEC} {B} rows x {cfg.encoder.n_frames} "
+                 f"frames + {SERVE['prompt_len']} tokens, scope=head, "
+                 f"failed_group=1 on every step")
+    agree = int((runs["none"] == runs["head"]).sum())
+    del cache, snap, head
+    torch.cuda.synchronize()
+    counts = {k["name"]: count(k) for k in kernels}
+    core = {k["name"]: count(k, 1) for k in kernels
+            if len(k["counters"]) > 1}
+    s8_steps = {n: sorted(set(v)) for n, v in s8.items()}
+    if counts["entangled_matmul"] <= 0 or any(core.values()) or \
+            s8_steps["head"] != [1]:
+        raise AssertionError(f"{ENCDEC}: s8 launches {counts} ({s8_steps} "
+                             f"per step), CUDA-core {core}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = dict(prefill_s=prefill_s, encoder_ms=encoder_ms, step_ms=ms,
+               s8_launches_per_decode_step=s8_steps,
+               tokens_agree_none_vs_head=agree, refusals=refusals,
+               max_memory_allocated=peak, seconds=time.perf_counter() - t0)
+    log(f"[families] {ENCDEC} ({cfg.n_layers} + {cfg.encoder.n_layers} "
+        f"layers; {smi}): prefill of {B} x {cfg.encoder.n_frames} frames + "
+        f"{SERVE['prompt_len']} tokens {1e3 * prefill_s:.3f} ms, encoder "
+        f"alone {encoder_ms:.3f} ms; decode-step ms {ms}; s8 launches per "
+        f"decode step {s8_steps}; greedy tokens bf16 head vs protected "
+        f"head: {agree} of {runs['none'].size} agree; kernel launches "
+        f"{counts}; max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"{rec['seconds']:.1f} s")
+    del params, model
+    free_cuda()
+    return counts, rec
+
+
+def _chain_path(dev, kernels):
+    """``entangled_chain`` over the serving batch's rows (CHAINS): healthy,
+    with every stream failed in turn (each must equal the healthy run bit
+    for bit), and on CPU copies through the plain versions (equal too)."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft import (chain_budget, entangled_chain,
+                                quantize_weight_stacked)
+
+    reset_counts(kernels)
+    emm_k = next(k for k in kernels if k["name"] == "entangled_matmul")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rec = []
+    for M, dims in CHAINS:
+        plan = make_plan(M, 32)
+        x = torch.randn((SERVE["max_batch"], dims[0]), generator=gen,
+                        device=dev)
+        ws = []
+        for k, n in zip(dims[:-1], dims[1:]):
+            q8 = quantize_weight_stacked(torch.randn(
+                (1, k, n), generator=gen, device=dev), packed=True)
+            ws.append((q8["w"][0], q8["scale"][0]))
+        budget = chain_budget(plan, dims[:-1])
+        before = count(emm_k)
+        healthy = entangled_chain(x, ws, plan=plan)
+        per_call = count(emm_k) - before
+        plain = entangled_chain(x.cpu(), [(w.cpu(), s.cpu()) for w, s in ws],
+                                plan=plan)
+        torch.cuda.synchronize()
+        if not torch.equal(healthy.cpu(), plain):
+            raise AssertionError(f"entangled_chain M={M} {dims}: kernel "
+                                 f"!= plain")
+        bad = [r for r in range(M) if not torch.equal(
+            entangled_chain(x, ws, plan=plan, failed_group=r), healthy)]
+        verdict = "EXACT ROLL-FORWARD (chain)" if not bad else \
+            "RECOVERY FAILED"
+        how = ("one entangle, one extraction" if budget >= 1
+               else "infeasible: one extraction per hop")
+        log(f"[families] entangled_chain M={M} widths {dims}: chain budget "
+            f"{budget} ({how}), {per_call} s8 launches per call; equal to "
+            f"the plain version on the CPU; every failed stream 0..{M - 1} "
+            f"against healthy: mismatching {bad} ({verdict})")
+        if bad:
+            raise AssertionError(f"entangled_chain M={M} {dims}: {verdict}")
+        rec.append(dict(M=M, widths=list(dims), budget=budget,
+                        s8_launches_per_call=per_call))
+    counts = {k["name"]: count(k) for k in kernels}
+    if counts["entangled_matmul"] <= 0:
+        raise AssertionError(f"entangled_chain: launches {counts}")
+    return counts, rec
+
+
+def _odd_head_rows(dev):
+    """The s8 kernel (and the CUDA-core one, in turns) at the two odd-width
+    heads, internvl2-2b [2048 x 92553] and whisper-small [768 x 51865],
+    at decode rows: their rows of packed weights are not 16-byte aligned,
+    so the kernel takes its ragged path of 4-byte copies."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.quantize import activation_budget
+    from repro_torch.kernels import entangled_matmul as emm
+    from repro_torch.kernels.codec import pack_int8
+
+    plan = make_plan(SERVE["ft_M"], 32)
+    M, B = plan.M, SERVE["max_batch"] // SERVE["ft_M"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    for arch in (VLM, ENCDEC):
+        cfg = model_config(arch)
+        K, N = cfg.d_model, cfg.vocab_size
+        bud = activation_budget(plan, K)
+        c = _rand(gen, -bud, bud + 1, (M, B, K), dev)
+        wbytes = (K // 4) * N * 4
+        gs = [pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
+              for _ in range(max(1, -(-2 * L2_BYTES // wbytes)))]
+        rows.append(_timing_row(
+            dev, f"{arch} head (N = {N}, ragged)", c, gs, plan,
+            dict(s8=emm.entangled_matmul_cuda,
+                 cuda_core=emm.entangled_matmul_cuda_core),
+            emm.entangled_matmul_plain, macs=(M - 1) * B * K * N,
+            nbytes=4 * (M * B * K + (K // 4) * N + M * B * N),
+            wbytes=wbytes, iters=20))
+        del c, gs
+        free_cuda()
+    return rows
+
+
+def phase_families(dev, kernels, smi):
+    """internvl2-2b and whisper-small at published widths, nothing cut,
+    and ``entangled_chain``, each a path whose kernel counts are set to 0
+    just before it and read just after; then the s8 kernel's time at the
+    two odd-width heads. Returns (counts by path, record, timing rows)."""
+    t0 = time.perf_counter()
+    chk = next(k["checker"] for k in kernels
+               if k["name"] == "entangled_matmul")
+    counts, rec = {}, {}
+    counts[f"{VLM} families"], rec[VLM] = _vlm_path(dev, kernels, smi, chk)
+    counts[f"{ENCDEC} families"], rec[ENCDEC] = _encdec_path(
+        dev, kernels, smi, chk)
+    counts["entangled_chain"], rec["entangled_chain"] = _chain_path(
+        dev, kernels)
+    rows = _odd_head_rows(dev)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[families] phase {rec['seconds']:.1f} s")
+    return counts, rec, rows
 
 
 # ------------------------------------------------------------------ train --
@@ -2881,6 +3366,7 @@ def main() -> int:
     decoder_counts, decoders = phase_decoders(dev, kernels, smi)
     recurrent_counts, recurrent = phase_recurrent(dev, kernels, smi,
                                                   args.seed)
+    family_counts, families, family_rows = phase_families(dev, kernels, smi)
     grad_shapes = llama_grad_shapes(dev)
     check_codec(dev, {n: by_name[n]["checker"]
                       for n in ("entangle", "disentangle")}, grad_shapes)
@@ -2895,8 +3381,17 @@ def main() -> int:
     rows = phase_timings(dev)
     rows.update(codec_timings(dev))
     rows.update(stream.pop("rows"))
+    rows["entangled_matmul"] += family_rows
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     train_path = f"{LLAMA} train"
+    # the s8 launches per decode step of the families' paths
+    family_steps = {
+        f"{VLM} families": dict(
+            families[VLM]["s8_launches_per_decode_step"],
+            **{f"prefix {sc}": families[VLM]["prefix"][sc][
+                "s8_per_decode_step"] for sc in ("head", "all")}),
+        f"{ENCDEC} families": families[ENCDEC][
+            "s8_launches_per_decode_step"]}
     record = dict(kernels=[])
     for k in kernels:
         name, chk = k["name"], k["checker"]
@@ -2908,6 +3403,7 @@ def main() -> int:
                         for a, c in decoder_counts.items()})
         by_path.update({f"{a} recurrent": c[name]
                         for a, c in recurrent_counts.items()})
+        by_path.update({a: c[name] for a, c in family_counts.items()})
         by_path[train_path] = train_counts[name]
         by_path["stream-conv"] = stream["counts"][name]
         if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
@@ -2939,7 +3435,8 @@ def main() -> int:
                     for a, r in decoders.items()}, **{
                     f"{a} recurrent": r["s8_launches_per_decode_step"]
                     for a, r in recurrent.items()
-                    if name == "entangled_matmul"}),
+                    if name == "entangled_matmul"},
+                    **(family_steps if name == "entangled_matmul" else {})),
                 cuda_core=dict(
                     source=k["core_source"],
                     launches=paths[DEEPSEEK]["core_counts"][name],
@@ -2962,6 +3459,7 @@ def main() -> int:
     record["fleet"] = fleet
     record["dense_decoders"] = decoders
     record["recurrent"] = recurrent
+    record["families"] = families
     record["train"] = train
     record["stream_conv"] = stream
     print(smi, flush=True)

@@ -3,9 +3,10 @@
 Every arch id of :mod:`repro.configs.registry` is known here, but only the
 ones in :data:`PORTED` have a module in the port yet: the dense decoders
 (llama3.2-1b, qwen2-7b, minitron-8b, granite-20b), deepseek-v2-lite-16b
-(MLA + MoE), falcon-mamba-7b (Mamba-1) and recurrentgemma-2b (RG-LRU +
-rolling-window MQA). The others (deepseek-v3-671b, whisper-small,
-internvl2-2b) raise a clear "not ported yet" error, which lists
+(MLA + MoE), falcon-mamba-7b (Mamba-1), recurrentgemma-2b (RG-LRU +
+rolling-window MQA), whisper-small (encoder-decoder) and internvl2-2b (a
+dense decoder behind precomputed patch embeddings). The other one
+(deepseek-v3-671b) raises a clear "not ported yet" error, which lists
 :data:`PORTED`, instead of a ``KeyError``.
 """
 from __future__ import annotations
@@ -23,12 +24,14 @@ ARCH_IDS = (
 )
 
 _MODULES: Dict[str, str] = {
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "granite-20b": "repro_torch.configs.granite_20b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "whisper-small": "repro_torch.configs.whisper_small",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
 }
 

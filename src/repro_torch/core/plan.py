@@ -139,3 +139,8 @@ def make_plan(
         temp_bits = (2 * M - 3) * l + k + 1
         temp = "int32" if temp_bits <= 32 else "dualword"
     return EntanglePlan(M=M, w=w, l=l, k=k, temp=temp)
+
+
+def checksum_output_bits(M: int, w: int = 32) -> int:
+    """Output bitwidth of the checksum-based method, Table I right column."""
+    return w - math.ceil(math.log2(M))

@@ -18,6 +18,10 @@ run as ONE grouped entangled kernel call — rows map round-robin onto the M
 streams *within each expert*, so recovery holds independently and
 identically for every expert.
 
+:func:`entangled_chain` runs consecutive linear GEMMs inside the entangled
+domain (one entangle, one extraction) when the plan's headroom allows it,
+and :class:`ProtectedLinear` is the executor over one compiled plan.
+
 :class:`FTContext` is threaded through the model (``models/api.py ->
 transformer.apply_stack -> layers``): it decides which site categories the
 configured ``ft_scope`` protects, resolves each site's plan, and carries
@@ -43,8 +47,8 @@ import torch
 from repro_torch.core.entangle import disentangle as core_disentangle
 from repro_torch.core.failstop import GARBAGE
 from repro_torch.core.plan import EntanglePlan
-from repro_torch.ft.quantize import (quantize_acts, quantize_weight,
-                                     quantize_weight_stacked)
+from repro_torch.ft.quantize import (chain_budget, quantize_acts,
+                                     quantize_weight, quantize_weight_stacked)
 from repro_torch.ft.registry import PlanRegistry, ProtectionPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.codec import unpack_int8
@@ -96,12 +100,14 @@ def _rows(x: torch.Tensor) -> int:
     return math.prod(x.shape[:-1])
 
 
-def _grouped_acts(x: torch.Tensor, plan: EntanglePlan, contiguous: bool):
-    """Quantize + pad + group-permute: returns (xg [M, Rp/M, K] int32,
-    per-row scale [R, 1], inverse permutation or None, Rp)."""
+def _grouped_acts(x: torch.Tensor, plan: EntanglePlan, contiguous: bool,
+                  budget: Optional[int] = None):
+    """Quantize (onto ``budget``'s grid, if given) + pad + group-permute:
+    returns (xg [M, Rp/M, K] int32, per-row scale [R, 1], inverse
+    permutation or None, Rp)."""
     R, K = _rows(x), x.shape[-1]
     M = plan.M
-    xq, a_scale = quantize_acts(x.reshape(R, K), plan, K)
+    xq, a_scale = quantize_acts(x.reshape(R, K), plan, K, budget=budget)
     pad = (-R) % M
     if pad:
         xq = torch.cat([xq, xq.new_zeros((pad, K))], dim=0)
@@ -219,6 +225,81 @@ def protected_matmul_grouped(
     return y.reshape(E, L, C, N).transpose(0, 1).reshape(*lead, E, C, N)
 
 
+def entangled_chain(
+    x: torch.Tensor,  # [..., K] float activations of the FIRST hop
+    ws: list,  # per-hop weights: float [K_i, N_i] or (wq, w_scale) pairs
+    *,
+    plan: EntanglePlan,
+    failed_group: Optional[int] = None,
+    contiguous: bool = False,
+) -> torch.Tensor:
+    """N consecutive strictly-linear protected GEMMs that never leave the
+    entangled domain: one entangle, N GEMMs, one extraction.
+
+    Entanglement is linear over streams, so ``(E c) @ g = E (c @ g)``:
+    the first hop entangles on load and returns raw entangled accumulators
+    (``fuse_epilogue=False``), every middle hop multiplies them through
+    per stream (``'chain'``: no entangle, no extraction), and the last
+    hop extracts at its flush (``'chain_final'``) without reading
+    ``failed_group``'s stream. A fail-stopped stream's garbage stays in
+    its own stream, so the roll-forward is exact for any single failed
+    stream.
+
+    The one extraction must absorb the whole chain's amplification, so
+    the first hop quantizes onto :func:`~repro_torch.ft.quantize.
+    chain_budget`'s grid. When that budget is 0 (infeasible under this
+    plan), or for a single hop, each hop runs as its own
+    :func:`protected_matmul` (one extraction per hop, requantizing
+    between hops). Returns dequantized float32 outputs ``[..., N_last]``.
+    """
+    if not ws:
+        raise ValueError("entangled_chain needs at least one hop")
+    split = [_split_weight(w) for w in ws]
+    lead, K = tuple(x.shape[:-1]), x.shape[-1]
+    # a packed hop's true N is its column count (packing runs along K)
+    depths = [K] + [wq.shape[1] for wq, _ in split[:-1]]
+    budget = chain_budget(plan, depths)
+    if budget < 1 or len(ws) == 1:
+        y = x
+        for w in ws:
+            y = protected_matmul(y, w, plan=plan, failed_group=failed_group,
+                                 contiguous=contiguous)
+        return y
+    cur, a_scale, inv, _ = _grouped_acts(x, plan, contiguous, budget=budget)
+    depth = K
+    for i, (wq, _) in enumerate(split):
+        mode = (False if i == 0 else
+                "chain_final" if i == len(split) - 1 else "chain")
+        cur = kops.entangled_matmul(cur, wq, plan, fuse_epilogue=mode,
+                                    failed=failed_group,
+                                    packed=_is_packed(wq, depth))
+        depth = wq.shape[1]
+    w_prod = 1.0
+    for _, w_scale in split:
+        w_prod = w_prod * w_scale
+    return _dequant(cur, inv, _rows(x), a_scale, w_prod, lead)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtectedLinear:
+    """Thin executor over ONE :class:`ProtectionPlan`: the plan (site,
+    shape, entanglement parameters, grouped-ness) is fixed at
+    construction, and a call runs :func:`protected_matmul` (or
+    :func:`protected_matmul_grouped` for a grouped site) with it."""
+
+    plan: ProtectionPlan
+
+    def __call__(self, x: torch.Tensor, w: Weight, *,
+                 failed_group: Optional[int] = None,
+                 contiguous: bool = False) -> torch.Tensor:
+        p = self.plan
+        if p.grouped:
+            return protected_matmul_grouped(x, w, plan=p.plan,
+                                            failed_group=failed_group)
+        return protected_matmul(x, w, plan=p.plan, failed_group=failed_group,
+                                contiguous=contiguous)
+
+
 @dataclasses.dataclass(frozen=True)
 class FTContext:
     """Protection context threaded through the model forward pass.
@@ -275,8 +356,7 @@ class FTContext:
             return torch.einsum("...k,kn->...n", x.to(torch.float32),
                                 _unpacked_f32(wq, K))
         p = self._resolve(site, _rows(x), K, N)
-        return protected_matmul(x, w, plan=p.plan,
-                                failed_group=self.failed_group)
+        return ProtectedLinear(p)(x, w, failed_group=self.failed_group)
 
     def matmul_fanout(self, sites: tuple, x: torch.Tensor,
                       ws: tuple) -> list:
@@ -317,5 +397,4 @@ class FTContext:
             return torch.einsum("...eck,ekn->...ecn", x.to(torch.float32),
                                 _unpacked_f32(wq, K))
         p = self._resolve(site, rows, K, N, groups=E)
-        return protected_matmul_grouped(x, w, plan=p.plan,
-                                        failed_group=self.failed_group)
+        return ProtectedLinear(p)(x, w, failed_group=self.failed_group)

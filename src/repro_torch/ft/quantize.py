@@ -20,6 +20,7 @@ divide tensor by tensor.)
 from __future__ import annotations
 
 import itertools
+from typing import Optional, Sequence
 
 import torch
 
@@ -73,11 +74,29 @@ def activation_budget(plan: EntanglePlan, depth: int) -> int:
     return max(plan.max_output_magnitude // (depth * 127), 1)
 
 
-def quantize_acts(x: torch.Tensor, plan: EntanglePlan, depth: int) -> tuple:
+def chain_budget(plan: EntanglePlan, depths: Sequence[int]) -> int:
+    """Activation budget of an entangled-domain GEMM *chain*: hops of
+    contraction depths ``K_1 .. K_n`` against int8 weights amplify the
+    first hop's activations by at most ``prod(K_i * 127)`` before the one
+    final extraction, so the first hop's grid must satisfy ``budget *
+    prod(K_i * 127) <= plan.max_output_magnitude``. 0 when no grid does:
+    the chain is infeasible under this plan, and
+    :func:`~repro_torch.ft.protected.entangled_chain` extracts per hop."""
+    amp = 1
+    for K in depths:
+        amp *= int(K) * 127
+    return plan.max_output_magnitude // amp
+
+
+def quantize_acts(x: torch.Tensor, plan: EntanglePlan, depth: int, *,
+                  budget: Optional[int] = None) -> tuple:
     """Quantize float activations onto the eq. (13)-budgeted integer grid
     of a ``depth``-deep contraction. Returns ``(int32 values, scale)`` with
-    the scale PER ROW (the last axis reduced to 1)."""
-    budget = activation_budget(plan, depth)
+    the scale PER ROW (the last axis reduced to 1). ``budget`` overrides
+    the single GEMM's (the chain executor passes :func:`chain_budget`'s
+    tighter grid)."""
+    if budget is None:
+        budget = activation_budget(plan, depth)
     x = x.to(torch.float32)
     amax = torch.clamp(x.abs().amax(dim=-1, keepdim=True), min=1e-9)
     a_scale = torch.full_like(amax, budget) / amax

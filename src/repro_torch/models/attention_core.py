@@ -8,9 +8,11 @@ Heads layout is GQA-grouped, as in the reference: q ``[B, Hkv, G, T, dk]``,
 k ``[B, Hkv, S, dk]``, v ``[B, Hkv, S, dv]``; outputs are float32
 ``[B, Hkv, G, T, dv]``. Scores are materialized (explicit matmul, mask,
 softmax) in float32 — the reference's own path for every problem with
-``T * S <= 2048**2 / 4`` and for decode. Its flash-style blocked path for
-longer prompts computes the same function and is not needed by the
-serving shapes of this slice.
+``T * S <= 2048**2 / 4`` and for decode. Past that, :func:`attend` takes
+the reference's blocked forward (:func:`_flash_fwd`: query blocks of 512,
+each with an online softmax over the key blocks of its band), so the
+scores never grow as T * S and the sums are the reference's (whisper's
+encoder, 1500 frames against 1500). Its backward is not ported.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ NEG = -1e30
 # scores at once; the rolling-window prefill bands its queries beyond it
 FLASH_THRESHOLD = 2048
 DEFAULT_QB = 512
+DEFAULT_KB = 512
 # the card's attention GEMMs take their queries in blocks of this many
 # (_softmax_attend)
 Q_BLOCK = 16
@@ -38,13 +41,20 @@ class MaskInfo(NamedTuple):
 
 def _mask(info: MaskInfo, T: int, S: int, device) -> Optional[torch.Tensor]:
     """Boolean [T, S] mask from absolute positions, or None (attend all)."""
-    kpos = torch.arange(S, device=device)
+    return _block_mask(info, torch.arange(T, device=device) + info.q_off,
+                       torch.arange(S, device=device))
+
+
+def _block_mask(info: MaskInfo, qpos: torch.Tensor,
+                kpos: torch.Tensor) -> Optional[torch.Tensor]:
+    """Boolean [len(qpos), len(kpos)] mask of the queries at absolute
+    positions ``qpos`` against the keys at ``kpos``, or None (attend
+    all)."""
     ok = (kpos[None, :] < info.kv_len) if info.kv_len else None
     if info.kind == "full":
         return ok
     if info.kind not in ("causal", "window"):
         raise NotImplementedError(f"mask kind {info.kind!r} is not ported yet")
-    qpos = torch.arange(T, device=device) + info.q_off
     causal = kpos[None, :] <= qpos[:, None]
     if info.kind == "window":
         causal &= kpos[None, :] > qpos[:, None] - info.window
@@ -90,16 +100,93 @@ def _softmax_block(q, k, v, ok, scale: float) -> torch.Tensor:
     return torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
 
 
+def _pad_axis(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """``x`` padded with zeros at the end of ``axis`` to a multiple of
+    ``mult``."""
+    pad = (-x.shape[axis]) % mult
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _band(info: MaskInfo, iq: int, qb: int, kb: int, nk: int) -> tuple:
+    """The key blocks [lo, hi) that query block ``iq`` can attend to:
+    every one for kind ``full``, those up to its last query for causal,
+    and for a window also none below its first query's window."""
+    if info.kind == "full":
+        return 0, nk
+    hi = min(nk, -(-(info.q_off + (iq + 1) * qb) // kb))
+    if info.kind == "window":
+        return max(0, (info.q_off + iq * qb - info.window + 1) // kb), hi
+    return 0, hi
+
+
+def _flash_fwd(q, k, v, info: MaskInfo, scale: float, qb: int,
+               kb: int) -> torch.Tensor:
+    """The reference's blocked forward (``_flash_fwd_inner``): q
+    [B,Hkv,G,T,dk] with T % qb == 0, k / v padded to multiples of kb (the
+    pad keys masked by ``info.kv_len``). Query block by query block, an
+    online softmax over the key blocks of its band, in float32: running
+    max m, denominator l and accumulator, rescaled by exp(m - m_new) per
+    key block; masked scores are NEG and their weights exact zeros.
+    Returns [B,Hkv,G,T,dv] float32."""
+    B, Hkv, G, T, _ = q.shape
+    S, dv = k.shape[2], v.shape[-1]
+    nk = S // kb
+    outs = []
+    for iq in range(T // qb):
+        qi = q[:, :, :, iq * qb:(iq + 1) * qb].to(torch.float32)
+        qpos = info.q_off + iq * qb + torch.arange(qb, device=q.device)
+        m = torch.full((B, Hkv, G, qb), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, qb, dv), dtype=torch.float32,
+                          device=q.device)
+        lo, hi = _band(info, iq, qb, kb, nk)
+        for jk in range(lo, hi):
+            kj = k[:, :, jk * kb:(jk + 1) * kb].to(torch.float32)
+            vj = v[:, :, jk * kb:(jk + 1) * kb].to(torch.float32)
+            kpos = jk * kb + torch.arange(kb, device=q.device)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj) * scale
+            mask = _block_mask(info, qpos, kpos)
+            if mask is not None:
+                s = torch.where(mask, s, torch.full_like(s, NEG))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            if mask is not None:
+                p = torch.where(mask, p, torch.zeros_like(p))
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vj)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.cat(outs, dim=3)
+
+
 def attend(q, k, v, *, kind: str, kv_len: int = 0,
            scale: Optional[float] = None, q_off: int = 0,
            window: int = 0) -> torch.Tensor:
     """q [B,Hkv,G,T,dk], k [B,Hkv,S,dk], v [B,Hkv,S,dv] -> [B,Hkv,G,T,dv]
     (float32). ``q_off`` is the absolute position of query 0; kind
-    ``window`` attends to the keys in (q - window, q]."""
+    ``window`` attends to the keys in (q - window, q]. Scores are
+    materialized while ``T * S <= 2048**2 / 4`` or T == 1, as in the
+    reference; past that the queries and keys are padded to blocks of
+    512 and go through its blocked forward (:func:`_flash_fwd`)."""
     T, S = q.shape[3], k.shape[2]
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
-    ok = _mask(MaskInfo(kind, kv_len or 0, q_off, window), T, S, q.device)
-    return _softmax_attend(q, k, v, ok, scale)
+    if T * S <= FLASH_THRESHOLD * FLASH_THRESHOLD // 4 or T == 1:
+        ok = _mask(MaskInfo(kind, kv_len or 0, q_off, window), T, S,
+                   q.device)
+        return _softmax_attend(q, k, v, ok, scale)
+    qb, kb = DEFAULT_QB, DEFAULT_KB
+    out = _flash_fwd(_pad_axis(q, 3, qb), _pad_axis(k, 2, kb),
+                     _pad_axis(v, 2, kb),
+                     MaskInfo(kind, kv_len or S, q_off, window), scale, qb,
+                     kb)
+    return out[:, :, :, :T]
 
 
 def _prefill_window_inner(q, k, v, qpos, kabs, window: int, scale: float):

@@ -40,7 +40,8 @@ ACT_DTYPE = torch.bfloat16
 # (tests/test_torch_cuda.py holds every served projection shape)
 GEMM_ROWS = 256
 # largest T * S of the reference's materialized attention (FLASH_THRESHOLD
-# 2048: T * S <= 2048**2 / 4); train mode beyond it needs the flash path
+# 2048: T * S <= 2048**2 / 4); train mode beyond it needs the flash
+# backward
 TRAIN_SCORES_MAX = 2048 * 2048 // 4
 
 
@@ -52,12 +53,28 @@ def he_init(gen: torch.Generator, shape: tuple, fan_in: int) -> torch.Tensor:
 
 # ----------------------------------------------------------------- norms ----
 
+def init_norm(cfg: ModelConfig, shape: tuple, device) -> dict:
+    """A norm's params of ``shape`` (``(d,)``, or ``(repeat, d)`` for a
+    stack): ``scale`` ones, and for a layernorm ``bias`` zeros."""
+    p = {"scale": torch.ones(shape, device=device)}
+    if cfg.norm_kind == "layernorm":
+        p["bias"] = torch.zeros(shape, device=device)
+    return p
+
+
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm in float32 (the llama family's norm)."""
+    """The config's norm in float32, cast to bfloat16: RMSNorm (the
+    decoders), or LayerNorm (whisper: mean and biased variance, scale and
+    bias)."""
+    x32 = x.to(torch.float32)
+    if cfg.norm_kind == "layernorm":
+        mu = torch.mean(x32, -1, keepdim=True)
+        var = torch.mean(torch.square(x32 - mu), -1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * p["scale"] + p["bias"]).to(ACT_DTYPE)
     if cfg.norm_kind != "rmsnorm" or not cfg.norm_f32:
         raise NotImplementedError(f"norm {cfg.norm_kind!r} (norm_f32="
                                   f"{cfg.norm_f32}) is not ported yet")
-    x32 = x.to(torch.float32)
     ms = torch.mean(torch.square(x32), -1, keepdim=True)
     return (x32 * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]).to(ACT_DTYPE)
 
@@ -153,12 +170,13 @@ def _positions(pos, mode: str, B: int, T: int, device) -> tuple:
     """``([B, T] absolute positions, prefill offset)`` of a step: decode
     takes the per-row position vector ``pos`` [B] (T == 1); prefill the
     chunk offset ``pos``, an int shared by every row or a per-row vector
-    [B] (:func:`prefill_off`); train the whole sequence from position 0."""
+    [B] (:func:`prefill_off`); train and encode the whole sequence from
+    position 0."""
     if mode == "decode":
         return pos.to(torch.int64)[:, None].expand(B, T), 0
-    if mode not in ("prefill", "train"):
-        raise NotImplementedError(f"attention mode {mode!r} is not ported yet")
-    off = prefill_off(pos)
+    if mode not in ("prefill", "train", "encode"):
+        raise ValueError(f"unknown attention mode {mode!r}")
+    off = prefill_off(pos) if mode == "prefill" else 0
     t = torch.arange(T, device=device)
     if is_pos_vector(off):
         return off[:, None] + t[None], off
@@ -265,7 +283,7 @@ def init_attention(gen, cfg: ModelConfig, repeat: int) -> dict:
         return p
 
     return {
-        "norm": {"scale": torch.ones((repeat, D), device=gen.device)},
+        "norm": init_norm(cfg, (repeat, D), gen.device),
         "wq": proj(cfg.n_heads * hd, cfg.qkv_bias),
         "wk": proj(cfg.n_kv_heads * hd, cfg.qkv_bias),
         "wv": proj(cfg.n_kv_heads * hd, cfg.qkv_bias),
@@ -363,8 +381,15 @@ def _window_prefill(cache: dict, k, v, positions, *, off, lengths,
 
 def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
                     pos, mode: str, rope_theta: Optional[float] = None,
-                    window: int = 0, lengths=None, ft=None):
-    """GQA attention against the KV cache, writing it in place.
+                    window: int = 0, lengths=None, ft=None, cross_kv=None):
+    """GQA attention against the KV cache, writing it in place; with
+    ``rope_theta`` None no rotary embedding (whisper's learned positions).
+
+    ``cross_kv`` (whisper's decoder): the precomputed encoder keys and
+    values ``(k, v)`` [B, F, Hkv, hd]; only ``wq`` is projected, every
+    query attends to all F frames, and ``cache`` (None) is returned as
+    it was. ``encode`` (whisper's encoder): no cache; the sequence
+    attends to itself in both directions.
 
     ``prefill``: ``pos`` is the chunk offset (int) of tokens [B, T]; keys
     and values of all T positions land at ``pos..pos+T-1`` (bucket padding
@@ -377,8 +402,9 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     position vector [B] of the one new token. ``train``: no cache (it must
     be None, so that nothing is written in place under autograd); the
     sequence attends causally to itself, through the materialized-score
-    path, which the reference takes while ``T * T <= 2048**2 / 4`` (its
-    flash path beyond that is not ported yet).
+    path, which the reference takes while ``T * T <= 2048**2 / 4`` (past
+    that it trains through its flash path, whose backward is not ported
+    yet).
 
     With ``window`` (recurrentgemma's local attention) the cache is a
     rolling buffer: decode writes slot pos % window and masks the slots on
@@ -400,23 +426,29 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     B, T, _ = x.shape
     hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     h = apply_norm(p["norm"], x, cfg)
-    q, k, v = dense_fanout((p["wq"], p["wk"], p["wv"]), h, ft=ft,
-                           sites=("qkv.q", "qkv.k", "qkv.v"))
-    q = q.reshape(B, T, H, hd)
-    k = k.reshape(B, T, Hkv, hd)
-    v = v.reshape(B, T, Hkv, hd)
-    positions, off = _positions(pos, mode, B, T, x.device)
-    if rope_theta:
-        q = rope(q, positions, rope_theta)
-        k = rope(k, positions, rope_theta)
+    if cross_kv is not None:
+        q = dense(p["wq"], h, ft=ft, site="qkv.q").reshape(B, T, H, hd)
+    else:
+        q, k, v = dense_fanout((p["wq"], p["wk"], p["wv"]), h, ft=ft,
+                               sites=("qkv.q", "qkv.k", "qkv.v"))
+        q = q.reshape(B, T, H, hd)
+        k = k.reshape(B, T, Hkv, hd)
+        v = v.reshape(B, T, Hkv, hd)
+        positions, off = _positions(pos, mode, B, T, x.device)
+        if rope_theta:
+            q = rope(q, positions, rope_theta)
+            k = rope(k, positions, rope_theta)
     win_kabs = win_slots = None  # set by the batched rolling-window prefill
-    if mode == "train":
+    if cross_kv is not None:
+        k_all, v_all = cross_kv
+    elif mode in ("train", "encode"):
         if cache is not None:
-            raise ValueError("train mode takes no cache")
-        if T * T > TRAIN_SCORES_MAX:
+            raise ValueError(f"{mode} mode takes no cache")
+        if mode == "train" and T * T > TRAIN_SCORES_MAX:
             raise NotImplementedError(
                 f"train attention over T={T} needs the reference's flash "
-                f"path, which is not ported yet (T*T <= {TRAIN_SCORES_MAX})")
+                f"backward, which is not ported yet (T*T <= "
+                f"{TRAIN_SCORES_MAX})")
         k_all, v_all = k, v
     elif mode == "decode":
         rows = torch.arange(B, device=x.device)
@@ -447,7 +479,9 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     qg = q.reshape(B, T, Hkv, G, hd).permute(0, 2, 3, 1, 4)
     kt = k_all.permute(0, 2, 1, 3)
     vt = v_all.permute(0, 2, 1, 3)
-    if mode == "decode":
+    if cross_kv is not None or mode == "encode":
+        o = attend(qg, kt, vt, kind="full")
+    elif mode == "decode":
         o = attend_decode(qg, kt, vt, abs_pos=_cache_abs_pos(
             k_all.shape[1], positions[:, 0], window))
     elif win_kabs is not None:
@@ -474,9 +508,9 @@ def init_mla(gen, cfg: ModelConfig, repeat: int) -> dict:
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     r = m.kv_lora_rank
     return {
-        "norm": {"scale": torch.ones((repeat, D), device=gen.device)},
+        "norm": init_norm(cfg, (repeat, D), gen.device),
         "wkv_a": {"w": he_init(gen, (repeat, D, r + m.qk_rope_head_dim), D)},
-        "kv_norm": {"scale": torch.ones((repeat, r), device=gen.device)},
+        "kv_norm": init_norm(cfg, (repeat, r), gen.device),
         "wkv_b": {"w": he_init(
             gen, (repeat, r, H * (m.qk_nope_head_dim + m.v_head_dim)), r)},
         "wo": {"w": he_init(gen, (repeat, H * m.v_head_dim, D),
@@ -567,15 +601,14 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
 # ------------------------------------------------------------------- MLP ----
 
 def init_mlp(gen, cfg: ModelConfig, repeat: int,
-             d_ff: Optional[int] = None) -> dict:
-    """The gated MLP (gate, up, down), or with ``cfg.mlp_gated`` False the
-    ungated one (up, down: minitron's relu2, granite's gelu)."""
-    if cfg.norm_kind != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm_kind!r} is not ported "
-                                  f"yet")
+             d_ff: Optional[int] = None, gated: bool = True) -> dict:
+    """The gated MLP (gate, up, down), or the ungated one (up, down:
+    minitron's relu2, granite's gelu, whisper's). ``cfg.mlp_gated``
+    decides when set, else ``gated``, the block's default (a layernorm
+    model's dense and encoder-decoder blocks are ungated)."""
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
-    p = {"norm": {"scale": torch.ones((repeat, D), device=gen.device)}}
-    if cfg.mlp_gated is not False:
+    p = {"norm": init_norm(cfg, (repeat, D), gen.device)}
+    if gated if cfg.mlp_gated is None else cfg.mlp_gated:
         p["gate"] = {"w": he_init(gen, (repeat, D, Fd), D)}
     p["up"] = {"w": he_init(gen, (repeat, D, Fd), D)}
     p["down"] = {"w": he_init(gen, (repeat, Fd, D), Fd)}
@@ -619,14 +652,16 @@ def _mlp_act(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
 def apply_mlp(p, x: torch.Tensor, *, cfg: ModelConfig, ft=None):
     """Gated MLP: down(act(gate(h)) * up(h)) with gate/up one fanout group;
     ungated (no ``gate``): down(act(up(h))), each a protected site of its
-    own."""
+    own; a layernorm model's ungated MLP always takes ``gelu``, whatever
+    ``cfg.mlp_act`` says, as in the reference."""
     h = apply_norm(p["norm"], x, cfg)
     if "gate" in p:
         gate, up = dense_fanout((p["gate"], p["up"]), h, ft=ft,
                                 sites=("mlp.gate", "mlp.up"))
         a = _mlp_act(cfg, gate) * up
     else:
-        a = _mlp_act(cfg, dense(p["up"], h, ft=ft, site="mlp.up"))
+        up = dense(p["up"], h, ft=ft, site="mlp.up")
+        a = gelu(up) if cfg.norm_kind == "layernorm" else _mlp_act(cfg, up)
     return dense(p["down"], a, ft=ft, site="mlp.down")
 
 
@@ -646,7 +681,7 @@ def init_moe(gen, cfg: ModelConfig, repeat: int) -> dict:
     mc, D = cfg.moe, cfg.d_model
     E, F = mc.n_experts, mc.d_ff_expert
     p = {
-        "norm": {"scale": torch.ones((repeat, D), device=gen.device)},
+        "norm": init_norm(cfg, (repeat, D), gen.device),
         "router": he_init(gen, (repeat, D, E), D),
         "we_gate": he_init(gen, (repeat, E, D, F), D),
         "we_up": he_init(gen, (repeat, E, D, F), D),
@@ -875,7 +910,7 @@ def init_mamba(gen, cfg: ModelConfig, repeat: int) -> dict:
                                device=dev))
     dt_b = torch.log(torch.expm1(torch.tensor(0.01, dtype=torch.float32)))
     return {
-        "norm": {"scale": torch.ones((repeat, D), device=dev)},
+        "norm": init_norm(cfg, (repeat, D), dev),
         "in_proj": {"w": he_init(gen, (repeat, D, 2 * di), D)},
         "conv_w": he_init(gen, (repeat, di, sc.d_conv), sc.d_conv),
         "conv_b": torch.zeros((repeat, di), device=dev),
@@ -960,7 +995,7 @@ def init_rglru(gen, cfg: ModelConfig, repeat: int) -> dict:
         return q
 
     return {
-        "norm": {"scale": torch.ones((repeat, D), device=dev)},
+        "norm": init_norm(cfg, (repeat, D), dev),
         "in_x": proj(D, w),
         "in_gate": proj(D, w),
         "conv_w": he_init(gen, (repeat, w, rc.d_conv), rc.d_conv),

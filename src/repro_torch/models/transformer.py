@@ -46,7 +46,8 @@ def _attend(p, x, *, cfg, cache, pos, mode, ft):
 
 def _init_attn_dense(gen, cfg, repeat):
     return {"attn": _init_attn(gen, cfg, repeat),
-            "mlp": L.init_mlp(gen, cfg, repeat)}
+            "mlp": L.init_mlp(gen, cfg, repeat,
+                              gated=cfg.norm_kind == "rmsnorm")}
 
 
 def _apply_attn_dense(p, x, *, cfg, cache, pos, mode, lengths, ft):
@@ -149,7 +150,7 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int,
             for blocks, repeat in _check_pattern(cfg)]
 
 
-def _layers(tree, repeat: int) -> list:
+def layer_views(tree, repeat: int) -> list:
     """Per-layer views of a stacked subtree (every leaf ``[repeat, ...]``):
     one ``unbind`` per leaf, so that under autograd a stack's gradient is
     gathered by one node instead of one full-size scatter per layer."""
@@ -180,8 +181,9 @@ def apply_stack(units_params, x, *, cfg: ModelConfig, caches=None, pos=None,
             if mode == "train" and name != "attn_dense":
                 raise NotImplementedError(
                     f"block {name!r} in train mode is not ported yet")
-        p_u = [_layers(p, repeat) for p in units_params[u]]
-        c_u = ([_layers(c, repeat) for c in caches[u]] if caches is not None
+        p_u = [layer_views(p, repeat) for p in units_params[u]]
+        c_u = ([layer_views(c, repeat) for c in caches[u]]
+                if caches is not None
                else [[None] * repeat for _ in blocks])
         for i in range(repeat):
             for b, name in enumerate(blocks):
@@ -193,16 +195,37 @@ def apply_stack(units_params, x, *, cfg: ModelConfig, caches=None, pos=None,
 
 # ---- embeddings / head ------------------------------------------------------
 
-def init_embed(gen, cfg: ModelConfig) -> dict:
+def init_embed(gen, cfg: ModelConfig, max_seq: int) -> dict:
+    """Token embedding, final norm, the head unless tied, and for a
+    layernorm model (whisper) learned positions ``pos`` [max_seq, D]."""
     p = {"tok": L.he_init(gen, (cfg.vocab_size, cfg.d_model), cfg.d_model),
-         "final_norm": {"scale": torch.ones((cfg.d_model,), device=gen.device)}}
+         "final_norm": L.init_norm(cfg, (cfg.d_model,), gen.device)}
     if not cfg.tie_embeddings:
         p["head"] = L.he_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model)
+    if cfg.norm_kind == "layernorm":
+        p["pos"] = L.he_init(gen, (max_seq, cfg.d_model), cfg.d_model)
     return p
 
 
-def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"][tokens].to(L.ACT_DTYPE)
+def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig,
+                 pos=None) -> torch.Tensor:
+    """bfloat16 embeddings of ``tokens`` [B, T], plus the learned
+    position embeddings where the model has them: positions 0..T-1 when
+    ``pos`` is None, else from ``pos``: a per-row vector [B] (decode, T ==
+    1), a [B, T] grid (token-packed prefill) or an int offset."""
+    x = p["tok"][tokens].to(L.ACT_DTYPE)
+    if "pos" not in p:
+        return x
+    T = tokens.shape[1]
+    if pos is None:
+        pe = p["pos"][:T][None]
+    elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        pe = p["pos"][pos][:, None]
+    elif isinstance(pos, torch.Tensor) and pos.dim() == 2:
+        pe = p["pos"][pos]
+    else:  # an int offset
+        pe = p["pos"][pos:pos + T][None]
+    return x + pe.to(L.ACT_DTYPE)
 
 
 def logits_head(p, x, cfg: ModelConfig) -> torch.Tensor:

@@ -57,6 +57,10 @@ every protected weight once (``prepare_params``); ``plans.misses`` stays 0
 under any admission mix. ``step(failed_group=r)`` fail-stops group r at
 every protected site of the step; the kernels roll it forward, so the
 tokens are bit-identical to a healthy run in every admission mode.
+As in the reference, the encoder-decoder family (whisper) takes no scope
+but ``head``, and its first admission raises (its prefill needs frames):
+it is served through the model API and the protected head
+(:mod:`repro_torch.ft.heads`).
 
 ``warm_state()`` hands those startup products to a replica of the same
 configuration: ``ServeEngine(..., warm=state)`` reruns no census, no plan
@@ -255,6 +259,10 @@ class ServeEngine:
             if scfg.ft_scope not in SCOPES:
                 raise ValueError(f"unknown ft_scope {scfg.ft_scope!r}; "
                                  f"expected one of {sorted(SCOPES)}")
+            if scfg.ft_scope != "head" and cfg.family == "encdec":
+                raise ValueError(
+                    "in-model protected GEMMs are decoder-only; enc-dec "
+                    "supports ft_scope='head' only")
             if warm is not None:  # the sibling replica's plan and head
                 self.plan = warm["plan"]
                 self.head_q, self.w_scale = warm["head_q"], warm["w_scale"]

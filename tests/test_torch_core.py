@@ -134,6 +134,6 @@ def test_llama_configs_match_reference():
 
 def test_unported_arch_raises_not_ported():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("whisper-small")
+        get_config("deepseek-v3-671b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")

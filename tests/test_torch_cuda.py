@@ -455,21 +455,53 @@ def test_cuda_s8_kernel_narrow_projections(cuda_device, N):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("K,N", [(2048, 92553), (768, 51865)])
+def test_cuda_s8_kernel_odd_width_heads(cuda_device, K, N):
+    """The s8 route at the two odd-width heads, internvl2-2b's [2048 x
+    92553] and whisper-small's [768 x 51865]: their rows of packed words
+    are not 16-byte aligned, so the kernel copies them 4 bytes at a time
+    (its ragged path). Decode rows [4, 2, K], activations on the eq.-13
+    grid, every mode and failed stream, equal to the plain version bit for
+    bit."""
+    from repro_torch.ft.quantize import activation_budget
+
+    plan = make_plan(4, 32)
+    rng = np.random.default_rng(K)
+    gp = pack_int8(torch.from_numpy(rng.integers(
+        -127, 128, size=(K, N)).astype(np.int32)), axis=0)
+    gp = gp.contiguous().to(cuda_device)
+    bud = activation_budget(plan, K)
+    c = torch.from_numpy(rng.integers(-bud, bud + 1, size=(4, 2, K)).astype(
+        np.int32)).to(cuda_device)
+    before = emm.launches_s8
+    for mode in MODES:
+        for r in [None] + list(range(4)):
+            kw = dict(fuse_epilogue=mode, failed=r, packed=True)
+            torch.testing.assert_close(
+                emm.entangled_matmul_cuda(c, gp, plan, **kw),
+                emm.entangled_matmul_plain(c, gp, plan, **kw),
+                rtol=0, atol=0)
+    assert emm.launches_s8 == before + len(MODES) * 5
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("ft", ["none", "all"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "internvl2-2b"])
 def test_prefill_and_decode_give_a_position_the_same_bits_on_the_card(
-        cuda_device, ft):
-    """The fleet's prefix resume on the card: llama3.2-1b at published
-    widths (cut to 2 layers) gives the position after ``prompt + k``
-    generated tokens the same final hidden state and logits, bit for bit,
-    decoded (the no-failure run) and prefilled as ``prompt + prefix``
-    (the resume), for a long and a short prompt."""
+        cuda_device, arch, ft):
+    """The fleet's prefix resume on the card: llama3.2-1b and internvl2-2b
+    (its text path, with its odd-width head) at published widths (cut to
+    2 layers) give the position after ``prompt + k`` generated tokens the
+    same final hidden state and logits, bit for bit, decoded (the
+    no-failure run) and prefilled as ``prompt + prefix`` (the resume), for
+    a long and a short prompt."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
     from repro_torch.serve import Request, ServeConfig, ServeEngine
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
     params = get_model(cfg).init(
         torch.Generator(device=cuda_device).manual_seed(0), cfg, max_seq=256,
         device=cuda_device)

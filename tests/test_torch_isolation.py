@@ -29,7 +29,11 @@ def test_importing_every_module_loads_no_jax(order):
     mods = list(_modules())
     assert {"repro_torch.serve.engine",
             "repro_torch.kernels.entangled_matmul_grouped",
-            "repro_torch.configs.deepseek_v2_lite_16b"} <= set(mods)
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.configs.whisper_small",
+            "repro_torch.configs.internvl2_2b",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.train_lm"} <= set(mods)
     assert len(mods) > 20
     if order == "reversed":
         mods.reverse()
