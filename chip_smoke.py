@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-It drives the port's serving paths and its training path, each at its
+It drives the port's serving paths and its training paths, each at its
 model's published widths with random weights from a seeded
 ``torch.Generator``: llama3.2-1b (dense decoder, 16 layers) served, served
 by a 4-replica fleet and trained; deepseek-v2-lite-16b (MLA attention, a
 dense first layer and 64-expert top-6 MoE layers; cut to 8 of its 27
 layers, since its float32 masters and int8 copies at all 27 layers do not
-fit one 80 GB card) served; qwen2-7b (28 layers, qkv bias) and
+fit one 80 GB card) served, and trained cut to 4 layers; qwen2-7b (28 layers, qkv bias) and
 minitron-8b (32 layers, ungated relu2 MLP) served whole, and granite-20b
 (MQA, ungated gelu MLP) served cut to 20 of its 52 layers (about 20.3 G
 parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20);
 falcon-mamba-7b (Mamba-1, 64 layers) and recurrentgemma-2b (RG-LRU and
-rolling-window MQA, 26 layers) served whole; internvl2-2b (24 layers
+rolling-window MQA, 26 layers) served whole, and trained cut to 2 and 6
+layers; internvl2-2b (24 layers
 behind 256 patch embeddings) and whisper-small (12 encoder and 12 decoder
 layers over 1500 frames) whole; and the
 paper's own experiment, the Fig. 2 stream convolution
@@ -129,6 +130,20 @@ exits nonzero:
                backward, synced healthy and with each of blocks 0-3 failed,
                every synced leaf and the updated state bit-identical. Then
                the mean step time per gradient sync and a profiler window;
+  4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 4 of 27 layers:
+               the dense first layer and 3 MoE layers), falcon-mamba-7b
+               (Mamba-1; 2 of 64) and recurrentgemma-2b (RG-LRU + local
+               attention; 6 of 26, two whole units) at published widths,
+               one at a time, each as phase 4: ``train_loop`` with block 1
+               fail-stopped at step 2 (the loop's final checkpoint into a
+               temporary directory, deleted after), launches of the
+               entangle / disentangle kernels per step, EXACT ROLL-FORWARD
+               (train-moe / train-ssm / train-hybrid) on one backward, step
+               ms per gradient sync (spmd, checksum, entangle on the
+               kernel codec), ``max_memory_allocated`` and a profiler
+               window; then the blocked attention's backward at T = S =
+               2048 with llama3.2-1b's heads, causal, against autograd
+               through the materialized scores;
   5. stream-conv — the conv, entangled conv and checksum kernels held
                against their plain versions (ragged shapes at K_f 1..4500,
                every plan, mode, packing and failed stream; the depthwise
@@ -249,6 +264,23 @@ LOGIT_TOL = 2.0 ** -5
 # steps of each gradient sync
 TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=2,
              timed_steps=5)
+# phase 4b: the other trainable families at published widths, each cut in
+# depth to what its training state (float32 params, gradients and two
+# AdamW moments, 16 bytes per param, and the out-of-place update) leaves
+# room for on one 80 GB card: deepseek-v2-lite-16b's dense first layer and
+# 3 MoE layers of 27 (2.255 G params), recurrentgemma-2b 6 of 26, two
+# (rglru, rglru, local_attn) units (1.169 G); falcon-mamba-7b 2 of 64
+# (0.743 G): memory allows 4, but its scan's eager steps (2.9 s a step at
+# 4 layers) took the phase to 392 s on the H100, past its share of the
+# script's time limit
+TRAIN_FAMILIES = {DEEPSEEK: 4, "falcon-mamba-7b": 2, "recurrentgemma-2b": 6}
+# the blocked attention's backward on the card: llama3.2-1b's heads at T =
+# S = 2048, past the materialization limit of 2048**2 / 4 scores
+FLASH_CHECK = dict(batch=2, T=2048)
+# the AdamW updates of the roll-forward check run on slices of a leaf this
+# long (elements), so that the largest expert stack's two updates fit
+# beside the state and two synced gradient trees
+UPDATE_SLICE = 1 << 26
 # the stream-conv path: the paper's Fig. 2 configuration
 # (repro_torch/configs/stream_conv.py: N_in = 1e6, K in 100..4500) at the
 # stream counts its benchmark runs, nothing cut
@@ -2248,15 +2280,18 @@ def phase_families(dev, kernels, smi):
 
 # ------------------------------------------------------------------ train --
 
-def _train_configs():
-    """(model config, TrainConfig, DataConfig) of the training path: the
+def _train_configs(arch=LLAMA):
+    """(model config, TrainConfig, DataConfig) of a training path: the
     entangled sync on the kernel codec, as ``examples/train_lm.py`` runs
-    the reference's (with its codec flag set to the kernels)."""
+    the reference's (with its codec flag set to the kernels); the
+    families of phase 4b cut to TRAIN_FAMILIES' depths."""
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import TrainConfig
 
-    cfg = model_config(LLAMA)
+    cfg = model_config(arch)
+    if arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_FAMILIES[arch])
     tcfg = TrainConfig(
         adamw=AdamWConfig(lr=1e-3, warmup_steps=1,
                           total_steps=TRAIN["steps"]),
@@ -2276,28 +2311,53 @@ def _batch(dcfg, step, dev):
             for k, v in SyntheticLM(dcfg).batch(step).items()}
 
 
-def phase_train(dev, kernels, path_kernels, n_params):
-    """``train_loop`` on full-width llama3.2-1b: TRAIN["steps"] steps with
-    block 1 of the entangled sync fail-stopped at TRAIN["fail_step"], then
-    the final blocking checkpoint into a temporary directory (deleted
-    afterwards). Every kernel's count is set to 0 just before and read just
-    after; each of ``path_kernels`` must have launched, and the losses
-    must be finite. Returns (state, counts, summary)."""
+def _n_params(cfg) -> int:
+    """The model's parameter count, from shapes alone (fake tensors: no
+    memory is taken)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.api import get_model
+
+    with FakeTensorMode():
+        params = get_model(cfg).init(torch.Generator(), cfg, TRAIN["seq"],
+                                     device="cpu")
+        return sum(t.numel() for t in _leaves(params))
+
+
+def _depth(cfg, arch) -> str:
+    from repro_torch.configs import get_config
+
+    full = get_config(arch).n_layers
+    return (f"{cfg.n_layers} of {full} layers" if cfg.n_layers != full
+            else f"{cfg.n_layers} layers")
+
+
+def phase_train(dev, kernels, path_kernels, arch=LLAMA, tag="train"):
+    """``train_loop`` on ``arch`` at published widths: TRAIN["steps"] steps
+    with block 1 of the entangled sync fail-stopped at
+    TRAIN["fail_step"], then the loop's final blocking checkpoint into a
+    temporary directory (deleted afterwards). Every kernel's count is set
+    to 0 just before and read just after; each of ``path_kernels`` must
+    have launched, and the losses must be finite. Returns (state, counts,
+    summary)."""
     import numpy as np
     import torch
 
     from repro_torch.train.trainer import LoopConfig, train_loop
 
-    cfg, tcfg, dcfg = _train_configs()
+    cfg, tcfg, dcfg = _train_configs(arch)
+    n_params = _n_params(cfg)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     need = 3 * 4 * n_params  # float32 params and both moments
     free = shutil.disk_usage(ckpt_dir).free
-    log(f"[train] {LLAMA} full width: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.4f} G "
-        f"params; batch {TRAIN['batch']} x seq {TRAIN['seq']}; grad_sync "
-        f"entangle (M={tcfg.ft_M}), codec {tcfg.grad_codec}; fail-stop of "
-        f"block 1 at step {TRAIN['fail_step']}; checkpoint "
-        f"{need / 1e9:.2f} GB into {ckpt_dir} ({free / 1e9:.1f} GB free)")
+    log(f"[{tag}] {arch} published widths, {_depth(cfg, arch)} "
+        f"({cfg.family}), d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.4f} G params; batch {TRAIN['batch']} x seq "
+        f"{TRAIN['seq']}; grad_sync entangle (M={tcfg.ft_M}), codec "
+        f"{tcfg.grad_codec}; fail-stop of block 1 at step "
+        f"{TRAIN['fail_step']}; checkpoint {need / 1e9:.2f} GB into "
+        f"{ckpt_dir} ({free / 1e9:.1f} GB free)")
     if free < 1.1 * need:
         raise RuntimeError(f"the disk under {ckpt_dir} cannot hold the "
                            f"{need / 1e9:.2f} GB checkpoint")
@@ -2319,11 +2379,11 @@ def phase_train(dev, kernels, path_kernels, n_params):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = {n: c / TRAIN["steps"] for n, c in counts.items()}
-    log(f"[train] train_loop: {TRAIN['steps']} steps + final checkpoint in "
-        f"{secs:.1f} s; losses {[float(x) for x in losses]}; kernel "
-        f"launches {counts} ({per_step} per step); max_memory_allocated "
-        f"{peak / 2**30:.2f} GiB; checkpoint {len(files)} leaves, "
-        f"{ckpt_bytes / 1e9:.3f} GB on disk (deleted)")
+    log(f"[{tag}] {arch} train_loop: {TRAIN['steps']} steps + final "
+        f"checkpoint in {secs:.1f} s; losses {[float(x) for x in losses]}; "
+        f"kernel launches {counts} ({per_step} per step); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; checkpoint "
+        f"{len(files)} leaves, {ckpt_bytes / 1e9:.3f} GB on disk (deleted)")
     if len(losses) != TRAIN["steps"] or not np.isfinite(losses).all():
         raise AssertionError(f"training losses bad: {losses}")
     if ckpt_bytes < need:
@@ -2332,28 +2392,59 @@ def phase_train(dev, kernels, path_kernels, n_params):
     for name in path_kernels:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched by the "
-                                 f"training path")
+                                 f"training path of {arch}")
     return state, counts, dict(loop_s=secs, losses=[float(x) for x in losses],
+                               n_params=n_params, layers=cfg.n_layers,
                                peak_gib=peak / 2**30,
                                launches_per_step=per_step)
 
 
-def train_rollforward(dev, state):
-    """EXACT ROLL-FORWARD (train): ONE backward at full width (two
+def _updates_equal(state, grads_a, grads_b, cfg, tcfg) -> int:
+    """The number of leaves on which the AdamW updates of ``state`` by two
+    gradient trees differ. The update is elementwise, its learning rate
+    and bias corrections from the step alone (as in ``apply_grads``), so
+    it runs on slices of at most UPDATE_SLICE elements of a leaf at a
+    time: two updated states never coexist on the card."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    lr_cfg = adamw.effective_lr_config(tcfg.adamw, cfg.d_model)
+    opt, bad = state["opt"], 0
+    with torch.no_grad():
+        for p, m, v, ga, gb in zip(leaves(state["params"]), leaves(opt["m"]),
+                                   leaves(opt["v"]), leaves(grads_a),
+                                   leaves(grads_b)):
+            flat = [t.reshape(-1) for t in (p, m, v, ga, gb)]
+            differ = False
+            for i in range(0, flat[0].numel(), UPDATE_SLICE):
+                p_, m_, v_, ga_, gb_ = (t[i:i + UPDATE_SLICE] for t in flat)
+                one = [adamw.update({"x": g}, {"m": {"x": m_}, "v": {"x": v_}},
+                                    {"x": p_}, state["step"], lr_cfg)
+                       for g in (ga_, gb_)]
+                differ |= any(not torch.equal(a, b) for a, b in
+                              zip(leaves(one[0]), leaves(one[1])))
+                del one
+            bad += differ
+    return bad
+
+
+def train_rollforward(dev, state, arch=LLAMA, tag="train"):
+    """EXACT ROLL-FORWARD (train): ONE backward at published widths (two
     backwards need not agree bit for bit: the embedding's backward
     accumulates with atomics), its gradients synced healthy and with each
     block failed; every synced leaf must be bit-identical, the kernel codec
     must equal the plain codec, and the AdamW update from the healthy and
-    the failed sync must give the same state."""
+    the block-1-failed sync must give the same state."""
     import dataclasses as dc
 
     import torch
 
-    from repro_torch.train.train_step import (apply_grads, loss_and_grads,
-                                              sync_grads)
+    from repro_torch.train.train_step import loss_and_grads, sync_grads
     from repro_torch.tree import leaves
 
-    cfg, tcfg, dcfg = _train_configs()
+    cfg, tcfg, dcfg = _train_configs(arch)
     batch = _batch(dcfg, TRAIN["steps"], dev)
     loss, grads = loss_and_grads(cfg, state["params"], batch)
     with torch.no_grad():
@@ -2379,26 +2470,30 @@ def train_rollforward(dev, state):
                 failed1 = synced
             del synced
         del grads
-    new_h = apply_grads(state, healthy, cfg, tcfg)
-    new_f = apply_grads(state, failed1, cfg, tcfg)
-    bad = sum(not torch.equal(a, b)
-              for a, b in zip(leaves(new_h), leaves(new_f)))
-    del new_h, new_f, healthy, failed1
+    bad = _updates_equal(state, healthy, failed1, cfg, tcfg)
+    del healthy, failed1
     free_cuda()
     if bad:
         raise AssertionError(f"updated state differs on {bad} leaves")
-    log(f"[train] {LLAMA} recovery summary: one backward (loss "
+    what = "train" if arch == LLAMA else f"train-{cfg.family}"
+    log(f"[{tag}] {arch} recovery summary: one backward (loss "
         f"{loss.item():.4f}), {n} gradient leaves synced healthy and with "
         f"failed_block 0, 1, 2, 3 on the kernel codec: every synced leaf "
         f"bit-identical, kernel codec == plain codec, AdamW update from "
-        f"block 1 failed == healthy (EXACT ROLL-FORWARD (train))")
+        f"block 1 failed == healthy (EXACT ROLL-FORWARD ({what}))")
 
 
-def train_timings(dev, state):
+def train_timings(dev, held, arch=LLAMA, tag="train",
+                  syncs=(("spmd", "plain"), ("entangle", "plain"),
+                         ("entangle", "kernel"), ("checksum", "plain"))):
     """Mean train-step time per gradient sync (host clock around steps
     that end in a synchronize, after TRAIN["warm_steps"] each), then the
     device time of one entangled sync on the kernel codec and the device
-    idle share of one such step, from profiler windows."""
+    idle share of one such step, from profiler windows. ``held`` is a
+    one-element list holding the train state, which is taken out of it:
+    each step then holds the only reference to the state it replaces, as
+    in ``train_loop`` (a caller's reference would keep a third state on
+    the card)."""
     import dataclasses as dc
 
     import torch
@@ -2406,11 +2501,11 @@ def train_timings(dev, state):
     from repro_torch.train.train_step import (loss_and_grads, make_train_step,
                                               sync_grads)
 
-    cfg, tcfg, dcfg = _train_configs()
+    state = held.pop()
+    cfg, tcfg, dcfg = _train_configs(arch)
     batch = _batch(dcfg, 0, dev)
     out = {}
-    for sync, codec in (("spmd", "plain"), ("entangle", "plain"),
-                        ("entangle", "kernel"), ("checksum", "plain")):
+    for sync, codec in syncs:
         step = make_train_step(cfg, dc.replace(tcfg, grad_sync=sync,
                                                grad_codec=codec))
         for _ in range(TRAIN["warm_steps"]):
@@ -2425,7 +2520,7 @@ def train_timings(dev, state):
             times.append(time.perf_counter() - t0)
         key = sync if sync != "entangle" else f"entangle/{codec}"
         out[key] = 1e3 * sum(times) / len(times)
-        log(f"[train] step time, grad_sync {key}: mean "
+        log(f"[{tag}] {arch} step time, grad_sync {key}: mean "
             f"{out[key]:.3f} ms over {len(times)} steps "
             f"({', '.join(f'{1e3 * t:.3f}' for t in times)} ms)")
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2468,21 +2563,122 @@ def train_timings(dev, state):
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
-    log(f"[profile] one entangled sync (kernel codec) of the full-width "
+    out["top_ops"] = [dict(ms=us / 1e3, op=key[:160], count=n)
+                      for us, key, n in rows[:10]]
+    log(f"[profile] {arch}: one entangled sync (kernel codec) of the "
         f"gradients: device {out['sync_device_ms']:.3f} ms, of which the "
         f"entangle + disentangle kernels {out['sync_codec_kernels_ms']:.3f} "
         f"ms (traced launches {out['sync_codec_launches_traced']})")
-    log(f"[profile] one train step (entangle/kernel) under the profiler: "
-        f"wall {wall:.3f} ms, device busy {out['step_busy_ms']:.3f} ms (idle "
-        f"{100 - 100 * out['step_busy_ms'] / wall:.1f}% of the profiled wall, "
+    log(f"[profile] {arch}: one train step (entangle/kernel) under the "
+        f"profiler: wall {wall:.3f} ms, device busy {out['step_busy_ms']:.3f}"
+        f" ms (idle {100 - 100 * out['step_busy_ms'] / wall:.1f}% of the "
+        f"profiled wall, "
         f"{100 - 100 * out['step_busy_ms'] / out['entangle/kernel']:.1f}% of "
         f"the unprofiled mean step; traced codec launches "
         f"{out['step_codec_launches_traced']})")
-    for dev_us, key, count in rows[:10]:
-        log(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:160]}")
+    for r in out["top_ops"]:
+        log(f"[profile]   {r['ms']:9.3f} ms  x{r['count']:<5d} {r['op']}")
     del state
     free_cuda()
     return out
+
+
+def flash_backward_check(dev):
+    """The blocked attention's backward on the card at T = S =
+    FLASH_CHECK["T"] with llama3.2-1b's heads (32 query heads on 8 KV
+    heads of 64), causal, bfloat16 q / k / v as the models give them:
+    out, dq, dk and dv against autograd through the materialized scores
+    on the same inputs, within the CPU test's tolerances
+    (tests/test_torch_loss.py: out within 2e-6, the bfloat16 gradients
+    within one bf16 ulp). Device ms of each forward + backward from CUDA
+    events."""
+    import torch
+
+    from repro_torch.models import attention_core as AC
+
+    B, T = FLASH_CHECK["batch"], FLASH_CHECK["T"]
+    cfg = model_config(LLAMA)
+    Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // Hkv
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+               .requires_grad_() for s in ((B, Hkv, G, T, hd),
+                                           (B, Hkv, T, hd), (B, Hkv, T, hd)))
+    dout = torch.randn((B, Hkv, G, T, hd), generator=gen, device=dev)
+    scale = 1 / hd ** 0.5
+    ok = AC._mask(AC.MaskInfo("causal"), T, T, dev)
+
+    def blocked():
+        out = AC.attend(q, k, v, kind="causal")
+        return (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+    def materialized():
+        out = AC._softmax_block(q, k, v, ok, scale)
+        return (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+    assert T * T > AC.FLASH_THRESHOLD ** 2 // 4  # the blocked path
+    res, ms = {}, {}
+    for name, fn in (("blocked", blocked), ("materialized", materialized),
+                     ("blocked", blocked), ("materialized", materialized)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res[name] = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append(start.elapsed_time(end))
+        ms[name + "_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    (o, *g), (wo, *wg) = res["blocked"], res["materialized"]
+    out_err = (o - wo).abs().max().item()
+    errs = []
+    for a, b in zip(g, wg):
+        a, b = a.float(), b.float()
+        errs.append(((a - b).abs() - 2 ** -7 * (1 + b.abs())).max().item())
+    del res, o, wo, g, wg, q, k, v, dout
+    free_cuda()
+    log(f"[train-families] flash backward on the card: [{B}, {Hkv}, {G}, "
+        f"{T}, {hd}] bf16 causal; out max |err| {out_err:.3e} (tolerance "
+        f"2e-6); dq / dk / dv excess over one bf16 ulp "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (must be <= 0); forward + "
+        f"backward ms, blocked {ms['blocked']} vs materialized "
+        f"{ms['materialized']}; peak {ms['blocked_peak_gib']:.2f} / "
+        f"{ms['materialized_peak_gib']:.2f} GiB")
+    if out_err > 2e-6 or max(errs) > 0:
+        raise AssertionError("the blocked attention's backward disagrees "
+                             "with the materialized path on the card")
+    return dict(shape=[B, Hkv, G, T, hd], out_max_abs_err=out_err,
+                grad_excess_over_ulp=errs, ms=ms)
+
+
+def phase_train_families(dev, kernels):
+    """Phase 4b: each family of TRAIN_FAMILIES trained at published widths
+    cut to its depth, one at a time (its memory freed before the next):
+    ``train_loop`` with a fail-stopped block (:func:`phase_train`), EXACT
+    ROLL-FORWARD (train-<family>) on one backward
+    (:func:`train_rollforward`), the step ms per gradient sync (spmd,
+    checksum, entangle on the kernel codec) and a profiler window
+    (:func:`train_timings`); then the blocked attention's backward on the
+    card (:func:`flash_backward_check`). Returns (counts by arch,
+    record)."""
+    t0 = time.perf_counter()
+    counts, rec = {}, {}
+    for arch in TRAIN_FAMILIES:
+        state, counts[arch], rec[arch] = phase_train(
+            dev, kernels, ["entangle", "disentangle"], arch,
+            tag="train-families")
+        train_rollforward(dev, state, arch, tag="train-families")
+        held = [state]
+        del state
+        rec[arch]["timings"] = train_timings(
+            dev, held, arch, tag="train-families",
+            syncs=(("spmd", "plain"), ("checksum", "plain"),
+                   ("entangle", "kernel")))
+        free_cuda()
+    rec["flash_backward"] = flash_backward_check(dev)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[train-families] phase {rec['seconds']:.1f} s")
+    return counts, rec
 
 
 def codec_timings(dev):
@@ -3370,13 +3566,14 @@ def main() -> int:
     grad_shapes = llama_grad_shapes(dev)
     check_codec(dev, {n: by_name[n]["checker"]
                       for n in ("entangle", "disentangle")}, grad_shapes)
-    n_params = sum(n * len(v) for n, v in grad_shapes.items())
     state, train_counts, train = phase_train(
-        dev, kernels, ["entangle", "disentangle"], n_params)
+        dev, kernels, ["entangle", "disentangle"])
     train_rollforward(dev, state)
-    train["timings"] = train_timings(dev, state)
+    held = [state]
     del state
+    train["timings"] = train_timings(dev, held)
     free_cuda()
+    tf_counts, train_families = phase_train_families(dev, kernels)
     stream = run_stream_conv(dev, kernels)
     rows = phase_timings(dev)
     rows.update(codec_timings(dev))
@@ -3405,6 +3602,8 @@ def main() -> int:
                         for a, c in recurrent_counts.items()})
         by_path.update({a: c[name] for a, c in family_counts.items()})
         by_path[train_path] = train_counts[name]
+        by_path.update({f"{a} train-families": c[name]
+                        for a, c in tf_counts.items()})
         by_path["stream-conv"] = stream["counts"][name]
         if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
             head = rows[name][0]
@@ -3413,8 +3612,11 @@ def main() -> int:
         elif name in ("entangle", "disentangle"):
             head = rows[name]
             extra = dict(launches=train_counts[name],
-                         launches_per_train_step=train["launches_per_step"][
-                             name], timings=[head])
+                         launches_per_train_step=dict(
+                             {LLAMA: train["launches_per_step"][name]},
+                             **{a: train_families[a]["launches_per_step"][
+                                 name] for a in TRAIN_FAMILIES}),
+                         timings=[head])
         else:
             head = rows[name][0]
             core = head["cuda_core"]
@@ -3461,6 +3663,7 @@ def main() -> int:
     record["recurrent"] = recurrent
     record["families"] = families
     record["train"] = train
+    record["train_families"] = train_families
     record["stream_conv"] = stream
     print(smi, flush=True)
     print(json.dumps(record), flush=True)

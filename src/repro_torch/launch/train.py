@@ -7,8 +7,10 @@ one device, ``--device`` (default ``cuda``; it raises when no GPU is
 present). The flags are the reference launcher's; there is no mesh, since
 the port runs on one device. As in the reference, the CLI exposes no codec
 flag: the entangled sync runs ``TrainConfig.grad_codec``'s default.
-Training is ported for the dense decoder (llama3.2-1b); other archs raise
-"not ported yet".
+Every decoder family trains: the dense decoders, MLA + MoE
+(deepseek-v2-lite-16b), Mamba-1 (falcon-mamba-7b), RG-LRU + local
+attention (recurrentgemma-2b) and the vision-language text path; the
+synthetic corpus has no audio frames for whisper-small.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Model API of the port: the decoder families — dense, MoE, SSM (Mamba-1),
 hybrid (RG-LRU + rolling-window attention) and the vision-language one
 (a dense decoder behind precomputed patch embeddings) — and the
-encoder-decoder family (whisper) (port of :mod:`repro.models.api`; train
-mode for the dense decoders and the encoder-decoder)::
+encoder-decoder family (whisper) (port of :mod:`repro.models.api`; every
+family trains)::
 
     model = get_model(cfg)
     params = model.init(gen, cfg, max_seq, device=dev)  # gen: torch.Generator
@@ -58,6 +58,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.loss import streamed_lm_ce
 from repro_torch.tree import tree_map
 
 
@@ -98,9 +99,9 @@ def _prefix_embeds(p, batch, cfg: ModelConfig) -> torch.Tensor:
 def _forward_train(p, batch, cfg: ModelConfig):
     """Logits of a training batch ``{"tokens": [B, T]}`` (and
     ``"patch_embeds"``, whose positions give no logits): the whole
-    sequence, causal, no cache (the dense decoder; MLA, MoE, local
-    attention, Mamba and RG-LRU blocks raise "not ported yet" in train
-    mode). The params may be autograd leaves."""
+    sequence, causal, no cache, every block of the pattern (under
+    ``cfg.remat``'s activation checkpointing). The params may be autograd
+    leaves."""
     if cfg.mtp:
         raise NotImplementedError("the MTP head is not ported yet")
     h = T.apply_stack(p["stack"], _prefix_embeds(p, batch, cfg), cfg=cfg,
@@ -365,18 +366,18 @@ def get_model(cfg: ModelConfig) -> Model:
 
 def lm_loss(logits: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross entropy over the batch's ``loss_mask`` (all ones
-    when absent): the reference's ``loss_impl='naive'`` (a float32
-    log-softmax over the whole vocab). The streamed CE and the MTP term
-    are not ported yet."""
-    if cfg.loss_impl != "naive":
-        raise NotImplementedError(
-            f"loss_impl={cfg.loss_impl!r} is not ported yet (only 'naive')")
+    when absent): a float32 log-softmax over the whole vocab, or with
+    ``loss_impl='streamed'`` (:func:`repro_torch.models.loss.
+    streamed_lm_ce`, which saves no [tokens, vocab] residual). The MTP
+    term is not ported yet."""
     if isinstance(logits, tuple):
         raise NotImplementedError("the MTP loss term is not ported yet")
     tokens = batch["tokens"]
     full_mask = batch.get("loss_mask")
     if full_mask is None:
         full_mask = torch.ones_like(tokens)
+    if cfg.loss_impl == "streamed":
+        return streamed_lm_ce(logits, tokens, full_mask, shift=1)
     mask = full_mask[:, 1:].to(torch.float32)
     lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
     ll = torch.take_along_dim(lp, tokens[:, 1:, None].to(torch.int64),

@@ -12,7 +12,9 @@ softmax) in float32 — the reference's own path for every problem with
 the reference's blocked forward (:func:`_flash_fwd`: query blocks of 512,
 each with an online softmax over the key blocks of its band), so the
 scores never grow as T * S and the sums are the reference's (whisper's
-encoder, 1500 frames against 1500). Its backward is not ported.
+encoder, 1500 frames against 1500), and its blocked backward
+(:func:`_flash_bwd`) recomputes each block's probabilities from the saved
+logsumexp, so training past that limit never forms [T, S] either.
 """
 from __future__ import annotations
 
@@ -124,18 +126,18 @@ def _band(info: MaskInfo, iq: int, qb: int, kb: int, nk: int) -> tuple:
 
 
 def _flash_fwd(q, k, v, info: MaskInfo, scale: float, qb: int,
-               kb: int) -> torch.Tensor:
+               kb: int) -> tuple:
     """The reference's blocked forward (``_flash_fwd_inner``): q
     [B,Hkv,G,T,dk] with T % qb == 0, k / v padded to multiples of kb (the
     pad keys masked by ``info.kv_len``). Query block by query block, an
     online softmax over the key blocks of its band, in float32: running
     max m, denominator l and accumulator, rescaled by exp(m - m_new) per
     key block; masked scores are NEG and their weights exact zeros.
-    Returns [B,Hkv,G,T,dv] float32."""
+    Returns (out [B,Hkv,G,T,dv] float32, logsumexp [B,Hkv,G,T])."""
     B, Hkv, G, T, _ = q.shape
     S, dv = k.shape[2], v.shape[-1]
     nk = S // kb
-    outs = []
+    outs, lses = [], []
     for iq in range(T // qb):
         qi = q[:, :, :, iq * qb:(iq + 1) * qb].to(torch.float32)
         qpos = info.q_off + iq * qb + torch.arange(qb, device=q.device)
@@ -162,8 +164,103 @@ def _flash_fwd(q, k, v, info: MaskInfo, scale: float, qb: int,
             acc = acc * corr[..., None] + torch.einsum(
                 "bhgqk,bhkd->bhgqd", p, vj)
             m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    return torch.cat(outs, dim=3)
+        l = torch.clamp(l, min=1e-30)
+        outs.append(acc / l[..., None])
+        lses.append(m + torch.log(l))
+    return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, info: MaskInfo, scale: float,
+               qb: int, kb: int) -> tuple:
+    """The reference's blocked backward (``_flash_bwd``): the probabilities
+    of each (query block, key block) pair of a band are recomputed from the
+    saved logsumexp, so no [T, S] tensor is formed. dq query block by
+    query block over its band's key blocks; dk / dv key block by key block
+    over the query blocks whose band holds it. Sums in float32; returns
+    (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, Hkv, G, T, dk = q.shape
+    S, dv = k.shape[2], v.shape[-1]
+    nq, nk = T // qb, S // kb
+    dout = dout.to(torch.float32)
+    D = (dout * out).sum(dim=-1)  # [B,Hkv,G,T]
+    f32 = torch.float32
+
+    def q_blk(iq):
+        sl = slice(iq * qb, (iq + 1) * qb)
+        return (q[:, :, :, sl].to(f32), dout[:, :, :, sl], lse[..., sl],
+                D[..., sl], info.q_off + iq * qb + torch.arange(
+                    qb, device=q.device))
+
+    def k_blk(jk):
+        sl = slice(jk * kb, (jk + 1) * kb)
+        return k[:, :, sl].to(f32), v[:, :, sl].to(f32)
+
+    def probs(qi, lse_i, qpos, kj, jk):
+        kpos = jk * kb + torch.arange(kb, device=q.device)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qi, kj) * scale
+        mask = _block_mask(info, qpos, kpos)
+        if mask is not None:
+            s = torch.where(mask, s, torch.full_like(s, NEG))
+        p = torch.exp(s - lse_i[..., None])
+        if mask is not None:
+            p = torch.where(mask, p, torch.zeros_like(p))
+        return p
+
+    dq_blocks = []
+    for iq in range(nq):
+        qi, do_i, lse_i, D_i, qpos = q_blk(iq)
+        dq_i = torch.zeros((B, Hkv, G, qb, dk), dtype=f32, device=q.device)
+        lo, hi = _band(info, iq, qb, kb, nk)
+        for jk in range(lo, hi):
+            kj, vj = k_blk(jk)
+            p = probs(qi, lse_i, qpos, kj, jk)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do_i, vj)
+            ds = p * (dp - D_i[..., None])
+            dq_i = dq_i + torch.einsum("bhgqk,bhkd->bhgqd", ds, kj)
+        dq_blocks.append(dq_i * scale)
+    bands = [_band(info, iq, qb, kb, nk) for iq in range(nq)]
+    dk_blocks, dv_blocks = [], []
+    for jk in range(nk):
+        kj, vj = k_blk(jk)
+        dk_j = torch.zeros((B, Hkv, kb, dk), dtype=f32, device=q.device)
+        dv_j = torch.zeros((B, Hkv, kb, dv), dtype=f32, device=q.device)
+        for iq in (i for i, (lo, hi) in enumerate(bands) if lo <= jk < hi):
+            qi, do_i, lse_i, D_i, qpos = q_blk(iq)
+            p = probs(qi, lse_i, qpos, kj, jk)
+            dv_j = dv_j + torch.einsum("bhgqk,bhgqd->bhkd", p, do_i)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do_i, vj)
+            ds = p * (dp - D_i[..., None])
+            dk_j = dk_j + torch.einsum("bhgqk,bhgqd->bhkd", ds, qi)
+        dk_blocks.append(dk_j * scale)
+        dv_blocks.append(dv_j)
+    return (torch.cat(dq_blocks, dim=3).to(q.dtype),
+            torch.cat(dk_blocks, dim=2).to(k.dtype),
+            torch.cat(dv_blocks, dim=2).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The blocked forward, saving (q, k, v, out, lse), and the blocked
+    backward (the reference's ``flash_attention`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, info, scale, qb, kb):
+        out, lse = _flash_fwd(q, k, v, info, scale, qb, kb)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (info, scale, qb, kb)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return _flash_bwd(*ctx.saved_tensors, dout, *ctx.args) + (
+            None,) * 4
+
+
+def flash_attention(q, k, v, info: MaskInfo, scale: float, qb: int,
+                    kb: int) -> torch.Tensor:
+    """Blocked attention of padded q [B,Hkv,G,T,dk] (T % qb == 0) against k
+    / v padded to multiples of kb, with the blocked backward under
+    autograd: [B,Hkv,G,T,dv] float32."""
+    return _FlashAttention.apply(q, k, v, info, scale, qb, kb)
 
 
 def attend(q, k, v, *, kind: str, kv_len: int = 0,
@@ -174,7 +271,8 @@ def attend(q, k, v, *, kind: str, kv_len: int = 0,
     ``window`` attends to the keys in (q - window, q]. Scores are
     materialized while ``T * S <= 2048**2 / 4`` or T == 1, as in the
     reference; past that the queries and keys are padded to blocks of
-    512 and go through its blocked forward (:func:`_flash_fwd`)."""
+    512 and go through its blocked forward and, under autograd, its
+    blocked backward (:func:`flash_attention`)."""
     T, S = q.shape[3], k.shape[2]
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
     if T * S <= FLASH_THRESHOLD * FLASH_THRESHOLD // 4 or T == 1:
@@ -182,10 +280,10 @@ def attend(q, k, v, *, kind: str, kv_len: int = 0,
                    q.device)
         return _softmax_attend(q, k, v, ok, scale)
     qb, kb = DEFAULT_QB, DEFAULT_KB
-    out = _flash_fwd(_pad_axis(q, 3, qb), _pad_axis(k, 2, kb),
-                     _pad_axis(v, 2, kb),
-                     MaskInfo(kind, kv_len or S, q_off, window), scale, qb,
-                     kb)
+    out = flash_attention(_pad_axis(q, 3, qb), _pad_axis(k, 2, kb),
+                          _pad_axis(v, 2, kb),
+                          MaskInfo(kind, kv_len or S, q_off, window), scale,
+                          qb, kb)
     return out[:, :, :, :T]
 
 

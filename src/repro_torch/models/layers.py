@@ -7,8 +7,8 @@ Conventions, as in the reference:
     bfloat16, :data:`ACT_DTYPE`);
   * ``mode`` is ``prefill``, ``decode`` or ``train``; decode processes
     T=1 tokens against a KV cache (or a recurrent state) with a per-row
-    position vector ``pos`` [B]; train runs a whole sequence with no
-    cache (dense decoder only);
+    position vector ``pos`` [B]; train runs a whole sequence from
+    position 0 with no cache (every block, under autograd);
   * :func:`dense` / :func:`dense_fanout` are the protected-GEMM
     chokepoints: with an :class:`~repro_torch.ft.FTContext` whose scope
     covers the site, the projection runs as the fused entangled int8 GEMM;
@@ -39,10 +39,9 @@ ACT_DTYPE = torch.bfloat16
 # 1024 rows of falcon-mamba-7b's 4096 x 16384 in_proj differed
 # (tests/test_torch_cuda.py holds every served projection shape)
 GEMM_ROWS = 256
-# largest T * S of the reference's materialized attention (FLASH_THRESHOLD
-# 2048: T * S <= 2048**2 / 4); train mode beyond it needs the flash
-# backward
-TRAIN_SCORES_MAX = 2048 * 2048 // 4
+# the training scan of a Mamba block runs in checkpointed chunks of this
+# many steps when they divide the sequence (the reference's Q)
+MAMBA_CHUNK = 64
 
 
 def he_init(gen: torch.Generator, shape: tuple, fan_in: int) -> torch.Tensor:
@@ -401,10 +400,10 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     masked keys add exact zeros). ``decode``: ``pos`` is the per-row
     position vector [B] of the one new token. ``train``: no cache (it must
     be None, so that nothing is written in place under autograd); the
-    sequence attends causally to itself, through the materialized-score
-    path, which the reference takes while ``T * T <= 2048**2 / 4`` (past
-    that it trains through its flash path, whose backward is not ported
-    yet).
+    sequence attends causally (with ``window``, within its window) to
+    itself, through the materialized scores while ``T * T <= 2048**2 /
+    4``, past that through the blocked forward and backward, as the
+    reference.
 
     With ``window`` (recurrentgemma's local attention) the cache is a
     rolling buffer: decode writes slot pos % window and masks the slots on
@@ -444,11 +443,6 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
     elif mode in ("train", "encode"):
         if cache is not None:
             raise ValueError(f"{mode} mode takes no cache")
-        if mode == "train" and T * T > TRAIN_SCORES_MAX:
-            raise NotImplementedError(
-                f"train attention over T={T} needs the reference's flash "
-                f"backward, which is not ported yet (T*T <= "
-                f"{TRAIN_SCORES_MAX})")
         k_all, v_all = k, v
     elif mode == "decode":
         rows = torch.arange(B, device=x.device)
@@ -537,13 +531,12 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
     r] and the shared roped key [B, S, dr], written in place, and every
     step up-projects the cached latents to per-head keys and values
     (``wkv_b``, an unprotected projection). ``pos`` and ``mode`` as in
-    :func:`apply_attention`, the per-row prefill offsets included."""
+    :func:`apply_attention`, the per-row prefill offsets and train mode
+    (no cache, the sequence's own latents) included."""
     from repro_torch.models.attention_core import (attend, attend_decode,
                                                    attend_prefill_packed)
 
     m = cfg.mla
-    if mode == "train":
-        raise NotImplementedError("MLA in train mode is not ported yet")
     if cfg.mla_absorb:
         raise NotImplementedError("absorbed MLA (mla_absorb) is not ported "
                                   "yet")
@@ -562,7 +555,11 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
     # one roped key shared across heads
     k_rope = rope(kv[..., r:][:, :, None, :], positions,
                   cfg.rope_theta)[:, :, 0]
-    if mode == "decode":
+    if mode == "train":
+        if cache is not None:
+            raise ValueError("train mode takes no cache")
+        ckv_s, kr_s = ckv, k_rope
+    elif mode == "decode":
         rows = torch.arange(B, device=x.device)
         cache["ckv"][rows, positions[:, 0]] = ckv[:, 0]
         cache["krope"][rows, positions[:, 0]] = k_rope[:, 0]
@@ -871,6 +868,24 @@ def _mamba_scan(dt, dtu, Bc, Cc, A, h, valid) -> tuple:
     return torch.stack(ys, dim=1), h
 
 
+def _mamba_scan_chunked(dt, dtu, Bc, Cc, A, h) -> tuple:
+    """:func:`_mamba_scan` in chunks of :data:`MAMBA_CHUNK` steps, each
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+    its chunk body): the backward keeps the state h at the chunk
+    boundaries and recomputes a chunk's steps, never holding every step's
+    [B, d_inner, d_state] at once. The steps are :func:`_mamba_scan`'s, so
+    the outputs are its bits."""
+    from torch.utils.checkpoint import checkpoint
+
+    ys = []
+    for t0 in range(0, dt.shape[1], MAMBA_CHUNK):
+        sl = slice(t0, t0 + MAMBA_CHUNK)
+        y, h = checkpoint(_mamba_scan, dt[:, sl], dtu[:, sl], Bc[:, sl],
+                          Cc[:, sl], A, h, None, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
 def _lru_scan(a, x, h, valid) -> tuple:
     """The RG-LRU recurrence h = a_t * h + x_t over the chunk's T steps,
     h held where ``valid`` [T, B] is False. a, x [B, T, w]; h [B, w].
@@ -949,10 +964,10 @@ def apply_mamba(p, x: torch.Tensor, *, cfg: ModelConfig, cache, pos,
     [B] gates the recurrence per row, so a pad step holds h and the tail
     keeps the last real inputs: bucket padding never enters the carried
     state. Decode (T = 1) runs the same conv and step functions as
-    prefill, so a position gets the same bits from both."""
+    prefill, so a position gets the same bits from both. Train (no cache,
+    from position 0) runs them too, its scan in checkpointed chunks
+    (:func:`_mamba_scan_chunked`) when :data:`MAMBA_CHUNK` divides T."""
     sc = cfg.ssm
-    if mode == "train":
-        raise NotImplementedError("Mamba in train mode is not ported yet")
     B, T, _ = x.shape
     di, dtr = _mamba_dims(cfg)
     S = sc.d_state
@@ -974,7 +989,10 @@ def apply_mamba(p, x: torch.Tensor, *, cfg: ModelConfig, cache, pos,
     valid = (_prefill_valid(off, T, lengths, time_major=True)
              if mode == "prefill" else None)  # [T, B]
     h = _state_in(cache, off, mode, (B, di, S), x.device)
-    ys, h = _mamba_scan(dt, dt * u, Bc, Cc, A, h, valid)
+    if mode == "train" and T % MAMBA_CHUNK == 0 and T > MAMBA_CHUNK:
+        ys, h = _mamba_scan_chunked(dt, dt * u, Bc, Cc, A, h)
+    else:
+        ys, h = _mamba_scan(dt, dt * u, Bc, Cc, A, h, valid)
     y = ys + u * p["D_skip"].to(torch.float32)
     y = y.to(ACT_DTYPE) * silu(z)
     _store_state(cache, _new_conv_tail(xp, off, T, lengths, mode, sc.d_conv),
@@ -1025,10 +1043,9 @@ def apply_rglru(p, x: torch.Tensor, *, cfg: ModelConfig, cache, pos,
     gate goes through ``gelu``, the input through the causal conv, then
     the unprotected bf16 gates ``w_a`` / ``w_i`` and the scan
     h = a * h + sqrt(1 - a^2) * (i * u); ``out`` is ``out.o``. ``pos``,
-    ``lengths`` and the gating of pad steps as in :func:`apply_mamba`."""
+    ``lengths``, the gating of pad steps and train mode (one scan over
+    the whole sequence) as in :func:`apply_mamba`."""
     rc = cfg.rglru
-    if mode == "train":
-        raise NotImplementedError("RG-LRU in train mode is not ported yet")
     B, T, _ = x.shape
     w = rc.lru_width or cfg.d_model
     off = 0 if mode == "decode" else prefill_off(pos)

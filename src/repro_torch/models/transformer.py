@@ -19,6 +19,7 @@ leaves).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -158,11 +159,40 @@ def layer_views(tree, repeat: int) -> list:
     return [unflatten(tree, [u[i] for u in per_leaf]) for i in range(repeat)]
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat='dots'``: keep the matmuls' outputs, recompute the rest
+    (the counterpart of ``checkpoint_dots_with_no_batch_dims``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, remat: str):
+    """``body(x)`` under ``remat``'s activation checkpointing: 'none' runs
+    it as it is, 'dots' saves only the matmul outputs, any other value
+    saves nothing (the reference's ``nothing_saveable``)."""
+    if remat == "none":
+        return body
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda x: checkpoint(body, x, use_reentrant=False, **kw)
+
+
 def apply_stack(units_params, x, *, cfg: ModelConfig, caches=None, pos=None,
                 mode: str, lengths=None, ft=None):
     """Run every layer of every pattern unit in order. ``mode`` is
     ``prefill`` / ``decode`` (the caches are written in place) or
-    ``train`` (no caches; the params may be autograd leaves). In prefill
+    ``train`` (no caches; the params may be autograd leaves; each unit's
+    body per repeat under ``cfg.remat``'s activation checkpointing, as the
+    reference's scan body). In prefill
     ``pos`` is the chunk offset shared by every row, or a per-row offset
     vector [B] (token-packed prefill: with the chunk width it gives every
     row its own [T] position grid). ``lengths`` [B] (bucketed prefill)
@@ -170,26 +200,27 @@ def apply_stack(units_params, x, *, cfg: ModelConfig, caches=None, pos=None,
     gets its slice of the stacked params — startup-quantized q8 stacks
     included, so an expert stack's scales ``[repeat, E]`` reach the grouped
     site as ``[E]``. Returns the hidden states."""
-    if mode == "train":
-        if caches is not None:
-            raise ValueError("train mode takes no caches")
-        if cfg.remat != "none":
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet (only 'none')")
+    if mode == "train" and caches is not None:
+        raise ValueError("train mode takes no caches")
+    remat = cfg.remat if mode == "train" else "none"
     for u, (blocks, repeat) in enumerate(_check_pattern(cfg)):
-        for b, name in enumerate(blocks):
-            if mode == "train" and name != "attn_dense":
-                raise NotImplementedError(
-                    f"block {name!r} in train mode is not ported yet")
         p_u = [layer_views(p, repeat) for p in units_params[u]]
         c_u = ([layer_views(c, repeat) for c in caches[u]]
-                if caches is not None
+               if caches is not None
                else [[None] * repeat for _ in blocks])
         for i in range(repeat):
-            for b, name in enumerate(blocks):
-                x = BLOCKS[name].apply(p_u[b][i], x, cfg=cfg,
-                                       cache=c_u[b][i], pos=pos, mode=mode,
-                                       lengths=lengths, ft=ft)
+            # bound now: a checkpoint calls the body again in the backward
+            body = functools.partial(
+                _unit_body, blocks, [p[i] for p in p_u], [c[i] for c in c_u],
+                cfg=cfg, pos=pos, mode=mode, lengths=lengths, ft=ft)
+            x = _remat(body, remat)(x)
+    return x
+
+
+def _unit_body(blocks, ps, cs, x, **kw):
+    """One repeat of a pattern unit: its blocks in order."""
+    for name, p, c in zip(blocks, ps, cs):
+        x = BLOCKS[name].apply(p, x, cache=c, **kw)
     return x
 
 

@@ -620,3 +620,121 @@ def test_recurrent_projection_rows_do_not_depend_on_the_call(cuda_device, K,
     for rows in (8, 32, 256, 300, 1024):
         torch.testing.assert_close(_rows_matmul(x[:rows], w), whole[:rows],
                                    rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch,layers", [("deepseek-v2-lite-16b", 2),
+                                         ("falcon-mamba-7b", 2),
+                                         ("recurrentgemma-2b", 3)])
+def test_train_step_of_the_families_on_the_card(cuda_device, arch, layers):
+    """One train step's gradient sync at published widths cut to 2 layers
+    (deepseek: the dense first layer and one MoE layer; recurrentgemma: 3,
+    one whole unit with its local attention), batch 2 x 128 (Mamba's scan
+    in checkpointed chunks): the synced gradients of one backward on the
+    kernel codec equal the plain codec's and, with any block failed, the
+    healthy sync's, bit for bit, and so do the AdamW updates; the codec
+    kernels launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.train_step import (TrainConfig, apply_grads,
+                                              init_state, loss_and_grads,
+                                              sync_grads)
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    tcfg = TrainConfig(max_seq=128, grad_sync="entangle", grad_codec="kernel")
+    state = init_state(torch.Generator(device=cuda_device).manual_seed(0),
+                       cfg, tcfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(1))
+    loss, grads = loss_and_grads(cfg, state["params"], {"tokens": tokens})
+    assert torch.isfinite(loss)
+    before = (kent.launches, kdis.launches)
+    with torch.no_grad():
+        healthy, _ = sync_grads(grads, tcfg)
+        assert kent.launches > before[0] and kdis.launches > before[1]
+        plain, _ = sync_grads(grads, dataclasses.replace(tcfg,
+                                                         grad_codec="plain"))
+        for a, b in zip(leaves(healthy), leaves(plain)):
+            assert torch.equal(a, b)
+        del plain
+        for fb in range(tcfg.ft_M):
+            synced, diag = sync_grads(grads, tcfg, fb)
+            assert diag["ne_failed"] == fb
+            for a, b in zip(leaves(healthy), leaves(synced)):
+                assert torch.equal(a, b)
+    new_h = apply_grads(state, healthy, cfg, tcfg)
+    new_f = apply_grads(state, synced, cfg, tcfg)
+    for a, b in zip(leaves(new_h), leaves(new_f)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind,window", [("causal", 0), ("window", 300),
+                                         ("full", 0)])
+def test_flash_backward_matches_materialized_on_the_card(cuda_device, kind,
+                                                         window):
+    """tests/test_torch_loss.py's check on the card: the blocked
+    attention's forward and backward (T = 1030 queries from position 60
+    against 1100 keys, the last 10 masked off) against autograd through
+    the materialized scores, bfloat16 q / k / v; the outputs within 2e-6
+    and the bfloat16 gradients within one bf16 ulp."""
+    from repro_torch.models import attention_core as AC
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device)
+               .to(torch.bfloat16).requires_grad_()
+               for s in ((1, 2, 2, 1030, 16), (1, 2, 1100, 16),
+                         (1, 2, 1100, 24)))
+    dout = torch.randn((1, 2, 2, 1030, 24), generator=gen,
+                       device=cuda_device)
+    kw = dict(kind=kind, window=window, kv_len=1090, q_off=60)
+    out = AC.attend(q, k, v, **kw)
+    g = torch.autograd.grad(out, (q, k, v), dout)
+    ok = AC._mask(AC.MaskInfo(kind, 1090, 60, window), 1030, 1100,
+                  cuda_device)
+    want_out = AC._softmax_block(q, k, v, ok, 1 / 4.0)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=2e-6)
+    for a, b in zip(g, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("T", [40, 128])
+def test_mamba_train_and_prefill_give_a_position_the_same_bits_on_the_card(
+        cuda_device, T):
+    """falcon-mamba-7b's mixer at published widths, one layer: train mode
+    (no cache; at T = 128 the scan in checkpointed chunks of 64, under
+    autograd through the input) and a fresh prefill give every position
+    the same bits; the per-step formula and order are one function. (A
+    training forward whose WEIGHTS are under autograd runs each projection
+    as one GEMM, which serving never reproduces: tests/test_torch_cuda.py
+    pins the serving GEMMs' rows.)"""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as TL
+    from repro_torch.models.transformer import layer_views
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=1)
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, max_seq=T,
+        device=cuda_device)
+    p = layer_views(params["stack"][0][0], 1)[0]
+    cache = layer_views(TL.init_mamba_cache(cfg, 1, 2, T, cuda_device), 1)[0]
+    x = torch.randn((2, T, cfg.d_model), device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(
+                        1)).to(torch.bfloat16).requires_grad_()
+    got = TL.apply_mamba(p, x, cfg=cfg, cache=None, pos=None, mode="train")
+    with torch.no_grad():
+        want = TL.apply_mamba(p, x, cfg=cfg, cache=cache, pos=0,
+                              mode="prefill")
+    torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
+    (gx,) = torch.autograd.grad(got.float().sum(), x)
+    assert torch.isfinite(gx.float()).all()

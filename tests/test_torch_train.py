@@ -340,18 +340,31 @@ def test_failstop_step_bit_identical(ref, codec):
 
 
 def test_train_refuses_what_is_not_ported():
+    """What training still refuses: the MTP head and its loss term and
+    MLA with a low-rank Q (both deepseek-v3), and the bf16 norm apply
+    (``norm_f32=False``); an unknown gradient sync. (Remat, the streamed
+    CE and the MLA / MoE / Mamba / RG-LRU / local-attention blocks train:
+    tests/test_torch_loss.py, test_torch_train_moe.py,
+    test_torch_train_recurrent.py.)"""
     cfg = get_smoke_config(ARCH)
     state = init_state(torch.Generator().manual_seed(0), cfg,
                        TrainConfig(max_seq=32), device="cpu")
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(dataclasses.replace(cfg, remat="full"),
+    with pytest.raises(NotImplementedError, match="norm"):
+        make_train_step(dataclasses.replace(cfg, norm_f32=False),
                         TrainConfig())(state, batch)
+    with pytest.raises(NotImplementedError, match="MTP head"):
+        make_train_step(dataclasses.replace(cfg, mtp=True),
+                        TrainConfig())(state, batch)
+    logits = torch.zeros((2, 8, cfg.vocab_size))
+    with pytest.raises(NotImplementedError, match="MTP loss"):
+        lm_loss((logits, logits), batch, cfg)
     ds = get_smoke_config("deepseek-v2-lite-16b")
-    ds_state = init_state(torch.Generator().manual_seed(0), ds,
-                          TrainConfig(max_seq=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_train_step(ds, TrainConfig())(ds_state, batch)
+    ds = dataclasses.replace(ds, mla=dataclasses.replace(ds.mla,
+                                                         q_lora_rank=16))
+    with pytest.raises(NotImplementedError, match="q_lora_rank"):
+        init_state(torch.Generator().manual_seed(0), ds,
+                   TrainConfig(max_seq=32), device="cpu")
     with pytest.raises(ValueError, match="grad_sync"):
         make_train_step(cfg, TrainConfig(grad_sync="psum"))
 
@@ -455,6 +468,20 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
     assert "grad_sync=entangle codec=plain" in out
     assert "[launch.train] done: loss" in out
     assert CheckpointManager(str(tmp_path)).latest_step() == 4
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "minitron-8b", "granite-20b"])
+def test_other_dense_decoders_train_on_the_cpu(arch, tmp_path, capsys):
+    """The qkv bias, the ungated relu2 / gelu MLPs and MQA train through
+    the launcher: finite, falling losses."""
+    from repro_torch.launch.train import main
+
+    main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "4",
+          "--seq", "32", "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    first, last = (float(x) for x in out.split("done: loss ")[1].split(
+        " -> "))
+    assert np.isfinite([first, last]).all() and last < first
 
 
 def test_train_entry_points_default_to_cuda():
