@@ -17,7 +17,10 @@ falcon-mamba-7b (Mamba-1, 64 layers) and recurrentgemma-2b (RG-LRU and
 rolling-window MQA, 26 layers) served whole, and trained cut to 2 and 6
 layers; internvl2-2b (24 layers
 behind 256 patch embeddings) and whisper-small (12 encoder and 12 decoder
-layers over 1500 frames) whole; and the
+layers over 1500 frames) whole; deepseek-v3-671b (MLA with a low-rank Q,
+256-expert top-8 sigmoid MoE, the MTP block) served with bf16 masters, cut
+to 4 of its 61 layers (the 3 published dense layers and 1 MoE layer); the
+library's examples and SDC detection; and the
 paper's own experiment, the Fig. 2 stream convolution
 (M = 3 and 8 streams of 1e6 int32 samples, kernel sizes 100..4500, nothing
 cut) through the fail-stop engine ``run_protected``. Phases, each printing
@@ -123,12 +126,31 @@ exits nonzero:
                decode-step ms, the encoder's ms, s8 launches per step,
                ``max_memory_allocated``; the s8 kernel's time at the two
                odd-width heads against its bytes bound;
+  3g. serve-v3 — deepseek-v3-671b with bf16 masters: the 8-request wave
+               at scopes moe and all, healthy and with ``failed_group=1``
+               on a warm replica (EXACT ROLL-FORWARD (serve-v3)), the MTP
+               block never quantized, ``ft_mode none`` and a profiler
+               window of 2 decode steps at scope all; launches per decode
+               step, decode-step ms, init and engine-startup seconds,
+               ``max_memory_allocated``; then, with the model freed,
+               every census shape at scope all and the 129280-column head
+               held against the plain versions on both GEMM routes
+               (packed, the serving plan);
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
                block at one step) and writes its final checkpoint; the
                losses must be finite. EXACT ROLL-FORWARD (train): one
                backward, synced healthy and with each of blocks 0-3 failed,
-               every synced leaf and the updated state bit-identical. Then
+               every synced leaf and the updated state bit-identical.
+               Remat and the streamed CE at the same shape: ``remat``
+               'full' and 'dots' give the plain step's loss and every
+               gradient bit for bit, the streamed CE's gradient w.r.t.
+               the logits lies within CE_GRAD_TOL of the naive CE's, its
+               non-target entries within CE_NONTARGET_RTOL elementwise (a
+               planted fault, the softmax term doubled, must break it), the
+               step within the reference's streamed-vs-naive bounds and
+               each step's gradients the model's backward of its CE's, bit
+               for bit, with each setting's step ms and peak memory. Then
                the mean step time per gradient sync and a profiler window;
   4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 4 of 27 layers:
                the dense first layer and 3 MoE layers), falcon-mamba-7b
@@ -155,6 +177,10 @@ exits nonzero:
                (stream conv)) per (M, K), and every other LSB op must
                recover exactly at the demo's size; then the Fig. 2 overheads
                of each family against the conventional conv on the card;
+  5b. library — ``examples/failstop_demo`` and ``examples/serve_lm`` of
+               the port on the card with the reference examples' verdicts,
+               and ``sdc.detect`` / ``localize`` on card tensors held to
+               the same calls on the CPU;
   6. timings — each kernel, its plain version and its bound at its
                main-path shapes (the dense GEMM also at the recurrent
                families' new shapes, and at the odd-width heads in
@@ -274,6 +300,30 @@ TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=2,
 # 4 layers) took the phase to 392 s on the H100, past its share of the
 # script's time limit
 TRAIN_FAMILIES = {DEEPSEEK: 4, "falcon-mamba-7b": 2, "recurrentgemma-2b": 6}
+# deepseek-v3-671b at published widths cut to the shallowest depth that
+# keeps its published first_dense_layers=3: 3 dense layers and 1 MoE layer
+# of 61, bf16 masters (float32 masters and scope all's int8 copies would
+# take about 77 GB of the 80)
+V3 = "deepseek-v3-671b"
+V3_LAYERS = 4
+# the library path: SDC detection over M streams of this many columns, and
+# the kernels its examples and SDC calls must launch
+LIB_SDC_N = 1 << 20
+LIB_KERNELS = ("entangled_matmul", "entangle", "disentangle",
+               "conv1d_causal", "checksum")
+# remat and the streamed CE on the card, at TRAIN's shape: one warm-up and
+# this many timed forward + backward steps per setting; the absolute bounds
+# are tests/test_torch_loss.py's (CE_* on the CE alone, NAIVE_* on the
+# step). At this shape a non-target d loss / d logit is ~4e-9, below
+# CE_GRAD_TOL, so the CE's non-target entries are also held elementwise
+# relative to the naive CE's: float32 roundoff of a logsumexp near 12
+# gives a few 1e-6 (CPU, vocab 128256), the softmax term doubled gives 1
+REMAT_CHECK = dict(timed_steps=2)
+CE_LOSS_TOL = 1e-5
+CE_GRAD_TOL = 1e-6
+CE_NONTARGET_RTOL = 1e-4
+NAIVE_LOSS_TOL = 1e-4
+NAIVE_GRAD_TOL = 1e-3
 # the blocked attention's backward on the card: llama3.2-1b's heads at T =
 # S = 2048, past the materialization limit of 2048**2 / 4 scores
 FLASH_CHECK = dict(batch=2, T=2048)
@@ -357,6 +407,21 @@ def _rand(gen, lo, hi, shape, dev):
 
     return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int64,
                          device=dev).to(torch.int32)
+
+
+def _packed_weights(gen, E, K, N, dev):
+    """Random int8 expert weights [E, K, N] in [-127, 127], packed 4 per
+    int32 word along K ([E, ceil(K/4), N]), drawn and packed one expert at
+    a time (packing a whole 256-expert stack at once takes its int64
+    temporaries, several times the stack)."""
+    import torch
+
+    from repro_torch.kernels.codec import pack_int8
+
+    out = torch.empty((E, -(-K // 4), N), dtype=torch.int32, device=dev)
+    for e in range(E):
+        out[e] = pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
+    return out
 
 
 class Checker:
@@ -514,19 +579,54 @@ def check_dense(dev, chk, shapes, ragged: bool):
         f"check passed")
 
 
-def check_grouped(dev, chk, shapes):
-    """The grouped kernel: ragged small shapes for every plan, then the
-    main path's ``shapes`` (a list of ``(E, Cg, K, N, sites)``) under the
-    serving plan (dual-word) and an int32 plan, packed int8 and unpacked
-    full-range int32 weights, both modes, every failed stream; the poison
-    check on every shape."""
+def check_grouped(dev, chk, shapes, ragged=True, full_range=True):
+    """The grouped kernel: ragged small shapes for every plan (when
+    ``ragged``), then the main path's ``shapes`` (a list of ``(E, Cg, K,
+    N, sites)``) under the serving plan (dual-word), both modes, every
+    failed stream, packed int8 weights on both routes; with
+    ``full_range`` also under an int32 plan and with unpacked full-range
+    int32 weights (the CUDA-core route). The poison check on every
+    shape."""
     import torch
 
     from repro_torch.core.plan import make_plan
     from repro_torch.ft.quantize import activation_budget
-    from repro_torch.kernels.codec import pack_int8
 
     gen = torch.Generator(device=dev).manual_seed(4321)
+    if ragged:
+        _check_grouped_ragged(dev, chk, gen)
+    n0 = chk.n
+    plans = [make_plan(SERVE["ft_M"], 32)]
+    if full_range:
+        plans.append(make_plan(SERVE["ft_M"], 16))
+    for (E, Cg, K, N, site) in shapes:
+        for plan in plans:
+            bud = activation_budget(plan, K)
+            c = _rand(gen, -bud, bud + 1, (plan.M, E, Cg, K), dev)
+            gp = _packed_weights(gen, E, K, N, dev)
+            what = f"{site} [{plan.M},{E},{Cg},{K}]x[{E},{K // 4},{N}]"
+            chk.sweep(c, gp, plan, True, what + f" {plan.temp}",
+                      GROUPED_MODES)
+            chk.poison(c, gp, plan, True, what)
+            del gp
+            if full_range:
+                g32 = _rand(gen, -2**31, 2**31, (E, K, N), dev)
+                chk.sweep(c, g32, plan, False, what + f" {plan.temp}",
+                          GROUPED_MODES)
+                del g32
+            del c
+            torch.cuda.empty_cache()
+    log(f"[kernels] entangled_matmul_grouped full-width shapes: "
+        f"{len(shapes)} main-path shapes x {len(plans)} plans, "
+        f"{chk.n - n0} comparisons bit-identical; poison check passed")
+
+
+def _check_grouped_ragged(dev, chk, gen):
+    """The grouped kernel at ragged small shapes under every plan, and
+    packed at K = DEEP_K (split-K past one limb product)."""
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels.codec import pack_int8
+
     n0 = chk.n
     for plan in _all_plans():
         for (E, Cg, K, N) in [(3, 5, 13, 9), (1, 1, 1, 1), (4, 17, 70, 300),
@@ -551,24 +651,6 @@ def check_grouped(dev, chk, shapes):
     chk.poison(c, gp, plan, True, what)
     log(f"[kernels] entangled_matmul_grouped packed at K={DEEP_K} (split-K "
         f"into chunks of at most 65536): {chk.n - n0} comparisons "
-        f"bit-identical; poison check passed")
-    n0 = chk.n
-    for (E, Cg, K, N, site) in shapes:
-        for plan in (make_plan(SERVE["ft_M"], 32), make_plan(SERVE["ft_M"],
-                                                             16)):
-            bud = activation_budget(plan, K)
-            c = _rand(gen, -bud, bud + 1, (plan.M, E, Cg, K), dev)
-            gp = pack_int8(_rand(gen, -127, 128, (E, K, N), dev), axis=1)
-            g32 = _rand(gen, -2**31, 2**31, (E, K, N), dev)
-            what = f"{site} [{plan.M},{E},{Cg},{K}]x[{E},{K // 4},{N}]"
-            for packed, g in ((True, gp), (False, g32)):
-                chk.sweep(c, g, plan, packed, what + f" {plan.temp}",
-                          GROUPED_MODES)
-            chk.poison(c, gp, plan, True, what)
-            del c, gp, g32
-            torch.cuda.empty_cache()
-    log(f"[kernels] entangled_matmul_grouped full-width shapes: "
-        f"{len(shapes)} main-path shapes x 2 plans, {chk.n - n0} comparisons "
         f"bit-identical; poison check passed")
 
 
@@ -654,6 +736,8 @@ def model_config(arch):
     cfg = get_config(arch)
     if arch == DEEPSEEK:
         cfg = dataclasses.replace(cfg, n_layers=DEEPSEEK_LAYERS)
+    if arch == V3:
+        cfg = dataclasses.replace(cfg, n_layers=V3_LAYERS)
     if DECODERS.get(arch):
         cfg = dataclasses.replace(cfg, n_layers=DECODERS[arch])
     return cfg
@@ -2278,6 +2362,261 @@ def phase_families(dev, kernels, smi):
     return counts, rec, rows
 
 
+# --------------------------------------------------------------- serve-v3 --
+
+def _has_q8(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(k.endswith("q8") or _has_q8(v) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_q8(v) for v in tree)
+    return False
+
+
+def phase_serve_v3(dev, kernels, smi):
+    """deepseek-v3-671b at published widths cut to V3_LAYERS layers (the 3
+    published dense layers and 1 MoE layer of 256 experts, top-8, sigmoid
+    gating; MLA with the low-rank Q; the MTP block built and never
+    quantized), with bf16 masters (``init(master_dtype=torch.bfloat16)``):
+    the 8-request wave at scopes moe and all, healthy and with
+    ``failed_group=1`` on a warm replica (EXACT ROLL-FORWARD (serve-v3)),
+    then ``ft_mode none`` and a profiler window of 2 decode steps at scope
+    all. Kernel counts are set to 0 just before the waves and read just
+    after; both GEMMs must have launched, on their s8 route only. Then,
+    with the model freed, every (site, shape) of the scope-all census and
+    the head held bit for bit against the plain versions on both routes
+    (packed weights, the serving plan). Returns (counts, record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.tree import leaves_with_path
+
+    t_phase = time.perf_counter()
+    cfg = model_config(V3)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
+                        max_seq=SERVE["max_seq"], device=dev,
+                        master_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flat = leaves_with_path(params)
+    n = sum(t.numel() for _, t in flat)
+    n_mtp = sum(t.numel() for p, t in flat if p.startswith("['mtp']"))
+    n_bytes = sum(t.numel() * t.element_size() for _, t in flat)
+    n32 = sum(t.numel() for _, t in flat if t.dtype == torch.float32)
+    del flat
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[serve-v3] {V3} published widths, {_depth(cfg, V3)} (the "
+        f"shallowest cut that keeps the published first_dense_layers="
+        f"{cfg.moe.first_dense_layers}): d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}, MLA q_lora {cfg.mla.q_lora_rank} kv_lora "
+        f"{cfg.mla.kv_lora_rank}, dense d_ff {cfg.d_ff}, {cfg.moe.n_experts}"
+        f" experts top-{cfg.moe.top_k} ({cfg.moe.gating}, d_ff "
+        f"{cfg.moe.d_ff_expert}, {cfg.moe.n_shared} shared), vocab "
+        f"{cfg.vocab_size}, MTP block; {n / 1e9:.3f} G params "
+        f"({n_mtp / 1e9:.3f} G in mtp), bf16 masters {n_bytes / 1e9:.2f} GB "
+        f"({n32} float32 norm elements); random init {init_s:.1f} s; "
+        f"max_memory_allocated {init_peak / 2**30:.2f} GiB ({smi})")
+    cache = model.init_cache(cfg, 2, 16, device=dev)
+    h, _ = model.prefill_chunk(
+        params, torch.randint(0, cfg.vocab_size, (2, 8), device=dev), cfg,
+        cache, pos0=0, lengths=torch.tensor([8, 5], device=dev))
+    if h.shape != (2, 8, cfg.d_model) or not torch.isfinite(h.float()).all():
+        raise AssertionError(f"v3 prefill hidden states bad: {h.shape}")
+    del cache, h
+    base = dict(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+                ft_mode="entangle", ft_M=SERVE["ft_M"])
+    reset_counts(kernels)
+    results, census = {}, None
+    for scope in ("moe", "all"):
+        scfg = ServeConfig(ft_scope=scope, **base)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, scfg, params, device=dev)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        if _has_q8(eng.ft_params["mtp"]):
+            raise AssertionError("prepare_params quantized the MTP block")
+        healthy, st_h, ln_h = _wave(eng, cfg, None, kernels)
+        eng2 = ServeEngine(cfg, scfg, params, device=dev,
+                           warm=eng.warm_state())
+        injected, st_i, ln_i = _wave(eng2, cfg, 1, kernels)
+        bad = sum(not np.array_equal(healthy[r], injected[r])
+                  for r in healthy)
+        ntok = sum(len(v) for v in healthy.values())
+        verdict = "EXACT ROLL-FORWARD" if bad == 0 else "RECOVERY FAILED"
+        log(f"[serve-v3] {V3} recovery summary [scope={scope}]: "
+            f"failed_group=1 injected on every step; {len(healthy)} requests "
+            f"/ {ntok} tokens compared; mismatching requests: {bad} "
+            f"({verdict} (serve-v3))")
+        if bad:
+            raise AssertionError(f"{V3} scope {scope}: {verdict}")
+        if eng.plans.misses:
+            raise AssertionError("compiled plans missed a shape")
+        dec = st_h[1:] + st_i[1:]
+        per_step = {name: sorted(set(ln_h[name][1:] + ln_i[name][1:]))
+                    for name in ln_h}
+        results[scope] = dict(
+            step_ms=1e3 * sum(dec) / len(dec), prepare_s=prepare_s,
+            first_step_ms=1e3 * (st_h[0] + st_i[0]) / 2,
+            tok_s=2 * ntok / (sum(st_h) + sum(st_i)),
+            launches_per_decode_step=per_step,
+            launches_first_step={k: v[0] for k, v in ln_h.items()})
+        log(f"[serve-v3] {V3} scope={scope}: engine startup (census, plans, "
+            f"int8 copies) {prepare_s:.2f} s; mean decode-step "
+            f"{results[scope]['step_ms']:.3f} ms, admission+first step "
+            f"{results[scope]['first_step_ms']:.3f} ms, "
+            f"{results[scope]['tok_s']:.1f} tokens/s; kernel launches per "
+            f"decode step {per_step} (admission step "
+            f"{results[scope]['launches_first_step']}); first output "
+            f"{healthy[0].tolist()} ({smi})")
+        if scope == "all":
+            census = set(eng.protected_census)
+        del eng, eng2
+        free_cuda()
+    counts = {k["name"]: count(k) for k in kernels}
+    core = {k["name"]: count(k, 1) for k in kernels
+            if len(k["counters"]) > 1}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[serve-v3] {V3} kernel launches over the 4 waves: {counts}; "
+        f"CUDA-core GEMM route {core}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({smi})")
+    for name in ("entangled_matmul", "entangled_matmul_grouped"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"{V3} path")
+    if any(core.values()):
+        raise AssertionError(f"packed GEMMs of the {V3} path reached the "
+                             f"CUDA-core kernel: {core}")
+    breakdown = _breakdown(dev, cfg, params, base, tag="serve-v3")
+    del params, model
+    free_cuda()
+    t0 = time.perf_counter()
+    dense, grouped = census_shapes(cfg, census)
+    by_name = {k["name"]: k for k in kernels}
+    errs = {}
+    for name, fn, shapes in (
+            ("entangled_matmul", check_dense, dense),
+            ("entangled_matmul_grouped", check_grouped, grouped)):
+        chk = by_name[name]["checker"].spawn()
+        kw = dict(full_range=False) if fn is check_grouped else {}
+        fn(dev, chk, shapes, ragged=False, **kw)
+        errs[name] = dict(max_abs_err=dict(chk.worst_by_route),
+                          comparisons=dict(chk.n_by_route))
+        by_name[name]["checker"].absorb(chk)
+    check_s = time.perf_counter() - t0
+    kn = sorted({(K, N, sites) for _, K, N, sites in dense})
+    ekn = sorted({(E, K, N, sites) for E, _, K, N, sites in grouped})
+    log(f"[serve-v3] {V3} census at scope all: {len(census)} (site, shape) "
+        f"entries -> {len(dense)} dense shapes with the {cfg.vocab_size}-"
+        f"column head ((K, N): {kn}; rows per group "
+        f"{sorted({k[0] for k in dense})}) and {len(grouped)} grouped "
+        f"shapes ((E, K, N): {ekn}; rows per group per expert "
+        f"{sorted({k[1] for k in grouped})}), held against the plain "
+        f"versions in {check_s:.1f} s: {errs}")
+    rec = dict(layers=V3_LAYERS, n_params=n, n_params_mtp=n_mtp,
+               master_bytes=n_bytes, init_s=init_s, peak_gib=peak / 2**30,
+               scopes=results, breakdown=breakdown, census_check=errs,
+               census_check_s=check_s, n_dense_shapes=len(dense),
+               n_grouped_shapes=len(grouped),
+               seconds=time.perf_counter() - t_phase)
+    log(f"[serve-v3] phase {rec['seconds']:.1f} s")
+    return counts, rec
+
+
+# ---------------------------------------------------------------- library --
+
+def phase_library(dev, kernels, smi):
+    """The library's examples on the card (``failstop_demo``: every LSB op
+    under the three recovery families, the overhead, SDC and the entangled
+    shard store; ``serve_lm``: batched against per-slot serving, the
+    entangled head under every failed group, ``ft_logits``, the deadline
+    drill), each verdict printed as the reference's examples print it;
+    then ``sdc.detect`` / ``localize`` on card tensors of LIB_SDC_N columns
+    held to the same calls on the CPU, with the disentangle kernel's
+    launches. Counts set to 0 just before and read just after. Returns
+    (counts, record)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.core import entangle, make_plan, sdc
+    from repro_torch.examples import failstop_demo, serve_lm
+
+    t_phase = time.perf_counter()
+    want = {
+        failstop_demo: [
+            "[sdc] silent corruption detected at position [100], blamed "
+            "stream 2 (truth: 2)",
+            "[storage] token shard group survived a lost file"],
+        serve_lm: [
+            "outputs bit-identical",
+            "bit-identical under a fail-stop in any of the 4 request groups",
+            "standalone ft_logits: exact under any single-group fail-stop",
+            "deadline drill: group 2 missed the deadline"]}
+    reset_counts(kernels)
+    rec = {}
+    for mod, lines in want.items():
+        name = mod.__name__.rsplit(".", 1)[1]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(["--device", str(dev)])
+        out = buf.getvalue()
+        for line in out.splitlines():
+            log(f"[library] {name}: {line}")
+        rows = [ln.split() for ln in out.splitlines()
+                if ln.split()[:1] in (["scale"], ["add"], ["conv"], ["dot"],
+                                      ["permute"])]
+        missing = [w for w in lines if w not in out]
+        if missing or (mod is failstop_demo and (
+                len(rows) != 15 or any(r[2] != "True" for r in rows))):
+            raise AssertionError(f"{name} on the card: verdicts missing "
+                                 f"{missing}")
+        rec[name] = dict(seconds=time.perf_counter() - t0)
+    plan = make_plan(4, 32)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    c = _rand(gen, -1000, 1000, (plan.M, LIB_SDC_N), dev)
+    delta = entangle(c, plan)
+    hits = []
+    dis = next(k for k in kernels if k["name"] == "disentangle")
+    for j, pos, mag in ((0, 17, 1), (2, LIB_SDC_N // 3, 123456789),
+                        (3, LIB_SDC_N - 1, 255), (1, 5, 1 << 15)):
+        bad = delta.clone()
+        bad[j, pos] += mag
+        before = count(dis)
+        det, loc = sdc.detect(bad, plan), sdc.localize(bad, plan)
+        torch.cuda.synchronize()
+        launched = count(dis) - before
+        cpu = bad.cpu()
+        if not (torch.equal(det.cpu(), sdc.detect(cpu, plan))
+                and torch.equal(loc.cpu(), sdc.localize(cpu, plan))):
+            raise AssertionError("sdc on the card != sdc on the CPU")
+        if not (bool(det[pos]) and int(det.sum()) == 1
+                and launched == 3 * plan.M):
+            raise AssertionError(f"sdc missed the corruption at {pos} "
+                                 f"({launched} disentangle launches)")
+        hits.append(int(loc[pos]) == j)
+    counts = {k["name"]: count(k) for k in kernels}
+    log(f"[library] sdc.detect / localize on [{plan.M}, {LIB_SDC_N}] card "
+        f"tensors with one corrupted position each of 4 times: masks and "
+        f"blame equal to the CPU's, every corruption detected, "
+        f"{sum(hits)}/4 blamed on the corrupted stream, {3 * plan.M} "
+        f"disentangle kernel launches per detect + localize; kernel "
+        f"launches over the library path {counts} ({smi})")
+    for name in LIB_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"library path")
+    rec.update(sdc_blamed=sum(hits), counts=counts,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[library] phase {rec['seconds']:.1f} s")
+    return counts, rec
+
+
 # ------------------------------------------------------------------ train --
 
 def _train_configs(arch=LLAMA):
@@ -2481,6 +2820,185 @@ def train_rollforward(dev, state, arch=LLAMA, tag="train"):
         f"failed_block 0, 1, 2, 3 on the kernel codec: every synced leaf "
         f"bit-identical, kernel codec == plain codec, AdamW update from "
         f"block 1 failed == healthy (EXACT ROLL-FORWARD ({what}))")
+
+
+def train_remat_checks(dev, params, smi, arch=LLAMA, tag="train"):
+    """Remat and the streamed CE on the card, at the training shape
+    (TRAIN's batch x seq), as tests/test_torch_loss.py holds them on the
+    CPU: ``loss_and_grads`` with ``remat='full'`` and ``'dots'`` must give
+    the plain step's loss and every gradient bit for bit; with
+    ``loss_impl='streamed'`` the step's loss and gradients must lie within
+    the reference's streamed-vs-naive bounds (NAIVE_LOSS_TOL,
+    NAIVE_GRAD_TOL). Those absolute bounds do not separate a wrong
+    backward at this shape, so the step is also split at the logits: the
+    streamed CE's gradient w.r.t. the full-width logits must lie within
+    CE_GRAD_TOL of the naive CE's and its non-target entries within
+    CE_NONTARGET_RTOL of them elementwise (the loss within CE_LOSS_TOL),
+    and each step's gradients must equal, bit for bit, the model's
+    backward of its own CE's gradient w.r.t. the logits. A planted fault,
+    the CE with its softmax term doubled (the naive CE plus the mean
+    logsumexp), must break CE_NONTARGET_RTOL in the same run. The
+    normwise per-leaf difference of the streamed and the faulty step from
+    the plain one is printed beside them: float32 rounding of the logits'
+    gradient alone moves it (checked on the CPU), so it bounds nothing.
+    Prints each setting's step ms (host clock around a synchronized
+    forward + backward, mean of TIMED_STEPS after one warm-up) and its
+    ``max_memory_allocated`` above what was allocated before it, with the
+    card's name and power limit. Returns the record."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models import get_model, lm_loss
+    from repro_torch.models.loss import streamed_lm_ce
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves, unflatten
+
+    cfg, _, dcfg = _train_configs(arch)
+    batch = _batch(dcfg, 0, dev)
+    settings = {"plain": cfg, "remat=full": dc.replace(cfg, remat="full"),
+                "remat=dots": dc.replace(cfg, remat="dots"),
+                "loss_impl=streamed": dc.replace(cfg, loss_impl="streamed")}
+    rec, steps = {}, {}
+    for name, c in settings.items():
+        times = []
+        for i in range(1 + REMAT_CHECK["timed_steps"]):
+            grads = None  # the previous step's, before the next backward
+            free_cuda()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(c, params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev) - before
+        base = steps.get("plain")
+        if base is None:
+            bad, what = [], "reference step"
+        elif name.startswith("remat"):
+            bad = [i for i, (a, b) in enumerate(zip(leaves(grads),
+                                                    leaves(base[1])))
+                   if not torch.equal(a, b)]
+            if not torch.equal(loss, base[0]):
+                bad.append("loss")
+            what = "loss and every gradient bit-identical to the plain step"
+        else:
+            gerr = max(float((a - b).abs().max()) for a, b in
+                       zip(leaves(grads), leaves(base[1])))
+            lerr = abs(loss.item() - base[0].item())
+            bad = ([] if lerr < NAIVE_LOSS_TOL and gerr <= NAIVE_GRAD_TOL
+                   else ["step"])
+            what = (f"step loss within {lerr:.3g} (bound {NAIVE_LOSS_TOL}), "
+                    f"gradients within {gerr:.3g} (bound {NAIVE_GRAD_TOL})")
+        ms = 1e3 * sum(times[1:]) / len(times[1:])
+        rec[name] = dict(step_ms=ms, peak_gib=peak / 2**30,
+                         loss=loss.item(), mismatches=len(bad))
+        log(f"[{tag}] {arch} {name}: forward + backward at batch "
+            f"{TRAIN['batch']} x seq {TRAIN['seq']} mean {ms:.3f} ms over "
+            f"{len(times) - 1} steps, max_memory_allocated +{peak / 2**30:.2f}"
+            f" GiB; {what}; {len(bad)} mismatches ({smi})")
+        if bad:
+            raise AssertionError(f"{name} on the card differs from the plain "
+                                 f"step at leaves {bad[:8]}")
+        if name in ("plain", "loss_impl=streamed"):
+            steps[name] = (loss, grads)
+        del grads
+    mask = batch.get("loss_mask", torch.ones_like(batch["tokens"]))
+    m1 = mask[:, 1:].to(torch.float32)
+
+    def fault(x):  # the naive CE with its softmax term doubled
+        lse = torch.logsumexp(x[:, :-1].to(torch.float32), dim=-1)
+        return (lm_loss(x, batch, cfg)
+                + (lse * m1).sum() / torch.clamp(m1.sum(), min=1.0))
+
+    # one forward kept for the model's backward of each CE's own gradient
+    # w.r.t. the full-width logits
+    lv = [t.detach().requires_grad_() for t in leaves(params)]
+    logits = get_model(cfg).forward_train(unflatten(params, lv), batch, cfg)
+    out = {}
+    for name, fn in (("naive", lambda x: lm_loss(x, batch, cfg)),
+                     ("streamed", lambda x: streamed_lm_ce(
+                         x, batch["tokens"], mask, shift=1)),
+                     ("fault", fault)):
+        x = logits.detach().clone().requires_grad_()
+        loss = fn(x)
+        out[name] = (loss.detach(), torch.autograd.grad(loss, x)[0])
+        del x
+    naive = out["naive"][1]
+    target = torch.zeros(naive.shape, dtype=torch.bool, device=dev)
+    target[:, :-1].scatter_(-1, batch["tokens"][:, 1:, None].to(torch.int64),
+                            True)
+
+    def nontarget_rel(g):  # max |g - naive| / |naive| off the targets
+        err = (g - naive).abs().masked_fill_(target, 0)
+        return float((err / naive.abs().clamp_min(
+            torch.finfo(torch.float32).tiny)).max())
+
+    lerr = abs(out["naive"][0].item() - out["streamed"][0].item())
+    gerr = float((naive - out["streamed"][1]).abs().max())
+    nrel = nontarget_rel(out["streamed"][1])
+    fault_ce = nontarget_rel(out["fault"][1])
+    ntmax = float(naive.masked_fill(target, 0).abs().max())
+    del naive, target
+    unequal, normwise = {}, {}
+    for name, key in (("naive", "plain"), ("streamed", "loss_impl=streamed"),
+                      ("fault", None)):
+        g = torch.autograd.grad(logits, lv, out[name][1],
+                                retain_graph=name != "fault")
+        if key is not None:
+            unequal[name] = sum(not torch.equal(a, b) for a, b in
+                                zip(g, leaves(steps[key][1])))
+        if name != "naive":
+            normwise[name] = _leaf_rel(g, steps["plain"][1])
+        del g
+    del out, logits, lv, steps
+    free_cuda()
+    log(f"[{tag}] {arch} streamed CE at the full-width logits "
+        f"[{TRAIN['batch']}, {TRAIN['seq']}, {cfg.vocab_size}]: loss within "
+        f"{lerr:.3g} of the naive CE's (CE_LOSS_TOL {CE_LOSS_TOL}), d loss / "
+        f"d logits within {gerr:.3g} (CE_GRAD_TOL atol {CE_GRAD_TOL}), the "
+        f"non-target entries (largest {ntmax:.3g}) within {nrel:.3g} "
+        f"elementwise "
+        f"relative (CE_NONTARGET_RTOL {CE_NONTARGET_RTOL}); the planted "
+        f"fault (softmax term doubled) reads {fault_ce:.3g} there; the "
+        f"plain and the streamed steps' gradients equal the model's backward"
+        f" of their CE's d loss / d logits but at {unequal['naive']} / "
+        f"{unequal['streamed']} leaves; normwise per leaf from the plain "
+        f"step: streamed {normwise['streamed']:.3g}, planted fault "
+        f"{normwise['fault']:.3g} ({smi})")
+    if lerr >= CE_LOSS_TOL or gerr > CE_GRAD_TOL or nrel > CE_NONTARGET_RTOL:
+        raise AssertionError("the streamed CE on the card is outside "
+                             "CE_LOSS_TOL / CE_GRAD_TOL / CE_NONTARGET_RTOL "
+                             "of the naive CE")
+    if any(unequal.values()):
+        raise AssertionError(f"a step's gradients are not the model's "
+                             f"backward of its CE's gradient: {unequal}")
+    if fault_ce <= CE_NONTARGET_RTOL:
+        raise AssertionError("a CE with its softmax term doubled passes "
+                             "CE_NONTARGET_RTOL at this shape")
+    rec["ce_logits"] = dict(loss_err=lerr, grad_err=gerr, nontarget_rel=nrel,
+                            nontarget_max=ntmax, fault_nontarget_rel=fault_ce,
+                            step_normwise=normwise)
+    return rec
+
+
+def _leaf_rel(grads, ref) -> float:
+    """Largest normwise relative difference ``|g - r| / |r|`` over the
+    leaves of two gradient trees (a leaf whose reference is all zero must
+    be zero too)."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    worst = 0.0
+    for g, r in zip(leaves(grads), leaves(ref)):
+        g, r = g.to(torch.float32), r.to(torch.float32)
+        num, den = float(torch.linalg.vector_norm(g - r)), float(
+            torch.linalg.vector_norm(r))
+        worst = max(worst, num / den if den else (0.0 if num == 0
+                                                  else float("inf")))
+    return worst
 
 
 def train_timings(dev, held, arch=LLAMA, tag="train",
@@ -3295,15 +3813,35 @@ def _graph_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _event_ms(fn, iters):
+    """Mean device time of ``fn()`` in ms between CUDA events around
+    ``iters`` calls, after one warm-up call; for calls whose temporaries
+    are too large to capture several of in a CUDA graph's private pool."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _timing_row(dev, site, c, gs, plan, fns, plain_fn, macs, nbytes,
-                wbytes, iters):
+                wbytes, iters, plain_graph=True):
     """Both GEMM kernels (``fns``: route -> launch function), the plain
     version and the bounds of one shape; ``gs`` holds enough weight copies
     to exceed the L2. The kernels are timed in turns (CUDA-core, s8, s8,
     CUDA-core) in one call. Bounds: the bytes (each input read once, the
     output written once, at 3.35 TB/s); the CUDA-core kernel's int32 MACs
     of the M-1 computed streams; the s8 kernel's 4 limb MACs per int32
-    MAC at 1,979 TOP/s (2 operations per MAC)."""
+    MAC at 1,979 TOP/s (2 operations per MAC). With ``plain_graph``
+    False the plain version is timed between CUDA events (two calls), not
+    in a CUDA graph."""
     kw = dict(fuse_epilogue=True, failed=1, packed=True)
     copies = len(gs)
 
@@ -3319,8 +3857,13 @@ def _timing_row(dev, site, c, gs, plan, fns, plain_fn, macs, nbytes,
                                per=name)
              for route, name in (("s8", "emm_kernel_s8<"),
                                  ("cuda_core", "emm_kernel<"))}
-    plain_ms = _graph_ms(lambda i: plain_fn(c, gs[i % copies], plan, **kw),
-                         max(3, iters // 5))
+    if plain_graph:
+        plain_ms = _graph_ms(
+            lambda i: plain_fn(c, gs[i % copies], plan, **kw),
+            max(3, iters // 5))
+    else:
+        free_cuda()
+        plain_ms = _event_ms(lambda: plain_fn(c, gs[0], plan, **kw), 2)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_int32 = 1e3 * macs / _int32_macs_per_s(dev)
     t_s8 = 1e3 * 2 * 4 * macs / INT8_TENSOR_OPS_PER_S
@@ -3367,10 +3910,12 @@ def phase_timings(dev):
     """Both GEMM kernels at the llama decode head and largest MLP shapes,
     then at the recurrent families' new decode shapes (falcon-mamba's
     in_proj, out_proj and head, recurrentgemma's in_gate / in_x, MQA k /
-    v, MLP and tied head), and the grouped kernels at the deepseek decode MoE shapes with every
-    expert occupied and at decode occupancy (8 tokens x top-6 experts from
-    the seed; the other experts' rows zero, as the dispatch leaves them,
-    so the bound counts only the occupied experts' weights). Weights are
+    v, MLP and tied head) and deepseek-v3's (head, low-rank q_a / q,
+    out.o, dense MLP), and the grouped kernels at the deepseek-v2-lite and
+    deepseek-v3 decode MoE shapes with every expert occupied and at decode
+    occupancy (8 tokens x top-6 / top-8 experts from the seed; the other
+    experts' rows zero, as the dispatch leaves them, so the bound counts
+    only the occupied experts' weights). Weights are
     rotated through enough copies to exceed the L2, as the decode loop
     finds them cold."""
     import torch
@@ -3392,6 +3937,8 @@ def phase_timings(dev):
     fm, rg = model_config(RECURRENT[0]), model_config(RECURRENT[1])
     fm_di = fm.ssm.expand * fm.d_model
     rg_kv = rg.n_kv_heads * rg.resolved_head_dim
+    v3 = model_config(V3)
+    v3_qk = v3.mla.qk_nope_head_dim + v3.mla.qk_rope_head_dim
     for site, (B, K, N) in (
             (f"{LLAMA} head", (gsz, cfg.d_model, cfg.vocab_size)),
             (f"{LLAMA} mlp.down", (gsz, cfg.d_ff, cfg.d_model)),
@@ -3403,7 +3950,14 @@ def phase_timings(dev):
                                         rg.rglru.lru_width)),
             (f"{rg.name} qkv.k/v", (gsz, rg.d_model, rg_kv)),
             (f"{rg.name} mlp.gate/up", (gsz, rg.d_model, rg.d_ff)),
-            (f"{rg.name} tied head", (gsz, rg.d_model, rg.vocab_size))):
+            (f"{rg.name} tied head", (gsz, rg.d_model, rg.vocab_size)),
+            (f"{V3} head", (gsz, v3.d_model, v3.vocab_size)),
+            (f"{V3} qkv.q_a", (gsz, v3.d_model, v3.mla.q_lora_rank)),
+            (f"{V3} qkv.q", (gsz, v3.mla.q_lora_rank, v3.n_heads * v3_qk)),
+            (f"{V3} out.o", (gsz, v3.n_heads * v3.mla.v_head_dim,
+                             v3.d_model)),
+            (f"{V3} mlp.gate/up", (gsz, v3.d_model, v3.d_ff)),
+            (f"{V3} mlp.down", (gsz, v3.d_ff, v3.d_model))):
         bud = activation_budget(plan, K)
         c = _rand(gen, -bud, bud + 1, (M, B, K), dev)
         wbytes = (K // 4) * N * 4
@@ -3416,35 +3970,40 @@ def phase_timings(dev):
             iters=20 if N > 100_000 else 50))
         del c, gs
         free_cuda()
-    cfg = model_config(DEEPSEEK)
-    E, F, D = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
     from repro_torch.models.layers import _moe_capacity
 
-    Cg = -(-_moe_capacity(SERVE["max_batch"], cfg) // M)  # decode rows
-    occ = decode_occupancy(E, cfg.moe.top_k, SERVE["max_batch"], seed=7)
-    n_occ = int(occ.sum())
     grouped_fns = dict(s8=emmg.entangled_matmul_grouped_cuda,
                        cuda_core=emmg.entangled_matmul_grouped_cuda_core)
-    for site, (K, N), occupied in (
-            ("moe.gate/up", (D, F), E), ("moe.down", (F, D), E),
-            (f"moe.gate/up at decode occupancy ({n_occ} of {E} experts)",
-             (D, F), n_occ)):
-        bud = activation_budget(plan, K)
-        c = _rand(gen, -bud, bud + 1, (M, E, Cg, K), dev)
-        if occupied < E:
-            c[:, ~occ.to(dev)] = 0
-        wbytes = occupied * (K // 4) * N * 4
-        gs = [pack_int8(_rand(gen, -127, 128, (E, K, N), dev), axis=1)
-              for _ in range(max(1, -(-2 * L2_BYTES // (E * K * N))))]
-        rows["entangled_matmul_grouped"].append(_timing_row(
-            dev, f"{DEEPSEEK} decode {site}", c, gs, plan, grouped_fns,
-            emmg.entangled_matmul_grouped_plain,
-            macs=(M - 1) * occupied * Cg * K * N,
-            nbytes=4 * (M * E * Cg * K + occupied * (K // 4) * N
-                        + M * E * Cg * N),
-            wbytes=wbytes, iters=50))
-        del c, gs
-        free_cuda()
+    # v3's plain version takes ~50 GB of temporaries per call (its 256
+    # experts' weights as float64): timed between events, not in a graph
+    for arch, both_full, iters in ((DEEPSEEK, False, 50), (V3, True, 15)):
+        cfg = model_config(arch)
+        E, F, D = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
+        Cg = -(-_moe_capacity(SERVE["max_batch"], cfg) // M)  # decode rows
+        occ = decode_occupancy(E, cfg.moe.top_k, SERVE["max_batch"], seed=7)
+        n_occ = int(occ.sum())
+        at_occ = f"at decode occupancy ({n_occ} of {E} experts)"
+        shapes = [("moe.gate/up", (D, F), E), ("moe.down", (F, D), E),
+                  (f"moe.gate/up {at_occ}", (D, F), n_occ)]
+        if both_full:
+            shapes.append((f"moe.down {at_occ}", (F, D), n_occ))
+        for site, (K, N), occupied in shapes:
+            bud = activation_budget(plan, K)
+            c = _rand(gen, -bud, bud + 1, (M, E, Cg, K), dev)
+            if occupied < E:
+                c[:, ~occ.to(dev)] = 0
+            wbytes = occupied * (K // 4) * N * 4
+            gs = [_packed_weights(gen, E, K, N, dev)
+                  for _ in range(max(1, -(-2 * L2_BYTES // (E * K * N))))]
+            rows["entangled_matmul_grouped"].append(_timing_row(
+                dev, f"{arch} decode {site}", c, gs, plan, grouped_fns,
+                emmg.entangled_matmul_grouped_plain,
+                macs=(M - 1) * occupied * Cg * K * N,
+                nbytes=4 * (M * E * Cg * K + occupied * (K // 4) * N
+                            + M * E * Cg * N),
+                wbytes=wbytes, iters=iters, plain_graph=arch != V3))
+            del c, gs
+            free_cuda()
     return rows
 
 
@@ -3477,17 +4036,9 @@ def run_path(dev, kernels, arch, path_kernels, scopes, admission, smi,
                 n_dense_shapes=len(dense), n_grouped_shapes=len(grouped))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the serve-admission wave's prompt lengths")
-    args = ap.parse_args()
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
+def kernel_table():
+    """Every kernel of the port: its module, route, source, builds, launch
+    counters (per route), the TPU kernel it replaces and its checker."""
     from repro_torch.kernels import checksum as kcks
     from repro_torch.kernels import conv1d as kconv
     from repro_torch.kernels import disentangle as kdis
@@ -3539,6 +4090,21 @@ def main() -> int:
     for k in kernels:
         k.setdefault("builds", [(k["source"], k["module"].build)])
         k.setdefault("counters", ["launches"])
+    return kernels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the serve-admission wave's prompt lengths")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    kernels = kernel_table()
     by_name = {k["name"]: k for k in kernels}
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -3563,18 +4129,21 @@ def main() -> int:
     recurrent_counts, recurrent = phase_recurrent(dev, kernels, smi,
                                                   args.seed)
     family_counts, families, family_rows = phase_families(dev, kernels, smi)
+    v3_counts, serve_v3 = phase_serve_v3(dev, kernels, smi)
     grad_shapes = llama_grad_shapes(dev)
     check_codec(dev, {n: by_name[n]["checker"]
                       for n in ("entangle", "disentangle")}, grad_shapes)
     state, train_counts, train = phase_train(
         dev, kernels, ["entangle", "disentangle"])
     train_rollforward(dev, state)
+    train["remat"] = train_remat_checks(dev, state["params"], smi)
     held = [state]
     del state
     train["timings"] = train_timings(dev, held)
     free_cuda()
     tf_counts, train_families = phase_train_families(dev, kernels)
     stream = run_stream_conv(dev, kernels)
+    lib_counts, library = phase_library(dev, kernels, smi)
     rows = phase_timings(dev)
     rows.update(codec_timings(dev))
     rows.update(stream.pop("rows"))
@@ -3605,6 +4174,8 @@ def main() -> int:
         by_path.update({f"{a} train-families": c[name]
                         for a, c in tf_counts.items()})
         by_path["stream-conv"] = stream["counts"][name]
+        by_path[V3] = v3_counts[name]
+        by_path["library"] = lib_counts[name]
         if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
             head = rows[name][0]
             extra = dict(launches=stream["counts"][name],
@@ -3638,6 +4209,8 @@ def main() -> int:
                     f"{a} recurrent": r["s8_launches_per_decode_step"]
                     for a, r in recurrent.items()
                     if name == "entangled_matmul"},
+                    **{V3: {s: r["launches_per_decode_step"][name]
+                            for s, r in serve_v3["scopes"].items()}},
                     **(family_steps if name == "entangled_matmul" else {})),
                 cuda_core=dict(
                     source=k["core_source"],
@@ -3665,6 +4238,8 @@ def main() -> int:
     record["train"] = train
     record["train_families"] = train_families
     record["stream_conv"] = stream
+    record["serve_v3"] = serve_v3
+    record["library"] = library
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,12 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-Every arch id of :mod:`repro.configs.registry` is known here, but only the
-ones in :data:`PORTED` have a module in the port yet: the dense decoders
-(llama3.2-1b, qwen2-7b, minitron-8b, granite-20b), deepseek-v2-lite-16b
-(MLA + MoE), falcon-mamba-7b (Mamba-1), recurrentgemma-2b (RG-LRU +
-rolling-window MQA), whisper-small (encoder-decoder) and internvl2-2b (a
-dense decoder behind precomputed patch embeddings). The other one
-(deepseek-v3-671b) raises a clear "not ported yet" error, which lists
-:data:`PORTED`, instead of a ``KeyError``.
+Every arch id of :mod:`repro.configs.registry` has a module in the port
+(:data:`PORTED`): the dense decoders (llama3.2-1b, qwen2-7b, minitron-8b,
+granite-20b), deepseek-v2-lite-16b and deepseek-v3-671b (MLA + MoE; v3
+with a low-rank Q and the MTP head), falcon-mamba-7b (Mamba-1),
+recurrentgemma-2b (RG-LRU + rolling-window MQA), whisper-small
+(encoder-decoder) and internvl2-2b (a dense decoder behind precomputed
+patch embeddings). An unknown id raises a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ _MODULES: Dict[str, str] = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
     "whisper-small": "repro_torch.configs.whisper_small",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
@@ -41,10 +41,6 @@ PORTED = tuple(_MODULES)
 def _module(arch: str):
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {list(ARCH_IDS)}")
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; repro_torch serves "
-            f"{list(PORTED)}")
     return importlib.import_module(_MODULES[arch])
 
 

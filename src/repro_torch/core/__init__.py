@@ -1,6 +1,7 @@
 """Entanglement core of the port: plans, the codec, the LSB op registry,
 the checksum-ABFT baseline and the fail-stop engine over all recovery
-families."""
+families; the fixed-point bridge (:mod:`.fixed_point`) and SDC detection
+(:mod:`.sdc`) are submodules."""
 from repro_torch.core.plan import (EntanglePlan, checksum_output_bits,
                                    make_plan, plan_lk)
 from repro_torch.core.entangle import (disentangle, entangle,

@@ -32,15 +32,11 @@ import torch
 from repro_torch.core.entangle import disentangle as _disentangle_plain
 from repro_torch.core.entangle import entangle as _entangle_plain
 from repro_torch.core.failstop import GARBAGE
+from repro_torch.core.fixed_point import pow2_scale as _pow2_scale
 from repro_torch.core.plan import EntanglePlan, make_plan
 from repro_torch.tree import tree_map
 
 CODECS = ("plain", "kernel")
-
-# float32(ln 2): the reference's exp2 / log2 are exp(x * ln2_f32) and
-# log(x) / ln2_f32 in float32
-_LN2_F32 = 0.6931471824645996
-_TINY_F32 = torch.finfo(torch.float32).tiny
 
 
 def _check_axis(axis_name) -> None:
@@ -48,31 +44,6 @@ def _check_axis(axis_name) -> None:
         raise NotImplementedError(
             f"the cross-replica sum over axis_name={axis_name!r} is not "
             f"ported yet (it needs torch.distributed); use axis_name=None")
-
-
-def _pow2_scale(amax: torch.Tensor, max_magnitude: int,
-                depth: int) -> torch.Tensor:
-    """Fixed-point scale with ``depth``-term sum headroom: the reference's
-    float32 ``exp2(floor(log2(budget / amax)))``.
-
-    The reference evaluates ``log2`` as ``log(q) / ln2`` and ``exp2`` as
-    ``exp(k * ln2)`` in float32; here ``log`` and ``exp`` are evaluated in
-    float64 and rounded once to float32 (correctly rounded), the rest in
-    float32 in the reference's order. That gives the reference's scale
-    everywhere except where XLA's float32 ``log`` is not correctly rounded
-    AND ``log(q) / ln2`` lands on an integer: quotients within a few ulps
-    of some powers of two (2**27, 2**31, ...), where the reference's floor
-    is one lower (listed in ROADMAP queue 3; shown by
-    ``tests/test_torch_train.py``). The result is then twice the
-    reference's, which changes the rounding grid, never the roll-forward.
-    """
-    dev = amax.device
-    budget = torch.tensor(float(max_magnitude // max(depth, 1)),
-                          dtype=torch.float32, device=dev)
-    ln2 = torch.tensor(_LN2_F32, dtype=torch.float32, device=dev)
-    q = budget / torch.clamp(amax.to(torch.float32), min=_TINY_F32)
-    k = torch.floor(torch.log(q.double()).float() / ln2)
-    return torch.exp((k * ln2).double()).float()
 
 
 def _to_blocks(flat: torch.Tensor, M: int) -> tuple:

@@ -36,6 +36,10 @@ PROTECTED_WEIGHT_KEYS: dict[str, str] = {
     "we_gate": "moe", "we_up": "moe", "we_down": "moe",  # raw [E, D, F]
 }
 
+# subtrees the serving forward never reads, left as they are (deepseek-v3's
+# MTP head is train-only)
+_SKIP_SUBTREES = frozenset({"mtp"})
+
 
 def _is_float_weight(v) -> bool:
     return (isinstance(v, torch.Tensor) and v.dim() >= 2
@@ -48,7 +52,8 @@ def prepare_params(params, *, scope: str):
     dense site's dict, a ``<key>_q8`` sibling beside a raw array. Stacked
     weights get one scale per leading index (``[repeat]``, or ``[repeat,
     E]`` for the expert stacks). Float masters and all other leaves are
-    shared, not copied."""
+    shared, not copied; the ``mtp`` subtree is shared whole, never
+    quantized."""
     from repro_torch.ft.protected import SCOPES  # protected imports us
 
     cats = SCOPES[scope]
@@ -58,7 +63,9 @@ def prepare_params(params, *, scope: str):
             out = {}
             for k, v in node.items():
                 cat = PROTECTED_WEIGHT_KEYS.get(k)
-                if cat not in cats:
+                if k in _SKIP_SUBTREES:
+                    out[k] = v
+                elif cat not in cats:
                     out[k] = walk(v)
                 elif isinstance(v, dict) and _is_float_weight(v.get("w")):
                     out[k] = dict(v, q8=quantize_weight_stacked(

@@ -3,16 +3,17 @@
 
 Boots the batched serving engine with random weights (from a seeded
 ``torch.Generator``) on ``--device`` (default ``cuda``) and runs a
-synthetic request wave. The ported archs are the dense decoders
-llama3.2-1b, qwen2-7b (qkv bias), minitron-8b (ungated relu2 MLP) and
-granite-20b (MQA, ungated gelu MLP), and deepseek-v2-lite-16b (MLA +
-MoE); ``--n-layers`` cuts the depth of the published config (float32
-masters alone take about 63 GB for deepseek-v2-lite's 27 layers and 81 GB
-for granite-20b's 52). ``--ft-mode entangle`` runs the vocab projection
-of every decode step and admission batch as the fused entangled int8 GEMM
-(slot -> group = slot % ft_M); ``--ft-scope`` widens protection to the
-in-model projections; ``--failed-group r`` fail-stops group r on every
-step. With ``--smoke`` and entanglement on, the launcher prints a
+synthetic request wave. Every arch of the reference is ported; the
+engine serves all but whisper-small (as the reference's engine). The
+launcher keeps float32 masters; ``--n-layers`` cuts the depth of the
+published config (float32 masters alone take about 63 GB for
+deepseek-v2-lite's 27 layers and 81 GB for granite-20b's 52; deepseek-v3
+at published widths serves on one card with bf16 masters through the
+model API, as ``chip_smoke.py`` does). ``--ft-mode entangle`` runs the
+vocab projection of every decode step and admission batch as the fused
+entangled int8 GEMM (slot -> group = slot % ft_M); ``--ft-scope`` widens
+protection to the in-model projections; ``--failed-group r`` fail-stops
+group r on every step. With ``--smoke`` and entanglement on, the launcher prints a
 per-scope recovery summary (the head scope and the configured scope;
 healthy and injected tokens compared request by request), ending in
 ``EXACT ROLL-FORWARD`` or ``RECOVERY FAILED``; a mismatch exits 1.
@@ -36,9 +37,11 @@ migrates its requests and the wave still completes; an incomplete wave
 exits 1), and ``--max-replicas M --scale-up-depth D`` turns on
 queue-depth autoscaling between the initial pool and M.
 
-Flags of the reference's launcher that belong to later slices of the port
-(autotuned blocks, checkpoints) are rejected at parse time with "not
-ported yet".
+``--ckpt-dir D`` serves the params of the latest checkpoint under D (one
+written by either package's trainer) instead of the random ones. The
+reference launcher's ``--blocks`` (autotuned block sizes) belongs to a
+later slice of the port and is rejected at parse time with "not ported
+yet".
 """
 from __future__ import annotations
 
@@ -55,13 +58,14 @@ from repro_torch.ft import SCOPES
 from repro_torch.models import get_model
 from repro_torch.serve.engine import Request, ServeConfig, ServeEngine
 from repro_torch.serve.fleet import Fleet, FleetConfig, ScalingPolicy
+from repro_torch.train.checkpoint import CheckpointManager
 
 # the drain bound of a closed wave; kill schedules are checked against it
 # at parse time
 MAX_WAVE_STEPS = 10_000
 
 # flag -> its "off" value; any other value is a later slice's feature
-_NOT_PORTED = {"blocks": "", "ckpt_dir": ""}
+_NOT_PORTED = {"blocks": ""}
 
 
 def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
@@ -279,9 +283,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--scale-up-depth", type=int, default=4,
                     help="spawn a replica when the router queue exceeds "
                          "this many requests per healthy replica")
-    # later slices' flags: accepted by the parser so that using one gives
+    ap.add_argument("--ckpt-dir", default="",
+                    help="serve the params of the latest checkpoint under "
+                         "this directory")
+    # a later slice's flag: accepted by the parser so that using it gives
     # a clear "not ported yet" error
-    ap.add_argument("--ckpt-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--blocks", default="", help=argparse.SUPPRESS)
     return ap
 
@@ -305,6 +311,11 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev)
     params = model.init(gen.manual_seed(0), cfg,
                         max_seq=args.max_seq, device=dev)
+    if args.ckpt_dir:
+        restored, step = CheckpointManager(args.ckpt_dir).restore(
+            {"params": params})
+        params = restored["params"]
+        print(f"[launch.serve] restored params from step {step}")
     scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        ft_mode=args.ft_mode, ft_M=args.ft_M,
                        ft_scope=args.ft_scope, prefill_buckets=buckets,

@@ -7,6 +7,7 @@ family trains)::
     model = get_model(cfg)
     params = model.init(gen, cfg, max_seq, device=dev)  # gen: torch.Generator
     logits = model.forward_train(params, batch, cfg)    # [B, T, V] float32
+    #   (deepseek-v3: (logits, mtp_logits))
     loss = lm_loss(logits, batch, cfg)
     cache = model.init_cache(cfg, batch, max_seq, device=dev)
     h, cache = model.prefill_chunk(params, tokens, cfg, cache,
@@ -65,6 +66,7 @@ from repro_torch.tree import tree_map
 class Model(NamedTuple):
     init: Callable
     forward_train: Callable  # (params, batch, cfg) -> float32 logits [B, T, V]
+    #   (with cfg.mtp the pair (logits, mtp_logits))
     prefill_chunk: Callable
     prefill_packed: Callable
     decode_hidden: Callable
@@ -76,10 +78,38 @@ class Model(NamedTuple):
 
 
 def _init(gen: torch.Generator, cfg: ModelConfig, max_seq: int,
-          device=None) -> dict:
+          device=None, master_dtype: torch.dtype = torch.float32) -> dict:
+    """``embed`` and ``stack``, and with ``cfg.mtp`` (deepseek-v3) the
+    train-only ``mtp`` subtree as in the reference: ``proj`` [2D, D], one
+    ``attn_dense`` block stacked with repeat 1, ``norm_h`` and ``norm_e``
+    (serving never reads it, and ``prepare_params`` skips it).
+
+    ``master_dtype`` is the reference's float32 by default. With
+    ``torch.bfloat16`` (a model too large for its float32 masters on one
+    card, deepseek-v3) every weight that the forward passes read only
+    through a bfloat16 cast is stored as bfloat16, rounded as it is drawn
+    (:func:`~repro_torch.models.layers.bf16_read_init`): the embedding
+    ``tok``, the untied ``head``, every projection's ``w`` of GQA
+    attention, MLA (``wq`` / ``wq_a`` / ``wq_b`` / ``wkv_a`` / ``wkv_b`` /
+    ``wo``) and the MLPs (the shared expert and the MTP block's included),
+    the MTP ``proj``, the ``router`` and the expert stacks ``we_gate`` /
+    ``we_up`` / ``we_down``. Every other leaf stays float32: the norms'
+    ``scale`` (and a LayerNorm's ``bias``), the qkv biases ``b``, learned
+    positions ``pos``, and every leaf of the Mamba and RG-LRU blocks. The
+    int8 grids and every product are then those of float32 masters holding
+    the same bf16-representable values (the weights are upcast one matrix
+    at a time for quantization). Serving only: training takes float32."""
     dev = resolve_device(device)
-    p = {"embed": T.init_embed(gen, cfg, max_seq),
-         "stack": T.init_stack(gen, cfg)}
+    with L.master_dtype(master_dtype):
+        p = {"embed": T.init_embed(gen, cfg, max_seq),
+             "stack": T.init_stack(gen, cfg)}
+        if cfg.mtp:
+            p["mtp"] = {
+                "proj": {"w": L.bf16_read_init(
+                    gen, (2 * cfg.d_model, cfg.d_model), 2 * cfg.d_model)},
+                "block": T.BLOCKS["attn_dense"].init(gen, cfg, 1),
+                "norm_h": L.init_norm(cfg, (cfg.d_model,), gen.device),
+                "norm_e": L.init_norm(cfg, (cfg.d_model,), gen.device)}
     return tree_map(lambda t: t.to(dev), p)
 
 
@@ -96,19 +126,38 @@ def _prefix_embeds(p, batch, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
+def _mtp_logits(p, h, batch, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction: one more ``attn_dense`` block
+    predicting token t+2 from ``proj([norm_h(h_t); norm_e(emb(tok_{t+1}))])``
+    (the last position's next token wraps around, as the reference's
+    ``roll``), sharing the embedding, the final norm and the head."""
+    emb_next = T.embed_tokens({"tok": p["embed"]["tok"]},
+                              torch.roll(batch["tokens"], -1, dims=1), cfg)
+    hh = torch.cat([L.apply_norm(p["mtp"]["norm_h"], h, cfg),
+                    L.apply_norm(p["mtp"]["norm_e"], emb_next, cfg)], dim=-1)
+    x = L.dense(p["mtp"]["proj"], hh)
+    for p_i in T.layer_views(p["mtp"]["block"], 1):
+        x = T.BLOCKS["attn_dense"].apply(p_i, x, cfg=cfg, cache=None,
+                                         pos=None, mode="train",
+                                         lengths=None, ft=None)
+    return T.logits_head(p["embed"], x, cfg)
+
+
 def _forward_train(p, batch, cfg: ModelConfig):
     """Logits of a training batch ``{"tokens": [B, T]}`` (and
     ``"patch_embeds"``, whose positions give no logits): the whole
     sequence, causal, no cache, every block of the pattern (under
     ``cfg.remat``'s activation checkpointing). The params may be autograd
-    leaves."""
-    if cfg.mtp:
-        raise NotImplementedError("the MTP head is not ported yet")
+    leaves. With ``cfg.mtp`` the pair ``(logits, mtp_logits)``, the second
+    predicting t+2 (:func:`_mtp_logits`)."""
     h = T.apply_stack(p["stack"], _prefix_embeds(p, batch, cfg), cfg=cfg,
                       mode="train")
     if "patch_embeds" in batch:  # only text positions produce logits
         h = h[:, batch["patch_embeds"].shape[1]:]
-    return T.logits_head(p["embed"], h, cfg)
+    logits = T.logits_head(p["embed"], h, cfg)
+    if cfg.mtp:
+        return logits, _mtp_logits(p, h, batch, cfg)
+    return logits
 
 
 def _prefill_chunk(p, tokens, cfg: ModelConfig, cache, *, pos0: int = 0,
@@ -364,22 +413,34 @@ def get_model(cfg: ModelConfig) -> Model:
 
 # ------------------------------------------------------------------- loss ----
 
-def lm_loss(logits: torch.Tensor, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def lm_loss(logits, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross entropy over the batch's ``loss_mask`` (all ones
     when absent): a float32 log-softmax over the whole vocab, or with
     ``loss_impl='streamed'`` (:func:`repro_torch.models.loss.
-    streamed_lm_ce`, which saves no [tokens, vocab] residual). The MTP
-    term is not ported yet."""
-    if isinstance(logits, tuple):
-        raise NotImplementedError("the MTP loss term is not ported yet")
+    streamed_lm_ce`, which saves no [tokens, vocab] residual). ``logits``
+    may be the pair ``(logits, mtp_logits)`` (deepseek-v3): the MTP
+    logits' t+2 cross entropy is then added with weight 0.3."""
+    main, mtp = logits if isinstance(logits, tuple) else (logits, None)
     tokens = batch["tokens"]
     full_mask = batch.get("loss_mask")
     if full_mask is None:
         full_mask = torch.ones_like(tokens)
     if cfg.loss_impl == "streamed":
-        return streamed_lm_ce(logits, tokens, full_mask, shift=1)
-    mask = full_mask[:, 1:].to(torch.float32)
-    lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-    ll = torch.take_along_dim(lp, tokens[:, 1:, None].to(torch.int64),
+        loss = streamed_lm_ce(main, tokens, full_mask, shift=1)
+        if mtp is not None:
+            loss = loss + 0.3 * streamed_lm_ce(mtp, tokens, full_mask,
+                                               shift=2)
+        return loss
+    loss = _naive_ce(main, tokens, full_mask, 1)
+    if mtp is not None:
+        loss = loss + 0.3 * _naive_ce(mtp, tokens, full_mask, 2)
+    return loss
+
+
+def _naive_ce(logits, tokens, full_mask, shift: int) -> torch.Tensor:
+    """Mean masked CE of position t predicting token t + ``shift``."""
+    mask = full_mask[:, shift:].to(torch.float32)
+    lp = torch.log_softmax(logits[:, :-shift].to(torch.float32), dim=-1)
+    ll = torch.take_along_dim(lp, tokens[:, shift:, None].to(torch.int64),
                               dim=-1)[..., 0]
     return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -21,6 +21,9 @@ them), which saves a copy of the largest buffer per step.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import itertools
 import math
 from typing import Optional
 
@@ -48,6 +51,38 @@ def he_init(gen: torch.Generator, shape: tuple, fan_in: int) -> torch.Tensor:
     """float32 normal(0, 1/fan_in) weights on the generator's device."""
     return torch.randn(shape, generator=gen, device=gen.device) * (
         1.0 / math.sqrt(fan_in))
+
+
+# the dtype :func:`bf16_read_init` stores weights in (set by
+# :func:`master_dtype` around a model's ``init``)
+_MASTER_DTYPE = contextvars.ContextVar("master_dtype", default=torch.float32)
+
+
+@contextlib.contextmanager
+def master_dtype(dtype: torch.dtype):
+    """Within: :func:`bf16_read_init` stores its weights in ``dtype``."""
+    token = _MASTER_DTYPE.set(dtype)
+    try:
+        yield
+    finally:
+        _MASTER_DTYPE.reset(token)
+
+
+def bf16_read_init(gen: torch.Generator, shape: tuple,
+                   fan_in: int) -> torch.Tensor:
+    """:func:`he_init` for a weight that every forward reads only through
+    a bfloat16 cast (a projection's ``w``, the router, the expert stacks,
+    the embedding and the head): float32 by default; under
+    ``master_dtype(torch.bfloat16)`` drawn one matrix ``shape[-2:]`` at a
+    time in float32 and rounded to bfloat16, so that the float32 temporary
+    is one matrix (one expert's slab of a stack), never the whole leaf."""
+    dtype = _MASTER_DTYPE.get()
+    if dtype == torch.float32:
+        return he_init(gen, shape, fan_in)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for idx in itertools.product(*(range(n) for n in shape[:-2])):
+        out[idx] = he_init(gen, shape[-2:], fan_in)
+    return out
 
 
 # ----------------------------------------------------------------- norms ----
@@ -276,7 +311,7 @@ def init_attention(gen, cfg: ModelConfig, repeat: int) -> dict:
     hd, D = cfg.resolved_head_dim, cfg.d_model
 
     def proj(n_out, bias=False):
-        p = {"w": he_init(gen, (repeat, D, n_out), D)}
+        p = {"w": bf16_read_init(gen, (repeat, D, n_out), D)}
         if bias:
             p["b"] = torch.zeros((repeat, n_out), device=gen.device)
         return p
@@ -286,8 +321,8 @@ def init_attention(gen, cfg: ModelConfig, repeat: int) -> dict:
         "wq": proj(cfg.n_heads * hd, cfg.qkv_bias),
         "wk": proj(cfg.n_kv_heads * hd, cfg.qkv_bias),
         "wv": proj(cfg.n_kv_heads * hd, cfg.qkv_bias),
-        "wo": {"w": he_init(gen, (repeat, cfg.n_heads * hd, D),
-                            cfg.n_heads * hd)},
+        "wo": {"w": bf16_read_init(gen, (repeat, cfg.n_heads * hd, D),
+                                   cfg.n_heads * hd)},
     }
 
 
@@ -495,22 +530,31 @@ def apply_attention(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict,
 # ---------------------------------------------------------- MLA attention ----
 
 def init_mla(gen, cfg: ModelConfig, repeat: int) -> dict:
+    """MLA's projections: ``wkv_a`` (the latent and the shared rope key),
+    ``wkv_b`` (the latent's per-head keys and values), ``wo``, and either
+    the full-rank ``wq`` or, with ``q_lora_rank`` (deepseek-v3), the
+    low-rank ``wq_a`` -> ``q_norm`` -> ``wq_b``."""
     m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
-    if m.q_lora_rank:
-        raise NotImplementedError(
-            "MLA with q_lora_rank > 0 (deepseek-v3) is not ported yet")
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     r = m.kv_lora_rank
-    return {
+    p = {
         "norm": init_norm(cfg, (repeat, D), gen.device),
-        "wkv_a": {"w": he_init(gen, (repeat, D, r + m.qk_rope_head_dim), D)},
+        "wkv_a": {"w": bf16_read_init(gen, (repeat, D,
+                                            r + m.qk_rope_head_dim), D)},
         "kv_norm": init_norm(cfg, (repeat, r), gen.device),
-        "wkv_b": {"w": he_init(
+        "wkv_b": {"w": bf16_read_init(
             gen, (repeat, r, H * (m.qk_nope_head_dim + m.v_head_dim)), r)},
-        "wo": {"w": he_init(gen, (repeat, H * m.v_head_dim, D),
-                            H * m.v_head_dim)},
-        "wq": {"w": he_init(gen, (repeat, D, H * qk_dim), D)},
+        "wo": {"w": bf16_read_init(gen, (repeat, H * m.v_head_dim, D),
+                                   H * m.v_head_dim)},
     }
+    if m.q_lora_rank:
+        q = m.q_lora_rank
+        p["wq_a"] = {"w": bf16_read_init(gen, (repeat, D, q), D)}
+        p["q_norm"] = init_norm(cfg, (repeat, q), gen.device)
+        p["wq_b"] = {"w": bf16_read_init(gen, (repeat, q, H * qk_dim), q)}
+    else:
+        p["wq"] = {"w": bf16_read_init(gen, (repeat, D, H * qk_dim), D)}
+    return p
 
 
 def init_mla_cache(cfg: ModelConfig, repeat: int, batch: int, max_seq: int,
@@ -544,9 +588,16 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
     H, r = cfg.n_heads, m.kv_lora_rank
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     h = apply_norm(p["norm"], x, cfg)
-    # wq and wkv_a project the same normed residual: one fanout group
-    q, kv = dense_fanout((p["wq"], p["wkv_a"]), h, ft=ft,
-                         sites=("qkv.q", "qkv.kv"))
+    # wq_a (or wq) and wkv_a project the same normed residual: one fanout
+    # group; the low-rank Q's up-projection wq_b is a site of its own
+    if m.q_lora_rank:
+        qa, kv = dense_fanout((p["wq_a"], p["wkv_a"]), h, ft=ft,
+                              sites=("qkv.q_a", "qkv.kv"))
+        q = dense(p["wq_b"], apply_norm(p["q_norm"], qa, cfg), ft=ft,
+                  site="qkv.q")
+    else:
+        q, kv = dense_fanout((p["wq"], p["wkv_a"]), h, ft=ft,
+                             sites=("qkv.q", "qkv.kv"))
     q = q.reshape(B, T, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     ckv = apply_norm(p["kv_norm"], kv[..., :r], cfg)
@@ -606,9 +657,9 @@ def init_mlp(gen, cfg: ModelConfig, repeat: int,
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
     p = {"norm": init_norm(cfg, (repeat, D), gen.device)}
     if gated if cfg.mlp_gated is None else cfg.mlp_gated:
-        p["gate"] = {"w": he_init(gen, (repeat, D, Fd), D)}
-    p["up"] = {"w": he_init(gen, (repeat, D, Fd), D)}
-    p["down"] = {"w": he_init(gen, (repeat, Fd, D), Fd)}
+        p["gate"] = {"w": bf16_read_init(gen, (repeat, D, Fd), D)}
+    p["up"] = {"w": bf16_read_init(gen, (repeat, D, Fd), D)}
+    p["down"] = {"w": bf16_read_init(gen, (repeat, Fd, D), Fd)}
     return p
 
 
@@ -679,10 +730,10 @@ def init_moe(gen, cfg: ModelConfig, repeat: int) -> dict:
     E, F = mc.n_experts, mc.d_ff_expert
     p = {
         "norm": init_norm(cfg, (repeat, D), gen.device),
-        "router": he_init(gen, (repeat, D, E), D),
-        "we_gate": he_init(gen, (repeat, E, D, F), D),
-        "we_up": he_init(gen, (repeat, E, D, F), D),
-        "we_down": he_init(gen, (repeat, E, F, D), F),
+        "router": bf16_read_init(gen, (repeat, D, E), D),
+        "we_gate": bf16_read_init(gen, (repeat, E, D, F), D),
+        "we_up": bf16_read_init(gen, (repeat, E, D, F), D),
+        "we_down": bf16_read_init(gen, (repeat, E, F, D), F),
     }
     if mc.n_shared:
         p["shared"] = init_mlp(gen, cfg, repeat, d_ff=mc.n_shared * F)

@@ -229,10 +229,12 @@ def _unit_body(blocks, ps, cs, x, **kw):
 def init_embed(gen, cfg: ModelConfig, max_seq: int) -> dict:
     """Token embedding, final norm, the head unless tied, and for a
     layernorm model (whisper) learned positions ``pos`` [max_seq, D]."""
-    p = {"tok": L.he_init(gen, (cfg.vocab_size, cfg.d_model), cfg.d_model),
+    p = {"tok": L.bf16_read_init(gen, (cfg.vocab_size, cfg.d_model),
+                                 cfg.d_model),
          "final_norm": L.init_norm(cfg, (cfg.d_model,), gen.device)}
     if not cfg.tie_embeddings:
-        p["head"] = L.he_init(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model)
+        p["head"] = L.bf16_read_init(gen, (cfg.d_model, cfg.vocab_size),
+                                     cfg.d_model)
     if cfg.norm_kind == "layernorm":
         p["pos"] = L.he_init(gen, (max_seq, cfg.d_model), cfg.d_model)
     return p

@@ -1,2 +1,3 @@
 """Training of the port: the train step with its gradient syncs, the
-checkpoint manager and the training loop."""
+checkpoint manager, the training loop and the straggler deadline
+executor."""

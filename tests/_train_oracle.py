@@ -99,10 +99,14 @@ def force_routes(routes: list):
     (one [N, top_k] array per MoE layer, cycled in layer order) with its
     own gate probabilities at them. Yields a list that receives, per
     call, the port's own choice [N, top_k] and the gap between its k-th
-    and (k+1)-th probabilities [N]."""
+    and (k+1)-th probabilities [N]. Calls on the ``meta`` device (a
+    serving engine's shape census) take the port's own choice and are not
+    counted."""
     saved, own, calls = TL._top_k, [], [0]
 
     def top_k(probs, k):
+        if probs.device.type == "meta":  # a serving engine's shape census
+            return saved(probs, k)
         vals, idx = saved(probs, k + 1)
         own.append((idx[..., :k], (vals[..., k - 1] - vals[..., k]).detach()))
         ids = torch.from_numpy(routes[calls[0] % len(routes)].astype(np.int64))

@@ -133,7 +133,15 @@ def test_llama_configs_match_reference():
 
 
 def test_unported_arch_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("deepseek-v3-671b")
+    """Every arch id is ported now: deepseek-v3-671b's configs equal the
+    reference's, and an unknown id still raises a ``KeyError``."""
+    from repro.configs import get_config as jget_config
+    from repro.configs import get_smoke_config as jget_smoke
+    from repro_torch.configs import get_smoke_config
+
+    assert (dataclasses.asdict(get_config("deepseek-v3-671b"))
+            == dataclasses.asdict(jget_config("deepseek-v3-671b")))
+    assert (dataclasses.asdict(get_smoke_config("deepseek-v3-671b"))
+            == dataclasses.asdict(jget_smoke("deepseek-v3-671b")))
     with pytest.raises(KeyError):
         get_config("no-such-arch")

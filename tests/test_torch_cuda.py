@@ -738,3 +738,96 @@ def test_mamba_train_and_prefill_give_a_position_the_same_bits_on_the_card(
     torch.testing.assert_close(got.detach(), want, rtol=0, atol=0)
     (gx,) = torch.autograd.grad(got.float().sum(), x)
     assert torch.isfinite(gx.float()).all()
+
+
+@pytest.mark.requires_cuda
+def test_v3_smoke_engine_rolls_forward_on_the_card(cuda_device):
+    """deepseek-v3's smoke config (low-rank-Q MLA, 8 experts with sigmoid
+    gating, the MTP subtree built and never quantized) served at scope all
+    with bf16 masters: failed_group=1 on every step gives the healthy
+    tokens, and both GEMM kernels launched on their s8 route."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = get_smoke_config("deepseek-v3-671b")
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, 32,
+        device=cuda_device, master_dtype=torch.bfloat16)
+    scfg = ServeConfig(max_batch=8, max_seq=32, ft_mode="entangle", ft_M=4,
+                       ft_scope="all")
+    before = (emm.launches_s8, emmg.launches_s8)
+    outs = []
+    for fg in (None, 1):
+        eng = ServeEngine(cfg, scfg, params, device=cuda_device)
+        assert "q8" not in str(eng.ft_params["mtp"])
+        rng = np.random.default_rng(0)
+        for r in range(8):
+            eng.submit(Request(rid=r, max_new=6, prompt=rng.integers(
+                0, cfg.vocab_size, size=8).astype(np.int32)))
+        outs.append({q.rid: np.asarray(q.out)
+                     for q in eng.run_to_completion(failed_group=fg)})
+        assert eng.plans.misses == 0
+    for rid in outs[0]:
+        np.testing.assert_array_equal(outs[1][rid], outs[0][rid])
+    assert emm.launches_s8 > before[0] and emmg.launches_s8 > before[1]
+
+
+@pytest.mark.requires_cuda
+def test_v3_smoke_train_step_on_the_card(cuda_device):
+    """One deepseek-v3 smoke train step (the MTP head and its 0.3-weighted
+    loss term, the low-rank Q) on the card: the synced gradients of one
+    backward on the kernel codec equal the plain codec's, bit for bit,
+    including the MTP leaves, and the codec kernels launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.train.train_step import (TrainConfig, init_state,
+                                              loss_and_grads, sync_grads)
+    from repro_torch.tree import leaves_with_path
+
+    cfg = get_smoke_config("deepseek-v3-671b")
+    tcfg = TrainConfig(max_seq=64, grad_sync="entangle", grad_codec="kernel")
+    state = init_state(torch.Generator(device=cuda_device).manual_seed(0),
+                       cfg, tcfg, cuda_device)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(1))
+    loss, grads = loss_and_grads(cfg, state["params"], {"tokens": tokens})
+    assert torch.isfinite(loss)
+    before = (kent.launches, kdis.launches)
+    with torch.no_grad():
+        kern, _ = sync_grads(grads, tcfg)
+        assert kent.launches > before[0] and kdis.launches > before[1]
+        plain, _ = sync_grads(grads, dataclasses.replace(tcfg,
+                                                         grad_codec="plain"))
+    paths = [p for p, _ in leaves_with_path(kern)]
+    assert any(p.startswith("['mtp']") for p in paths)
+    for (p, a), (_, b) in zip(leaves_with_path(kern),
+                              leaves_with_path(plain)):
+        assert torch.equal(a, b), p
+
+
+@pytest.mark.requires_cuda
+def test_sdc_on_the_card_matches_the_cpu(cuda_device):
+    """``sdc.detect`` and ``sdc.localize`` on card tensors (their
+    disentangle passes through the CUDA kernel, which launches) equal the
+    same calls on the CPU."""
+    from repro_torch.core import entangle, sdc
+
+    plan = make_plan(4, 32)
+    rng = np.random.default_rng(0)
+    c = torch.from_numpy(rng.integers(-1000, 1000, size=(4, 4096)).astype(
+        np.int32))
+    delta = entangle(c, plan)
+    for j, pos, mag in ((0, 17, 1), (2, 100, 123456789), (3, 4095, 255)):
+        bad = delta.clone()
+        bad[j, pos] += mag
+        before = kdis.launches
+        det = sdc.detect(bad.to(cuda_device), plan)
+        loc = sdc.localize(bad.to(cuda_device), plan)
+        assert kdis.launches - before == 3 * plan.M
+        assert det.is_cuda and loc.is_cuda
+        assert torch.equal(det.cpu(), sdc.detect(bad, plan))
+        assert torch.equal(loc.cpu(), sdc.localize(bad, plan))
+        assert bool(det[pos]) and int(det.sum()) == 1

@@ -213,12 +213,15 @@ def test_cli_reports_exact_roll_forward():
 @pytest.mark.parametrize("flag", [
     ["--replicas", "0"], ["--kill-replica-at", "5"],
     ["--replicas", "4", "--max-replicas", "2"],
-    ["--blocks", "auto"], ["--kill-replica", "1"], ["--ckpt-dir", "x"]])
+    ["--blocks", "auto"], ["--kill-replica", "1"],
+    ["--ckpt-dir", "x", "--prefill-chunk", "-1"]])
 def test_cli_rejects_later_slices_at_parse_time(capsys, flag):
-    """--blocks and --ckpt-dir are still later slices' flags; the fleet
-    flags are ported, and these uses of them break the fleet's parse-time
-    rules (an empty pool, a kill with no survivor, a bound below the pool,
-    a kill target with no kill step)."""
+    """--blocks is still a later slice's flag; the fleet flags are ported,
+    and these uses of them break the fleet's parse-time rules (an empty
+    pool, a kill with no survivor, a bound below the pool, a kill target
+    with no kill step). --ckpt-dir is ported: it passes, and the parser
+    dies on the next invalid flag (its restore is
+    tests/test_torch_substrates.py's)."""
     from repro_torch.launch import serve
 
     with pytest.raises(SystemExit) as e:
@@ -226,10 +229,12 @@ def test_cli_rejects_later_slices_at_parse_time(capsys, flag):
                     *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    if flag[0] in ("--blocks", "--ckpt-dir"):
+    if flag[0] == "--blocks":
         assert "not ported yet" in err
     else:
         assert "not ported" not in err
+    if flag[0] == "--ckpt-dir":
+        assert "--prefill-chunk must be >= 0" in err
 
 
 def test_admission_policy_queue_bound_deadlines_and_eos(ref):

@@ -340,11 +340,11 @@ def test_failstop_step_bit_identical(ref, codec):
 
 
 def test_train_refuses_what_is_not_ported():
-    """What training still refuses: the MTP head and its loss term and
-    MLA with a low-rank Q (both deepseek-v3), and the bf16 norm apply
-    (``norm_f32=False``); an unknown gradient sync. (Remat, the streamed
-    CE and the MLA / MoE / Mamba / RG-LRU / local-attention blocks train:
-    tests/test_torch_loss.py, test_torch_train_moe.py,
+    """What training still refuses: the bf16 norm apply
+    (``norm_f32=False``) and an unknown gradient sync. (Remat, the
+    streamed CE, the MTP head and its loss, MLA with a low-rank Q and the
+    MLA / MoE / Mamba / RG-LRU / local-attention blocks train:
+    tests/test_torch_loss.py, test_torch_v3.py, test_torch_train_moe.py,
     test_torch_train_recurrent.py.)"""
     cfg = get_smoke_config(ARCH)
     state = init_state(torch.Generator().manual_seed(0), cfg,
@@ -353,18 +353,6 @@ def test_train_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="norm"):
         make_train_step(dataclasses.replace(cfg, norm_f32=False),
                         TrainConfig())(state, batch)
-    with pytest.raises(NotImplementedError, match="MTP head"):
-        make_train_step(dataclasses.replace(cfg, mtp=True),
-                        TrainConfig())(state, batch)
-    logits = torch.zeros((2, 8, cfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="MTP loss"):
-        lm_loss((logits, logits), batch, cfg)
-    ds = get_smoke_config("deepseek-v2-lite-16b")
-    ds = dataclasses.replace(ds, mla=dataclasses.replace(ds.mla,
-                                                         q_lora_rank=16))
-    with pytest.raises(NotImplementedError, match="q_lora_rank"):
-        init_state(torch.Generator().manual_seed(0), ds,
-                   TrainConfig(max_seq=32), device="cpu")
     with pytest.raises(ValueError, match="grad_sync"):
         make_train_step(cfg, TrainConfig(grad_sync="psum"))
 
