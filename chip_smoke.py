@@ -166,17 +166,21 @@ exits nonzero:
                window; then the blocked attention's backward at T = S =
                2048 with llama3.2-1b's heads, causal, against autograd
                through the materialized scores;
-  5. stream-conv — the conv, entangled conv and checksum kernels held
-               against their plain versions (ragged shapes at K_f 1..4500,
-               every plan, mode, packing and failed stream; the depthwise
-               model shape [4, 8, 8192, 512]; the stream-conv shapes); then
-               the path: ``run_protected("conv")`` under none / entangle /
-               checksum / mr with every failed stream, and the fused
-               entangled conv with every failed stream, must equal the
-               failure-intolerant conv bit for bit (EXACT ROLL-FORWARD
-               (stream conv)) per (M, K), and every other LSB op must
-               recover exactly at the demo's size; then the Fig. 2 overheads
-               of each family against the conventional conv on the card;
+  5. stream-conv — the conv and entangled conv kernels, each on both
+               routes (the s8 tensor cores and the CUDA cores), and the
+               checksum kernel held against their plain versions (ragged
+               shapes at K_f 1..4609, the s8 route's edges, every plan,
+               mode, packing and failed stream; the depthwise model shape
+               [4, 8, 8192, 512]; the stream-conv shapes); then the path:
+               ``run_protected("conv")`` under none / entangle / checksum /
+               mr with every failed stream, and the fused entangled conv
+               with every failed stream, must equal the failure-intolerant
+               conv bit for bit (EXACT ROLL-FORWARD (stream conv)) per
+               (M, K), every other LSB op must recover exactly at the
+               demo's size, and the s8 route of both convs must have
+               launched; then the Fig. 2 overheads of each family against
+               the conventional conv on the card, and both conv routes
+               timed in turns against the bound;
   5b. library — ``examples/failstop_demo`` and ``examples/serve_lm`` of
                the port on the card with the reference examples' verdicts,
                and ``sdc.detect`` / ``localize`` on card tensors held to
@@ -202,6 +206,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import pathlib
@@ -341,6 +346,11 @@ CONV_SHAPES = [(2, 5, 33, 1), (1, 3, 700, 2), (3, 6, 1029, 4),
 # the depthwise model shape (B, D, T, K_f): the Mamba conv1d of
 # falcon-mamba-7b (d_inner 8192, d_conv 4) over 8 rows of 512 steps, M = 4
 DEPTHWISE = (8, 8192, 512, 4)
+# the s8 conv route's edges (B, D, T, K_f): T one short of its 512-output
+# tile at K_f = its 64-output row block, T one past its 3072-output tile at
+# K_f one past the row block, K_f one past its 4608-tap chunk
+S8_EDGE_SHAPES = [(1, 1, 511, 64), (2, 1, 3073, 65), (1, 1, 2000, 4609)]
+CONV_ROUTES = ("cuda_core", "s8")
 
 
 def log(msg: str) -> None:
@@ -356,7 +366,8 @@ def nvidia_smi() -> str:
 
 def count(k, route: int = 0) -> int:
     """Launches of kernel ``k`` on its main route (``route`` 1: the second
-    route of a GEMM, its CUDA-core kernel)."""
+    route of a GEMM, its CUDA-core kernel; a conv's counters are all its
+    launches, then its s8 and its CUDA-core route's)."""
     return getattr(k["module"], k["counters"][route])
 
 
@@ -431,11 +442,15 @@ class Checker:
     GEMM's pair for ``compare``; a GEMM's ``s8_fn`` (its wrapper, which
     sends packed calls to the s8 tensor-core kernel) is held against the
     same plain result on every packed call, beside ``cuda_fn`` (its
-    CUDA-core kernel, called directly). The codec passes call ``equal``
-    with their own results."""
+    CUDA-core kernel, called directly). ``route_fns`` ({route: fn}) holds
+    a kernel with routes that all take every call (the convs) against the
+    plain result on each. The codec passes call ``equal`` with their own
+    results."""
 
-    def __init__(self, cuda_fn=None, plain_fn=None, s8_fn=None):
+    def __init__(self, cuda_fn=None, plain_fn=None, s8_fn=None,
+                 route_fns=None):
         self.cuda_fn, self.plain_fn, self.s8_fn = cuda_fn, plain_fn, s8_fn
+        self.route_fns = route_fns  # {route: fn}, every route on any call
         self.worst_by_route, self.n_by_route = {}, {}
 
     @property
@@ -449,7 +464,8 @@ class Checker:
     def spawn(self):
         """A new checker over the same functions, with no comparisons yet
         (to read one part's worst error); :meth:`absorb` folds it back."""
-        return Checker(self.cuda_fn, self.plain_fn, s8_fn=self.s8_fn)
+        return Checker(self.cuda_fn, self.plain_fn, s8_fn=self.s8_fn,
+                       route_fns=self.route_fns)
 
     def absorb(self, other):
         for route, err in other.worst_by_route.items():
@@ -460,6 +476,8 @@ class Checker:
 
     def routes(self, packed):
         """(route, launch function) of each kernel that takes the call."""
+        if self.route_fns is not None:
+            return list(self.route_fns.items())
         if self.s8_fn is None:
             return [("cuda", self.cuda_fn)]
         out = [("cuda_core", self.cuda_fn)]
@@ -3250,14 +3268,15 @@ def codec_timings(dev):
 # ----------------------------------------------------------- stream conv --
 
 def check_conv(dev, checkers):
-    """The plain and the entangled conv kernels and the checksum kernel
-    against their plain versions on full-range int32 words: ragged small
-    shapes at K_f = 1, 2, 4, 100 and 4500 under every plan (M = 3..8,
-    dual-word at w=32, int32 at w=16), both modes, packed and unpacked taps,
-    every failed stream, plus the poison check; the depthwise model shape
-    [M=4, B=8, D=8192, T=512], K_f = 4 (the Mamba conv1d of
-    falcon-mamba-7b) under the int32 and the dual-word plan; the checksum
-    at ragged widths for M = 1..9."""
+    """The plain and the entangled conv kernels, each on both routes (s8
+    and CUDA cores), and the checksum kernel against their plain versions
+    on full-range int32 words: ragged small shapes at K_f = 1, 2, 4, 100
+    and 4500 under every plan (M = 3..8, dual-word at w=32, int32 at
+    w=16), both modes, packed and unpacked taps, every failed stream, plus
+    the poison check; the s8 route's edges (S8_EDGE_SHAPES) under M = 8;
+    the depthwise model shape [M=4, B=8, D=8192, T=512], K_f = 4 (the
+    Mamba conv1d of falcon-mamba-7b) under the int32 and the dual-word
+    plan; the checksum at ragged widths for M = 1..9."""
     import torch
 
     from repro_torch.core.plan import make_plan
@@ -3269,12 +3288,15 @@ def check_conv(dev, checkers):
     chk_s = checkers["checksum"]
     gen = torch.Generator(device=dev).manual_seed(2024)
     n0 = (chk_c.n, chk_e.n, chk_s.n)
-    for (B, D, T, kf) in CONV_SHAPES:
+    for (B, D, T, kf) in CONV_SHAPES + S8_EDGE_SHAPES:
         x = _rand(gen, -2**31, 2**31, (B, D, T), dev)
-        w = _rand(gen, -2**31, 2**31, (D, kf), dev)
-        chk_c.equal(kconv.conv1d_causal_cuda(x, w),
-                    kconv.conv1d_causal_plain(x, w),
-                    f"conv1d [{B},{D},{T}] K_f={kf}")
+        for lo in (-2**31, -128):  # full-range and one-byte taps
+            w = _rand(gen, lo, -lo, (D, kf), dev)
+            want = kconv.conv1d_causal_plain(x, w)
+            for route in CONV_ROUTES:
+                chk_c.equal(kconv.conv1d_causal_cuda(x, w, route=route), want,
+                            f"conv1d [{B},{D},{T}] K_f={kf} taps in "
+                            f"[{lo}, {-lo})", route)
     for plan in _all_plans():
         for (B, D, T, kf) in CONV_SHAPES:
             x = _rand(gen, -2**31, 2**31, (plan.M, B, D, T), dev)
@@ -3285,16 +3307,28 @@ def check_conv(dev, checkers):
             for packed, w in ((False, w32), (True, wp)):
                 chk_e.sweep(x, w, plan, packed, what, GROUPED_MODES)
             chk_e.poison(x, wp, plan, True, what)
+    for plan in (make_plan(8, 32),):
+        for (B, D, T, kf) in S8_EDGE_SHAPES:
+            x = _rand(gen, -2**31, 2**31, (plan.M, B, D, T), dev)
+            w32 = _rand(gen, -2**31, 2**31, (D, kf), dev)
+            wp = pack_int8(_rand(gen, -128, 128, (D, kf), dev), axis=0)
+            what = f"s8 edge plan(M={plan.M}) [{B},{D},{T}] K_f={kf}"
+            for packed, w in ((False, w32), (True, wp)):
+                chk_e.sweep(x, w, plan, packed, what, GROUPED_MODES)
+            chk_e.poison(x, w32, plan, False, what)
     log(f"[kernels] conv1d_causal / entangled_conv1d ragged shapes (K_f "
-        f"{sorted({s[3] for s in CONV_SHAPES})}): {chk_c.n - n0[0]} / "
+        f"{sorted({s[3] for s in CONV_SHAPES})}) and the s8 route's edges "
+        f"{S8_EDGE_SHAPES}, both routes each: {chk_c.n - n0[0]} / "
         f"{chk_e.n - n0[1]} kernel-vs-plain comparisons bit-identical; poison "
         f"check passed")
     n0 = (chk_c.n, chk_e.n)
     B, D, T, kf = DEPTHWISE
     x = _rand(gen, -2**31, 2**31, (4, B, D, T), dev)
     w = _rand(gen, -2**31, 2**31, (D, kf), dev)
-    chk_c.equal(kconv.conv1d_causal_cuda(x[0], w),
-                kconv.conv1d_causal_plain(x[0], w), f"conv1d {DEPTHWISE}")
+    want = kconv.conv1d_causal_plain(x[0], w)
+    for route in CONV_ROUTES:
+        chk_c.equal(kconv.conv1d_causal_cuda(x[0], w, route=route), want,
+                    f"conv1d {DEPTHWISE}", route)
     wp = pack_int8(_rand(gen, -128, 128, (D, kf), dev), axis=0)
     for plan in (make_plan(4, 32), make_plan(4, 16)):
         what = f"depthwise [4, {B}, {D}, {T}] K_f={kf} plan {plan.temp}"
@@ -3303,9 +3337,9 @@ def check_conv(dev, checkers):
         chk_e.poison(x, wp, plan, True, what)
     del x, w, wp
     free_cuda()
-    log(f"[kernels] depthwise model shape [4, {B}, {D}, {T}], K_f = {kf}: "
-        f"{chk_c.n - n0[0]} / {chk_e.n - n0[1]} comparisons bit-identical; "
-        f"poison check passed")
+    log(f"[kernels] depthwise model shape [4, {B}, {D}, {T}], K_f = {kf}, "
+        f"both routes: {chk_c.n - n0[0]} / {chk_e.n - n0[1]} comparisons "
+        f"bit-identical; poison check passed")
     n0 = chk_s.n
     for m in range(1, 10):
         for n in (1, 3, 1031, 65537):
@@ -3351,13 +3385,13 @@ def _padded(c, K):
 
 
 def check_stream_shapes(dev, checkers, inputs):
-    """Each conv kernel against its plain version at the stream-conv shapes
-    (not counted as the path's launches): the conv over the M streams and
-    over the M+1 of the checksum family, the entangled conv over [M, 1, 1,
-    T] unfused and fused for every failed stream (the plain fused version is
-    the plain unfused one disentangled, computed once), the checksum of the
-    M streams. Returns {(M, K): the true conv outputs [M, T]}, the plain
-    version's."""
+    """Each conv kernel on both routes against its plain version at the
+    stream-conv shapes (not counted as the path's launches): the conv over
+    the M streams and over the M+1 of the checksum family, the entangled
+    conv over [M, 1, 1, T] unfused and fused for every failed stream (the
+    plain fused version is the plain unfused one disentangled, computed
+    once), the checksum of the M streams. Returns {(M, K): the true conv
+    outputs [M, T]}, the plain version's."""
     import torch
 
     from repro_torch.core.plan import make_plan
@@ -3379,24 +3413,29 @@ def check_stream_shapes(dev, checkers, inputs):
         chk_s.equal(kcks.checksum_cuda(c), cs[M], f"checksum [{M},{c.shape[1]}]")
         want = kconv.conv1d_causal_plain(xs, taps)
         what = f"stream conv M={M} K={K}"
-        chk_c.equal(kconv.conv1d_causal_cuda(xs, taps), want, what + " (M+1)")
-        chk_c.equal(kconv.conv1d_causal_cuda(xs[:M].contiguous(), taps),
-                    want[:M], what)
-        truth[(M, K)] = want[:M, 0]
         x4 = xs[:M, None].contiguous()
         delta = kecv.entangled_conv1d_plain(x4, taps, plan)
-        chk_e.equal(kecv.entangled_conv1d_cuda(x4, taps, plan), delta,
-                    what + " entangled")
-        for r in range(M):
-            chk_e.equal(kecv.entangled_conv1d_cuda(
-                x4, taps, plan, fuse_epilogue=True, failed=r),
-                disentangle_block(delta, plan, r), f"{what} fused r={r}")
+        for route in CONV_ROUTES:
+            chk_c.equal(kconv.conv1d_causal_cuda(xs, taps, route=route), want,
+                        what + " (M+1)", route)
+            chk_c.equal(kconv.conv1d_causal_cuda(xs[:M].contiguous(), taps,
+                                                 route=route),
+                        want[:M], what, route)
+            chk_e.equal(kecv.entangled_conv1d_cuda(x4, taps, plan,
+                                                   route=route), delta,
+                        what + " entangled", route)
+            for r in range(M):
+                chk_e.equal(kecv.entangled_conv1d_cuda(
+                    x4, taps, plan, fuse_epilogue=True, failed=r, route=route),
+                    disentangle_block(delta, plan, r), f"{what} fused r={r}",
+                    route)
+        truth[(M, K)] = want[:M, 0]
         del cs, xs, want, x4, delta
         free_cuda()
     log(f"[kernels] stream-conv shapes (M {STREAM_MS} x K "
-        f"{sorted({k for _, k in inputs})}, T = N_in + K - 1): "
-        f"{chk_c.n - n0[0]} / {chk_e.n - n0[1]} / {chk_s.n - n0[2]} conv / "
-        f"entangled conv / checksum comparisons bit-identical "
+        f"{sorted({k for _, k in inputs})}, T = N_in + K - 1), both conv "
+        f"routes: {chk_c.n - n0[0]} / {chk_e.n - n0[1]} / {chk_s.n - n0[2]} "
+        f"conv / entangled conv / checksum comparisons bit-identical "
         f"({time.perf_counter() - t0:.1f} s)")
     return truth
 
@@ -3512,13 +3551,21 @@ def phase_stream_conv(dev, kernels, path_kernels, inputs, truth):
             f"the CPU")
     torch.cuda.synchronize()
     counts = {k["name"]: count(k) for k in kernels}
-    log(f"[stream-conv] kernel launches on the path: {counts}; conv part "
-        f"{conv_s:.1f} s, all {time.perf_counter() - t0:.1f} s")
+    by_route = {k["name"]: {"s8": count(k, 1), "cuda_core": count(k, 2)}
+                for k in kernels if k["counters"][0] == "launches"
+                and len(k["counters"]) == 3}
+    log(f"[stream-conv] kernel launches on the path: {counts}; the convs' "
+        f"by route: {by_route}; conv part {conv_s:.1f} s, all "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in path_kernels:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched by the "
                                  f"stream-conv path")
-    return counts
+    for name, per in by_route.items():
+        if per["s8"] <= 0:
+            raise AssertionError(f"the s8 route of {name} was never launched "
+                                 f"by the stream-conv path")
+    return counts, by_route
 
 
 def _pct(t, base):
@@ -3534,10 +3581,53 @@ def _int32_macs_per_s(dev):
 
 
 def _causal_macs(T, K):
-    """Multiply-adds of one causal conv row of length T with K taps: the
-    K(K-1)/2 products that fall on the implicit left zero padding are not
-    part of the work."""
+    """Multiply-adds of one causal conv row of length T with K taps: output
+    t takes min(t + 1, K) of them (the products that fall on the implicit
+    left zero padding are not part of the work)."""
+    if K >= T:
+        return T * (T + 1) // 2
     return T * K - K * (K - 1) // 2
+
+
+# limb products per multiply-add of the s8 route, by the tap limbs the taps
+# need (u + v <= 3 of four u8 data limbs and v + 1 s8 tap limbs)
+LIMB_PRODUCTS = {1: 4, 2: 7, 3: 9, 4: 10}
+
+
+def tap_limbs_needed(w) -> int:
+    """The balanced signed byte limbs of the int32 taps ``w`` that are not
+    all zero: 1 for taps in [-128, 128), up to 4 (the s8 route's rule)."""
+    import torch
+
+    t = w.to(torch.int64).flatten()
+    need = 1
+    for v in range(4):
+        b = ((t + 128) & 0xFF) - 128  # the signed low byte
+        if v > 0 and bool((b != 0).any()):
+            need = v + 1
+        t = (t - b) >> 8
+    return need
+
+
+def conv_bound(dev, macs, nbytes, nv):
+    """The bound of a conv call, the same for both routes: max(bytes at
+    3.35 TB/s, min(int32 MACs on the CUDA cores, limb-product MACs x 2 at
+    1,979 TOP/s)); ``nv`` tap limbs give LIMB_PRODUCTS[nv] limb products
+    per MAC. Returns a dict of the bound and its terms (ms)."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_int32 = 1e3 * macs / _int32_macs_per_s(dev)
+    t_limb = 1e3 * 2 * LIMB_PRODUCTS[nv] * macs / INT8_TENSOR_OPS_PER_S
+    t_ops = min(t_int32, t_limb)
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=t_bytes, int32_macs_ms=t_int32, limb_ms=t_limb,
+                limb_products=LIMB_PRODUCTS[nv])
+
+
+def _bound_text(b) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+            f"{b['bytes_ms']:.4f}, int32 MACs {b['int32_macs_ms']:.4f}, "
+            f"{b['limb_products']} limb products {b['limb_ms']:.4f} ms)")
 
 
 def stream_timings(dev, inputs):
@@ -3549,15 +3639,16 @@ def stream_timings(dev, inputs):
     streams computed), the checksum family (sum kernel + conv over M+1
     streams) and dual modular redundancy (2M streams); the entangle and
     checksum families again with stream 1 failed (poison and recovery
-    included); and the conv kernel alone against its MAC bound. Returns
-    (table rows, summary)."""
+    included); and the routed conv kernel alone against its bound
+    (:func:`conv_bound`). Returns (table rows, summary)."""
     import torch
 
     from repro_torch.core.failstop import FTConfig, run_protected
     from repro_torch.core.plan import make_plan
     from repro_torch.kernels import ops
 
-    mac_s = _int32_macs_per_s(dev)
+    from repro_torch.kernels import conv1d as kconv
+
     table = []
     for (M, K), (c, g) in inputs.items():
         plan = make_plan(M, 32)
@@ -3580,15 +3671,20 @@ def stream_timings(dev, inputs):
             conv_kernel=lambda i: ops.conv1d_causal(x3, taps))
         row = dict(M=M, K=K, T=T, **{f"{n}_ms": _graph_ms(fn, iters)
                                      for n, fn in fns.items()})
-        row["conv_bound_ms"] = 1e3 * M * _causal_macs(T, K) / mac_s
+        bound = conv_bound(dev, M * _causal_macs(T, K), 4 * (2 * M * T + K),
+                           tap_limbs_needed(g))
+        row["conv_route"] = kconv.route_for(K, T)
+        row["conv_bound"] = bound
+        row["conv_bound_ms"] = bound["bound_ms"]
         base = row["conventional_ms"]
         for n in fns:
             if n not in ("conventional", "conv_kernel"):
                 row[f"{n}_pct"] = _pct(row[f"{n}_ms"], base)
         table.append(row)
-        log(f"[fig2] M={M} K={K}: conventional {base:.4f} ms (conv kernel "
-            f"{row['conv_kernel_ms']:.4f} ms, MAC bound "
-            f"{row['conv_bound_ms']:.4f} ms); entangle three-pass "
+        log(f"[fig2] M={M} K={K}: conventional {base:.4f} ms (conv kernel, "
+            f"route {row['conv_route']}, {row['conv_kernel_ms']:.4f} ms, "
+            f"{row['conv_kernel_ms'] / bound['bound_ms']:.2f}x its "
+            f"{_bound_text(bound)}); entangle three-pass "
             f"{row['entangle_ms']:.4f} ms ({row['entangle_pct']:+.2f}%), "
             f"fused {row['fused_ms']:.4f} ms ({row['fused_pct']:+.2f}%), "
             f"checksum {row['checksum_ms']:.4f} ms "
@@ -3616,13 +3712,24 @@ def stream_timings(dev, inputs):
     return table, summary
 
 
+def _turns(fns, iters, order=("cuda_core", "s8", "s8", "cuda_core")):
+    """Device ms of each route's call, timed in turns (by default
+    cuda_core, s8, s8, cuda_core) in CUDA graphs: {route: [ms, ...]}."""
+    times = {route: [] for route in fns}
+    for route in order:
+        times[route].append(_graph_ms(fns[route], iters))
+    return times
+
+
 def stream_kernel_rows(dev, inputs):
-    """Kernel, plain version, bound and library call of the three new
-    kernels: first at the largest stream-conv shape (M = 8, K = 4500) — the
+    """Both routes of both convs (timed in turns), their plain versions, the
+    bound of :func:`conv_bound` and the library call, and the checksum
+    kernel: first at the largest stream-conv shape (M = 8, K = 4500) — the
     conv over [8, 1, T], the fused entangled conv over [8, 1, 1, T] with
     stream 1 failed (M-1 streams computed), the checksum of [8, N_in]
     (inputs rotated through copies that exceed the L2) — then both convs at
-    the depthwise model shape. The conv's library call is
+    the depthwise model shape. A row's ``ms`` is the route that
+    ``route=None`` takes there. The conv's library call is
     ``torch.nn.functional.conv1d`` in float64 on the left-padded input
     (exact below 2^53, as the paper's IPP ippsConv_64f baseline; depthwise:
     ``groups=D``), held equal to the kernel; the checksum's is
@@ -3635,7 +3742,6 @@ def stream_kernel_rows(dev, inputs):
     from repro_torch.kernels import conv1d as kconv
     from repro_torch.kernels import entangled_conv1d as kecv
 
-    mac_s = _int32_macs_per_s(dev)
     M, K = max(inputs)
     c, g = inputs[(M, K)]
     plan = make_plan(M, 32)
@@ -3664,52 +3770,70 @@ def stream_kernel_rows(dev, inputs):
             raise AssertionError("float64 conv1d != conv kernel")
         return call
 
+    def conv(xx, ww):
+        """({route: kernel call}, plain call) of the conv."""
+        return ({r: (lambda i, r=r: kconv.conv1d_causal_cuda(xx, ww, route=r))
+                 for r in CONV_ROUTES},
+                lambda i: kconv.conv1d_causal_plain(xx, ww))
+
     def econv(xx, ww, pl):
-        """(kernel, plain) calls of the fused entangled conv, stream 1
-        failed."""
+        """({route: kernel call}, plain call) of the fused entangled conv,
+        stream 1 failed."""
         kw = dict(fuse_epilogue=True, failed=1)
-        return (lambda i: kecv.entangled_conv1d_cuda(xx, ww, pl, **kw),
+        return ({r: (lambda i, r=r: kecv.entangled_conv1d_cuda(
+                    xx, ww, pl, route=r, **kw)) for r in CONV_ROUTES},
                 lambda i: kecv.entangled_conv1d_plain(xx, ww, pl, **kw))
     cases = [
-        ("conv1d_causal", [list(x.shape), list(taps.shape)],
-         lambda i: kconv.conv1d_causal_cuda(x, taps),
-         lambda i: kconv.conv1d_causal_plain(x, taps), lib_conv(x, taps),
-         M * _causal_macs(T, K), 4 * (2 * M * T + K)),
+        ("conv1d_causal", [list(x.shape), list(taps.shape)], *conv(x, taps),
+         lib_conv(x, taps), M * _causal_macs(T, K), 4 * (2 * M * T + K),
+         taps, T),
         ("entangled_conv1d", [[M, 1, 1, T], list(taps.shape)],
          *econv(x[:, None], taps, plan), None,
-         (M - 1) * _causal_macs(T, K), 4 * (2 * M * T + K)),
-        ("checksum", [list(c.shape)],
-         lambda i: kcks.checksum_cuda(cs[i % len(cs)]),
-         lambda i: kcks.checksum_plain(cs[i % len(cs)]),
-         lambda i: torch.sum(cs[i % len(cs)], 0, dtype=torch.int32), 0,
-         4 * (M + 1) * c.shape[1]),
-        ("conv1d_causal", [[B, D, Td], [D, kf]],
-         lambda i: kconv.conv1d_causal_cuda(xdl, wdl),
-         lambda i: kconv.conv1d_causal_plain(xdl, wdl), lib_conv(xdl, wdl),
-         B * D * _causal_macs(Td, kf), 4 * (2 * B * D * Td + D * kf)),
+         (M - 1) * _causal_macs(T, K), 4 * (2 * M * T + K), taps, T),
+        ("conv1d_causal", [[B, D, Td], [D, kf]], *conv(xdl, wdl),
+         lib_conv(xdl, wdl), B * D * _causal_macs(Td, kf),
+         4 * (2 * B * D * Td + D * kf), wdl, Td),
         ("entangled_conv1d", [[4, B, D, Td], [D, kf]],
          *econv(xdw, wdw, make_plan(4, 32)), None,
          3 * B * D * _causal_macs(Td, kf),
-         4 * (2 * 4 * B * D * Td + D * kf))]
+         4 * (2 * 4 * B * D * Td + D * kf), wdw, Td)]
     rows = {}
-    for name, shape, kern, plain, lib, macs, nbytes in cases:
+    for name, shape, kerns, plain, lib, macs, nbytes, w, tt in cases:
         big = macs > 1e10  # the stream-conv filters: few, long calls
-        ms = _graph_ms(kern, 10 if big else 50)
+        turns = _turns(kerns, 10 if big else 50)
         plain_ms = _graph_ms(plain, 1 if big else 10)
         lib_ms = None if lib is None else _graph_ms(lib, 3 if big else 10)
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * macs / mac_s
-        row = dict(shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes_ms=t_bytes, ops_ms=t_ops)
+        bound = conv_bound(dev, macs, nbytes, tap_limbs_needed(w))
+        route = kconv.route_for(w.shape[-1], tt,
+                                name == "entangled_conv1d")
+        by_route = {r: dict(ms=sum(t) / 2, ms_turns=t,
+                            x_bound=sum(t) / 2 / bound["bound_ms"])
+                    for r, t in turns.items()}
+        row = dict(shape=shape, route=route, ms=by_route[route]["ms"],
+                   by_route=by_route, plain_ms=plain_ms, library_ms=lib_ms,
+                   **bound)
         rows.setdefault(name, []).append(row)
-        log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library "
-            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; bytes "
-            f"{t_bytes:.4f} ms, int32 MACs {t_ops:.4f} ms), "
-            f"{ms / row['bound_ms']:.2f}x bound")
+        log(f"[timing] {name} {shape}: s8 {by_route['s8']['ms']:.4f} ms "
+            f"(turns {turns['s8'][0]:.4f} / {turns['s8'][1]:.4f}; "
+            f"{by_route['s8']['x_bound']:.2f}x bound), CUDA-core "
+            f"{by_route['cuda_core']['ms']:.4f} ms (turns "
+            f"{turns['cuda_core'][0]:.4f} / {turns['cuda_core'][1]:.4f}; "
+            f"{by_route['cuda_core']['x_bound']:.2f}x bound), route=None "
+            f"takes {route}; plain {plain_ms:.4f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+            f"{_bound_text(bound)}")
+    name, shape = "checksum", [list(c.shape)]
+    ms = _graph_ms(lambda i: kcks.checksum_cuda(cs[i % len(cs)]), 50)
+    plain_ms = _graph_ms(lambda i: kcks.checksum_plain(cs[i % len(cs)]), 10)
+    lib_ms = _graph_ms(
+        lambda i: torch.sum(cs[i % len(cs)], 0, dtype=torch.int32), 10)
+    t_bytes = 1e3 * 4 * (M + 1) * c.shape[1] / HBM_BYTES_PER_S
+    rows[name] = [dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=t_bytes, bound_by="bytes",
+                       bytes_ms=t_bytes)]
+    log(f"[timing] {name} {shape}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {t_bytes:.4f} ms "
+        f"(bytes), {ms / t_bytes:.2f}x bound")
     del cases, x, cs, xdw, wdw, xdl, wdl
     free_cuda()
     return rows
@@ -3717,13 +3841,14 @@ def stream_kernel_rows(dev, inputs):
 
 def run_stream_conv(dev, kernels):
     """The stream-conv path: kernel checks (ragged, depthwise and the
-    stream shapes), the path itself, and its Fig. 2 timings."""
+    stream shapes), the path itself, its Fig. 2 timings and both conv
+    routes' kernel rows."""
     t0 = time.perf_counter()
     by_name = {k["name"]: k["checker"] for k in kernels}
     check_conv(dev, by_name)
     inputs = stream_inputs(dev)
     truth = check_stream_shapes(dev, by_name, inputs)
-    counts = phase_stream_conv(
+    counts, by_route = phase_stream_conv(
         dev, kernels, ["conv1d_causal", "entangled_conv1d", "checksum",
                        "entangle", "disentangle"], inputs, truth)
     del truth
@@ -3734,7 +3859,8 @@ def run_stream_conv(dev, kernels):
     free_cuda()
     log(f"[stream-conv] checks, path and timings: "
         f"{time.perf_counter() - t0:.1f} s")
-    return dict(counts=counts, fig2=table, fig2_summary=summary, rows=rows)
+    return dict(counts=counts, counts_by_route=by_route, fig2=table,
+                fig2_summary=summary, rows=rows)
 
 
 # ---------------------------------------------------------------- timings --
@@ -4055,6 +4181,8 @@ def kernel_table():
     # call); their second, the CUDA-core kernel (unpacked weights)
     gemm_builds = [(s8_src, emm.build_s8), (core_src, emm.build)]
     gemm_counters = ["launches_s8", "launches_cuda_core"]
+    # the convs' counters: all launches (the main count), then per route
+    conv_counters = ["launches", "launches_s8", "launches_cuda_core"]
     kernels = [
         dict(name="entangled_matmul", module=emm, route="cuda",
              source=s8_src, core_source=core_src, builds=gemm_builds,
@@ -4077,12 +4205,15 @@ def kernel_table():
              replaces="src/repro/kernels/entangle.py:26",
              checker=Checker()),
         dict(name="entangled_conv1d", module=kecv, route="cuda",
-             source=conv_src,
+             source=conv_src, counters=conv_counters,
              replaces="src/repro/kernels/entangled_conv1d.py:68",
-             checker=Checker(kecv.entangled_conv1d_cuda,
-                             kecv.entangled_conv1d_plain)),
+             checker=Checker(plain_fn=kecv.entangled_conv1d_plain,
+                             route_fns={r: functools.partial(
+                                 kecv.entangled_conv1d_cuda, route=r)
+                                 for r in CONV_ROUTES})),
         dict(name="conv1d_causal", module=kconv, route="cuda",
-             source=conv_src, replaces="src/repro/kernels/conv1d.py:51",
+             source=conv_src, counters=conv_counters,
+             replaces="src/repro/kernels/conv1d.py:51",
              checker=Checker()),
         dict(name="checksum", module=kcks, route="cuda", source=codec_src,
              replaces="src/repro/kernels/checksum.py:22",
@@ -4176,7 +4307,22 @@ def main() -> int:
         by_path["stream-conv"] = stream["counts"][name]
         by_path[V3] = v3_counts[name]
         by_path["library"] = lib_counts[name]
-        if name in ("entangled_conv1d", "conv1d_causal", "checksum"):
+        if name in ("entangled_conv1d", "conv1d_causal"):
+            # the stream shape's row; route=None takes s8 there
+            head = rows[name][0]
+            core = head["by_route"]["cuda_core"]
+            extra = dict(
+                launches=stream["counts"][name],
+                launches_by_route={
+                    "s8": stream["counts_by_route"][name]["s8"],
+                    "cuda_core": stream["counts_by_route"][name][
+                        "cuda_core"]},
+                max_abs_err_by_route=dict(chk.worst_by_route),
+                cuda_core=dict(source=k["source"], ms=core["ms"],
+                               bound_ms=head["bound_ms"],
+                               bound_by=head["bound_by"]),
+                timings=rows[name])
+        elif name == "checksum":
             head = rows[name][0]
             extra = dict(launches=stream["counts"][name],
                          timings=rows[name])
@@ -4220,13 +4366,16 @@ def main() -> int:
                     ms=core["ms"], bound_ms=core["bound_ms"],
                     bound_by=core["bound_by"]),
                 timings=rows[name])
-        main_route = "s8" if "core_source" in k else "cuda"
+        if "core_source" in k:  # a GEMM: its s8 route's comparisons
+            err = chk.worst_by_route.get("s8", 0)
+            n_cmp = chk.n_by_route.get("s8", 0)
+        else:  # every route's
+            err, n_cmp = chk.worst, chk.n
         record["kernels"].append(dict(
             name=name, route=k["route"], source=k["source"],
             replaces=k["replaces"], launches=extra.pop("launches"),
             launches_by_path=by_path,
-            max_abs_err=chk.worst_by_route.get(main_route, 0),
-            comparisons=chk.n_by_route.get(main_route, 0), ms=head["ms"],
+            max_abs_err=err, comparisons=n_cmp, ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head.get("library_ms"),
             shape=head["shape"], **extra))

@@ -1,5 +1,5 @@
-"""Depthwise causal integer conv1d: the CUDA kernel's wrapper, its plain
-PyTorch version, and the kernel's launch counter.
+"""Depthwise causal integer conv1d: the CUDA kernels' wrapper, its plain
+PyTorch version, the route rule, and the kernels' launch counters.
 
 Replaces the Pallas TPU kernel ``repro/kernels/conv1d.py``
 (``conv1d_causal_pallas``, body ``_conv1d_kernel``): for x ``[B, D, T]``
@@ -12,21 +12,41 @@ It is the paper's experimental op (Fig. 2): the LSB ops ``conv`` and
 streams (on B, with D = 1). Any K_f >= 1 runs as it is (the reference
 promotes K_f = 1 to a zero leading tap, which gives the same result).
 
-The kernel (``csrc/conv1d.cu``, shared with :mod:`.entangled_conv1d`, which
-is its M-stream entangled form) is CUDA C++ for ``sm_90a``. What bounds it
-on an H100: at the stream-conv shapes (T about 1e6, K_f up to 4500) the
-K_f int32 multiply-adds per output on the CUDA cores, so operations; at the
-depthwise model shape (D = 8192, K_f = 4) device-memory bytes. A block
-owns one (b, d) row and a time tile, stages the taps in chunks and only
-the K_f - 1 halo columns beyond its tile, and each thread keeps 8
-consecutive outputs in registers (see the source's header). It is built
-with ``nvcc`` at first use into ``_build/`` and bound with ``ctypes``
-(:mod:`.nvcc`).
+Two hand-written CUDA C++ kernels for ``sm_90a`` compute it, both in
+``csrc/conv1d.cu`` (shared with :mod:`.entangled_conv1d`, the M-stream
+entangled form), bit for bit alike:
 
-:func:`conv1d_causal_cuda` launches the kernel on CUDA tensors and raises
-on anything it does not take; :func:`conv1d_causal_plain` is the plain
-version, used for CPU tensors and as the kernel's yardstick on the card.
-``launches`` counts kernel launches (never plain-version calls).
+* ``"s8"``, the int8 tensor cores. At the stream-conv shapes (T about 1e6,
+  K_f up to 4500) the K_f multiply-adds per output bound the conv. The
+  kernel runs them as a Toeplitz (taps) x Hankel (overlapping input
+  windows) product in blocks of :data:`S8_BLOCK` outputs, with the int32
+  words split into four exact u8 limbs and the taps into balanced s8
+  limbs: each limb product is a warpgroup MMA (``wgmma``, s8 x u8, the
+  windows read from shared memory as they were staged). The products with
+  limb shift u + v <= 3 are recombined mod 2**32 after each chunk of at
+  most :data:`S8_CHUNK` taps, so no s32 sum overflows. Tap limb planes
+  above the highest one that is nonzero over a chunk are skipped inside
+  the block: taps in [-128, 128) cost 4 limb products per MAC, full-range
+  taps 10;
+* ``"cuda_core"``, int32 multiply-adds on the CUDA cores: the route of
+  short filters, where the conv is bound by device-memory bytes (the
+  depthwise model shape, D = 8192, T = 512, K_f = 4). A thread owns 4
+  consecutive outputs (one 16-byte store), the time tile is fitted to T
+  with several rows per block when T is short, and the taps are not padded
+  beyond a multiple of 4.
+
+``route=None`` picks by :func:`route_for`, a rule on K_f and T taken from a
+sweep of both routes on the card (``chip_conv_routes.py``, ``[conv-route]``
+lines).
+Both routes raise when they fail to build or launch; nothing drops to the
+plain version. The source is built with ``nvcc`` at first use into
+``_build/`` and bound with ``ctypes`` (:mod:`.nvcc`).
+
+:func:`conv1d_causal_cuda` launches a kernel on CUDA tensors and raises on
+anything it does not take; :func:`conv1d_causal_plain` is the plain
+version, used for CPU tensors and as the kernels' yardstick on the card.
+``launches`` counts kernel launches (never plain-version calls), and
+``launches_s8`` / ``launches_cuda_core`` split them by route.
 """
 from __future__ import annotations
 
@@ -39,8 +59,53 @@ from repro_torch.kernels import nvcc
 
 SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "conv1d.cu"
 
-# kernel launches since import (or the last reset by the caller)
+# kernel launches since import (or the last reset by the caller): all, and
+# per route
 launches = 0
+launches_s8 = 0
+launches_cuda_core = 0
+
+ROUTES = ("cuda_core", "s8")  # the launcher's route codes 0 and 1
+# The s8 kernel's geometry (csrc/conv1d.cu, namespace s8): outputs per
+# Hankel row, and taps per chunk, after which the limb sums are folded
+S8_BLOCK = 64
+S8_CHUNK = 4608
+# The route rule. Sweep of both routes on the card (chip_conv_routes.py,
+# [conv-route] lines; NVIDIA H100 80GB HBM3, 700.00 W), ms CUDA-core / s8 at
+# K_f = 100 and 500: the stream shape [8, 1, 1e6 + K_f - 1] 0.0899 / 0.0566
+# and 0.3407 / 0.0772, its fused entangled conv (M = 8) 0.0851 / 0.0909 and
+# 0.2985 / 0.1064, the depthwise shape [8, 8192, 512] 0.3362 / 0.5368 and
+# 1.4699 / 1.0502 (entangled, M = 4: 0.9332 / 1.5559 and 4.1813 / 3.0693).
+# Up to K_f = 33 the CUDA cores won at every shape (33, stream: 0.0444 /
+# 0.0455); at 100 they won but for the plain conv over long rows; from 500
+# on the s8 route won at every shape. So: s8 from S8_MIN_KF taps, and the
+# plain conv from S8_MIN_KF_PLAIN taps over rows of at least one full s8
+# tile (S8_LONG_T outputs; shorter rows take the s8 kernel's 512-output
+# tile, which lost at T = 512).
+S8_MIN_KF = 500
+S8_MIN_KF_PLAIN = 100
+S8_LONG_T = 48 * S8_BLOCK
+
+
+def route_for(kf: int, T: int, entangled: bool = False) -> str:
+    """The route ``route=None`` takes for ``kf`` taps over rows of ``T``
+    steps, for the plain or the ``entangled`` conv: "s8" where the sweep
+    showed the s8 kernel faster, else "cuda_core"."""
+    if kf >= S8_MIN_KF or (not entangled and kf >= S8_MIN_KF_PLAIN
+                           and T >= S8_LONG_T):
+        return "s8"
+    return "cuda_core"
+
+
+def resolve_route(route, kf: int, T: int, entangled: bool = False) -> str:
+    """``route`` itself, or :func:`route_for` when it is None; raises on an
+    unknown route."""
+    if route is None:
+        return route_for(kf, T, entangled)
+    if route not in ROUTES:
+        raise ValueError(f"route must be None or one of {ROUTES}, got "
+                         f"{route!r}")
+    return route
 
 
 def build(verbose: bool = False) -> tuple:
@@ -51,7 +116,8 @@ def build(verbose: bool = False) -> tuple:
 
 def _declare(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.conv1d_launch.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, i, i, p]
+    lib.conv1d_launch.argtypes = [p, p, p, i, i, i, ll, i, i, i, i, i, i,
+                                  i, p]
     lib.conv1d_launch.restype = i
     lib.conv1d_error_string.argtypes = [i]
     lib.conv1d_error_string.restype = ctypes.c_char_p
@@ -100,14 +166,15 @@ def check_operands(x: torch.Tensor, w: torch.Tensor, dims: int) -> None:
                          f"{tuple(w.shape)}")
 
 
-def launch(x: torch.Tensor, w: torch.Tensor, *, M: int, packed: bool = False,
-           l: int = 0, r: int = 0, extract: bool = False,
-           dualword: bool = False) -> torch.Tensor:
-    """Launch the kernel on checked operands: x ``[M, B, D, T]`` (M = 1:
-    ``[B, D, T]``), returns an int32 tensor of x's shape. M = 1 is the
-    plain conv; 3 <= M <= 8 entangles on load with shift ``l`` and, with
-    ``extract``, disentangles without computing stream ``r``. Raises on a
-    launch the kernel refuses. Counting the launch is the caller's."""
+def launch(x: torch.Tensor, w: torch.Tensor, *, M: int, route: str,
+           packed: bool = False, l: int = 0, r: int = 0,
+           extract: bool = False, dualword: bool = False) -> torch.Tensor:
+    """Launch the ``route`` kernel ("s8" or "cuda_core") on checked
+    operands: x ``[M, B, D, T]`` (M = 1: ``[B, D, T]``), returns an int32
+    tensor of x's shape. M = 1 is the plain conv; 3 <= M <= 8 entangles on
+    load with shift ``l`` and, with ``extract``, disentangles without
+    computing stream ``r``. Raises on a launch the kernel refuses. Counting
+    the launch is the caller's."""
     B, D, T = x.shape[-3:]
     lib = load()
     out = torch.empty_like(x)
@@ -115,23 +182,31 @@ def launch(x: torch.Tensor, w: torch.Tensor, *, M: int, packed: bool = False,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.conv1d_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), M,
                                B, D, T, w.shape[1], int(packed), l, r,
-                               int(extract), int(dualword), stream)
+                               int(extract), int(dualword),
+                               ROUTES.index(route), stream)
     if rc != 0:
-        raise RuntimeError(f"conv1d kernel launch failed: "
+        raise RuntimeError(f"conv1d {route} kernel launch failed: "
                            f"{lib.conv1d_error_string(rc).decode()}")
     return out
 
 
-def conv1d_causal_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: x ``[B, D, T]`` int32, w ``[D, K_f]`` int32,
-    both contiguous on one CUDA device. Returns ``[B, D, T]`` int32 on
+def conv1d_causal_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                       route=None) -> torch.Tensor:
+    """Launch a CUDA kernel: x ``[B, D, T]`` int32, w ``[D, K_f]`` int32,
+    both contiguous on one CUDA device; ``route`` None (the rule of
+    :func:`route_for`), "s8" or "cuda_core". Returns ``[B, D, T]`` int32 on
     ``torch.cuda.current_stream()``; raises on any input the kernel does not
-    take and on a failed launch."""
-    global launches
+    take and on a failed build or launch."""
+    global launches, launches_s8, launches_cuda_core
+    route = resolve_route(route, w.shape[-1], x.shape[-1])
     check_operands(x, w, 3)
     if w.shape[0] != x.shape[1]:
         raise ValueError(f"w {tuple(w.shape)} does not match depth "
                          f"D={x.shape[1]}")
-    out = launch(x, w, M=1)
+    out = launch(x, w, M=1, route=route)
     launches += 1
+    if route == "s8":
+        launches_s8 += 1
+    else:
+        launches_cuda_core += 1
     return out

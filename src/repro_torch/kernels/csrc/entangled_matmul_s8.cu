@@ -155,18 +155,6 @@ __device__ __forceinline__ void mma_s8u8(int32_t (&d)[4], const uint32_t (&a)[4]
 
 // ----------------------------------------------------------- the kernel --
 
-// byte limbs of four consecutive k: limb[u] byte i = byte u of e[i]
-__device__ __forceinline__ void limbs4(const uint4& e, uint32_t (&limb)[4]) {
-  const uint32_t lo01 = __byte_perm(e.x, e.y, 0x5140);
-  const uint32_t hi01 = __byte_perm(e.x, e.y, 0x7362);
-  const uint32_t lo23 = __byte_perm(e.z, e.w, 0x5140);
-  const uint32_t hi23 = __byte_perm(e.z, e.w, 0x7362);
-  limb[0] = __byte_perm(lo01, lo23, 0x5410);
-  limb[1] = __byte_perm(lo01, lo23, 0x7632);
-  limb[2] = __byte_perm(hi01, hi23, 0x5410);
-  limb[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
 // Accumulator slot j holds stream j, or in the extracting modes stream
 // (r + 1 + j) mod M.
 __device__ __forceinline__ int slot_stream(const Params& p, int M, int j) {
@@ -533,14 +521,10 @@ size_t smem_bytes(int crows) {
 
 template <int M, int PG>
 int launch_mp(const Params& p, dim3 grid, cudaStream_t s) {
-  static bool sized = false;  // raise the dynamic shared memory cap once
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        emm_kernel_s8<M, PG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(MAX_CROWS));
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  static bool sized[SMEM_CAP_DEVICES] = {};
+  const cudaError_t e = raise_smem_cap(emm_kernel_s8<M, PG>,
+                                       (int)smem_bytes(MAX_CROWS), sized);
+  if (e != cudaSuccess) return (int)e;
   emm_kernel_s8<M, PG><<<grid, THREADS, smem_bytes(M * p.bb), s>>>(p);
   return 0;
 }

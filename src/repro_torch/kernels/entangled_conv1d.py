@@ -17,19 +17,32 @@ Depthwise conv is sesquilinear in the stream, so ``conv(E x) = E conv(x)``
 (paper Sec. III) and the extraction recovers the true outputs while they
 are within the plan's ``max_output_magnitude`` (eq. 13).
 
-The kernel is ``csrc/conv1d.cu`` with M streams per block (one build with
-:mod:`.conv1d`): the window of all M streams is entangled while it is
-staged, each tap is read once for all M streams, and with extraction the
-M - 1 streams other than ``failed`` are accumulated in the rotated order
-that ``disentangle_one`` of ``csrc/codec.cuh`` consumes at the flush. What
-bounds it on an H100: the int32 multiply-adds on the CUDA cores at the
-stream-conv shapes (operations), device-memory bytes at the depthwise model
-shape.
+The kernels are the two routes of ``csrc/conv1d.cu`` (one build with
+:mod:`.conv1d`, which describes them), with the entangle on load and the
+extraction at the flush:
 
-:func:`entangled_conv1d_cuda` launches the kernel on CUDA tensors and
-raises on anything it does not take; :func:`entangled_conv1d_plain` is the
-plain version, used for CPU tensors and as the kernel's yardstick on the
-card. ``launches`` counts kernel launches (never plain-version calls).
+* ``"s8"`` (the int8 tensor cores; bound by the limb products at the
+  stream-conv shapes): a block stages one stream slot's window at a time,
+  entangled from two input streams, as four u8 limb planes; the taps' limb
+  planes are staged once for every slot. With extraction only the M - 1
+  slots other than ``failed`` are computed, and the block reads its tile's
+  M - 1 entangled values back to disentangle them (``disentangle_one`` of
+  ``csrc/codec.cuh``);
+* ``"cuda_core"`` (int32 multiply-adds; bound by bytes at the depthwise
+  model shape): the window of all M streams is entangled while it is
+  staged, each tap is read once for all M streams, and with extraction the
+  M - 1 streams other than ``failed`` are accumulated in the rotated order
+  that ``disentangle_one`` consumes at the flush.
+
+``route=None`` picks by :func:`.conv1d.route_for` (a rule on K_f and T
+from a sweep on the card, ``chip_conv_routes.py``); both routes raise when they fail to build or
+launch.
+
+:func:`entangled_conv1d_cuda` launches a kernel on CUDA tensors and raises
+on anything it does not take; :func:`entangled_conv1d_plain` is the plain
+version, used for CPU tensors and as the kernels' yardstick on the card.
+``launches`` counts kernel launches (never plain-version calls), and
+``launches_s8`` / ``launches_cuda_core`` split them by route.
 """
 from __future__ import annotations
 
@@ -46,8 +59,11 @@ from repro_torch.kernels.codec import (PACK_LANES, disentangle_block,
 build = _conv.build
 MODES = (False, True)
 
-# kernel launches since import (or the last reset by the caller)
+# kernel launches since import (or the last reset by the caller): all, and
+# per route
 launches = 0
+launches_s8 = 0
+launches_cuda_core = 0
 
 
 def check_mode(fuse_epilogue) -> None:
@@ -86,15 +102,18 @@ def entangled_conv1d_plain(x: torch.Tensor, w: torch.Tensor,
 
 def entangled_conv1d_cuda(x: torch.Tensor, w: torch.Tensor,
                           plan: EntanglePlan, *, fuse_epilogue=False,
-                          failed: Optional[int] = None,
-                          packed: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel: x ``[M, B, D, T]`` int32, w ``[D, K_f]`` or
+                          failed: Optional[int] = None, packed: bool = False,
+                          route=None) -> torch.Tensor:
+    """Launch a CUDA kernel: x ``[M, B, D, T]`` int32, w ``[D, K_f]`` or
     packed ``[ceil(D/4), K_f]`` int32, both contiguous on one CUDA device,
-    3 <= M <= 8. Returns ``[M, B, D, T]`` int32 on
+    3 <= M <= 8; ``route`` None (the rule of :func:`.conv1d.route_for`),
+    "s8" or "cuda_core". Returns ``[M, B, D, T]`` int32 on
     ``torch.cuda.current_stream()``; raises on any input the kernel does
-    not take and on a failed launch."""
-    global launches
+    not take and on a failed build or launch."""
+    global launches, launches_s8, launches_cuda_core
     check_mode(fuse_epilogue)
+    route = _conv.resolve_route(route, w.shape[-1], x.shape[-1],
+                                entangled=True)
     _conv.check_operands(x, w, 4)
     M, _, D, _ = x.shape
     if M != plan.M or not 3 <= M <= 8:
@@ -103,8 +122,12 @@ def entangled_conv1d_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"w {tuple(w.shape)} does not match depth D={D} "
                          f"(packed={packed})")
     r = 0 if failed is None else int(failed) % M
-    out = _conv.launch(x, w, M=M, packed=packed, l=plan.l, r=r,
+    out = _conv.launch(x, w, M=M, route=route, packed=packed, l=plan.l, r=r,
                        extract=bool(fuse_epilogue),
                        dualword=plan.temp == "dualword")
     launches += 1
+    if route == "s8":
+        launches_s8 += 1
+    else:
+        launches_cuda_core += 1
     return out

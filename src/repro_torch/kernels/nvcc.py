@@ -21,8 +21,11 @@ import subprocess
 import time
 
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
+# --split-compile 0: the device code of a source is optimized on every CPU
+# thread, not one (entangled_matmul.cu's 40 kernel instances took 66-96 s
+# on one thread)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "--split-compile", "0", "-shared", "-Xcompiler", "-fPIC")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 # loaded libraries by source path (a library is loaded once per process)

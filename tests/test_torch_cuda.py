@@ -304,32 +304,48 @@ def _full(rng, shape, dev):
 
 
 # (B, D, T, K_f): ragged depthwise shapes, K_f = 1, and a stream-conv filter
-# (D = 1, K_f = 4500, several tap chunks) over a short ragged stream
-CONV_SHAPES = [(3, 5, 37, 1), (2, 7, 1500, 4), (2, 1, 5003, 4500)]
+# (D = 1, K_f = 4500, several tap chunks of the CUDA-core route) over a
+# short ragged stream; then the s8 route's edges: T one short of its
+# 512-output tile at K_f = its 64-output row block, T one past its
+# 3072-output tile at K_f one past the row block, K_f one past its 4608-tap
+# chunk
+CONV_SHAPES = [(3, 5, 37, 1), (2, 7, 1500, 4), (2, 1, 5003, 4500),
+               (1, 2, 511, 64), (1, 1, 3073, 65), (1, 1, 2000, 4609)]
+CONV_ROUTES = {"s8": "launches_s8", "cuda_core": "launches_cuda_core"}
+
+
+def _conv_counts(mod, route):
+    return mod.launches, getattr(mod, CONV_ROUTES[route])
 
 
 @pytest.mark.requires_cuda
-def test_cuda_conv1d_matches_plain(cuda_device):
-    """The plain conv kernel == its plain version bit for bit on full-range
-    words; one launch per call."""
+@pytest.mark.parametrize("route", list(CONV_ROUTES))
+def test_cuda_conv1d_matches_plain(cuda_device, route):
+    """The plain conv kernel of each route == its plain version bit for bit
+    on full-range words, with full-range taps (all four s8 tap limbs) and
+    one-byte taps; one launch per call, counted on its route."""
     for (B, D, T, kf) in CONV_SHAPES:
         rng = np.random.default_rng(B * T + kf)
-        x, w = _full(rng, (B, D, T), cuda_device), _full(rng, (D, kf),
-                                                         cuda_device)
-        before = kconv.launches
-        got = kconv.conv1d_causal_cuda(x, w)
-        assert kconv.launches == before + 1
-        torch.testing.assert_close(got, kconv.conv1d_causal_plain(x, w),
-                                   rtol=0, atol=0)
+        x = _full(rng, (B, D, T), cuda_device)
+        w8 = torch.from_numpy(rng.integers(-128, 128, size=(D, kf)).astype(
+            np.int32)).to(cuda_device)
+        for w in (_full(rng, (D, kf), cuda_device), w8):
+            total, per = _conv_counts(kconv, route)
+            got = kconv.conv1d_causal_cuda(x, w, route=route)
+            assert _conv_counts(kconv, route) == (total + 1, per + 1)
+            torch.testing.assert_close(got, kconv.conv1d_causal_plain(x, w),
+                                       rtol=0, atol=0)
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("route", list(CONV_ROUTES))
 @pytest.mark.parametrize("M,w", CODEC_PLANS)
-def test_cuda_entangled_conv1d_matches_plain(cuda_device, M, w):
-    """The entangled conv kernel == its plain version bit for bit, both
-    modes, packed and unpacked taps, every failed stream, K_f = 1, 4 and
-    4500; the poison check (the unfused outputs with stream r overwritten
-    by GARBAGE disentangle to the fused result); one launch per call."""
+def test_cuda_entangled_conv1d_matches_plain(cuda_device, M, w, route):
+    """The entangled conv kernel of each route == its plain version bit for
+    bit, both modes, packed and unpacked (full-range) taps, every failed
+    stream, at every shape of CONV_SHAPES; the poison check (the unfused
+    outputs with stream r overwritten by GARBAGE disentangle to the fused
+    result); one launch per call, counted on its route."""
     plan = make_plan(M, w)
     for (B, D, T, kf) in CONV_SHAPES:
         rng = np.random.default_rng(M * T + kf + w)
@@ -338,14 +354,15 @@ def test_cuda_entangled_conv1d_matches_plain(cuda_device, M, w):
             np.int32))
         for packed, taps in ((False, _full(rng, (D, kf), cuda_device)),
                              (True, pack_int8(w8, axis=0).to(cuda_device))):
-            before = kecv.launches
-            delta = kecv.entangled_conv1d_cuda(x, taps, plan, packed=packed)
+            total, per = _conv_counts(kecv, route)
+            delta = kecv.entangled_conv1d_cuda(x, taps, plan, packed=packed,
+                                               route=route)
             want = kecv.entangled_conv1d_plain(x, taps, plan, packed=packed)
             torch.testing.assert_close(delta, want, rtol=0, atol=0)
             for r in range(M):
                 got = kecv.entangled_conv1d_cuda(x, taps, plan,
                                                  fuse_epilogue=True, failed=r,
-                                                 packed=packed)
+                                                 packed=packed, route=route)
                 torch.testing.assert_close(
                     got, disentangle(want, plan, failed=r), rtol=0, atol=0)
                 bad = delta.clone()
@@ -353,13 +370,38 @@ def test_cuda_entangled_conv1d_matches_plain(cuda_device, M, w):
                 torch.testing.assert_close(got, disentangle(bad, plan,
                                                             failed=r),
                                            rtol=0, atol=0)
-            assert kecv.launches == before + 1 + M
+            assert _conv_counts(kecv, route) == (total + 1 + M, per + 1 + M)
         if kf < 100:  # the plain fused version itself, short filters
             got = kecv.entangled_conv1d_cuda(x, taps, plan, fuse_epilogue=True,
-                                             failed=M - 1, packed=True)
+                                             failed=M - 1, packed=True,
+                                             route=route)
             torch.testing.assert_close(got, kecv.entangled_conv1d_plain(
                 x, taps, plan, fuse_epilogue=True, failed=M - 1, packed=True),
                 rtol=0, atol=0)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_conv_route_none_follows_the_rule(cuda_device):
+    """route=None launches the route of kconv.route_for, on both convs."""
+    plan = make_plan(4, 32)
+    for kf in (4, kconv.S8_MIN_KF_PLAIN, kconv.S8_MIN_KF - 1, kconv.S8_MIN_KF,
+               4500):
+        rng = np.random.default_rng(kf)
+        x = _full(rng, (4, 1, 1, 6000), cuda_device)
+        w = _full(rng, (1, kf), cuda_device)
+        route = kconv.route_for(kf, 6000)
+        before = _conv_counts(kconv, route)
+        got = kconv.conv1d_causal_cuda(x[0], w)
+        assert _conv_counts(kconv, route) == tuple(n + 1 for n in before)
+        torch.testing.assert_close(got, kconv.conv1d_causal_plain(x[0], w),
+                                   rtol=0, atol=0)
+        route = kconv.route_for(kf, 6000, entangled=True)
+        before = _conv_counts(kecv, route)
+        got = kecv.entangled_conv1d_cuda(x, w, plan, fuse_epilogue=True,
+                                         failed=2)
+        assert _conv_counts(kecv, route) == tuple(n + 1 for n in before)
+        torch.testing.assert_close(got, kecv.entangled_conv1d_plain(
+            x, w, plan, fuse_epilogue=True, failed=2), rtol=0, atol=0)
 
 
 @pytest.mark.requires_cuda
@@ -397,6 +439,10 @@ def test_cuda_conv_kernels_reject_bad_inputs(cuda_device):
         econv(x, w, packed=True)
     with pytest.raises(ValueError, match="fuse_epilogue"):
         econv(x, w, fuse_epilogue="chain")
+    with pytest.raises(ValueError, match="route"):
+        econv(x, w, route="tensor")
+    with pytest.raises(ValueError, match="route"):
+        kconv.conv1d_causal_cuda(x[0], w, route="tensor")
     c = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
         kcks.checksum_cuda(c.float())

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package (the machine with the
-GPU has no JAX)."""
+``chip_smoke.py`` or ``chip_conv_routes.py`` imports JAX or the JAX
+package (the machine with the GPU has no JAX)."""
 import os
 import pathlib
 import re
@@ -57,7 +57,8 @@ def test_importing_every_module_loads_no_jax(order):
 
 
 def test_no_source_names_jax_or_the_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "chip_conv_routes.py"]
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _BAD.search(f.read_text())]
     assert not offenders, offenders
