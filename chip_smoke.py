@@ -13,9 +13,9 @@ fit one 80 GB card) served, and trained cut to 4 layers; qwen2-7b (28 layers, qk
 minitron-8b (32 layers, ungated relu2 MLP) served whole, and granite-20b
 (MQA, ungated gelu MLP) served cut to 20 of its 52 layers (about 20.3 G
 parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20);
-falcon-mamba-7b (Mamba-1, 64 layers) and recurrentgemma-2b (RG-LRU and
-rolling-window MQA, 26 layers) served whole, and trained cut to 2 and 6
-layers; internvl2-2b (24 layers
+falcon-mamba-7b (Mamba-1) served cut to 32 of its 64 layers and
+recurrentgemma-2b (RG-LRU and rolling-window MQA, 26 layers) served
+whole, and trained cut to 2 and 6 layers; internvl2-2b (24 layers
 behind 256 patch embeddings) and whisper-small (12 encoder and 12 decoder
 layers over 1500 frames) whole; deepseek-v3-671b (MLA with a low-rank Q,
 256-expert top-8 sigmoid MoE, the MTP block) served with bf16 masters, cut
@@ -89,8 +89,8 @@ exits nonzero:
                entangle / all, healthy and with ``failed_group=1`` (EXACT
                ROLL-FORWARD); decode-step ms against none in the same
                call, s8 launches per decode step, ``max_memory_allocated``;
-  3e. recurrent — falcon-mamba-7b and recurrentgemma-2b at published
-               widths, nothing cut, one at a time: the census shapes of
+  3e. recurrent — falcon-mamba-7b (32 of 64 layers) and
+               recurrentgemma-2b at published widths, one at a time: the census shapes of
                every admission mode at scope all, the vocab head and the
                model's own quantized head held against the plain version on
                the s8 route; the 8-request wave at ft_mode none and at
@@ -135,7 +135,15 @@ exits nonzero:
                ``max_memory_allocated``; then, with the model freed,
                every census shape at scope all and the 129280-column head
                held against the plain versions on both GEMM routes
-               (packed, the serving plan);
+               (packed, the serving plan); before that, on the same
+               params, serve-v3-absorb: the absorbed MLA decode
+               (``mla_absorb=True``) through the same waves (EXACT
+               ROLL-FORWARD (serve-v3-absorb), the naive path's s8
+               launches per decode step), ``ft_mode none``, a profiler
+               window, and each of 4 decode steps' logits against the
+               naive decode's on one cache along its MoE routes (max |delta|
+               < 0.5, cosine > 0.999), with step ms and peak memory both
+               ways;
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
                block at one step) and writes its final checkpoint; the
@@ -151,6 +159,19 @@ exits nonzero:
                step within the reference's streamed-vs-naive bounds and
                each step's gradients the model's backward of its CE's, bit
                for bit, with each setting's step ms and peak memory. Then
+               train-variants: one step with float32 and one with bf16
+               AdamW moments from the phase's state (losses, the updated
+               params' largest relative difference, the moments' bytes and
+               peak memory), the bf16 moments through ``CheckpointManager``
+               and back bit for bit, and ``forward_train`` with the bf16
+               norm apply against the float32 apply (argmax agreement >
+               0.95); dist: ``ft_grad_sync`` over a one-rank NCCL group on
+               one backward's gradients equal to ``axis_name=None`` bit for
+               bit with each block failed (EXACT ROLL-FORWARD (dist)), then
+               4 ranks spawned on the one card over gloo (``chip_smoke.py
+               --dist-worker``), their syncs bit-identical to one another
+               and to the single-process oracle on the card for every
+               failed block, and the sync's ms at world size 1 and 4. Then
                the mean step time per gradient sync and a profiler window;
   4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 4 of 27 layers:
                the dense first layer and 3 MoE layers), falcon-mamba-7b
@@ -209,6 +230,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -247,12 +269,17 @@ FLEET = dict(replicas=4, requests=16, max_new=16, max_prompt=128,
 # float32 masters alone; 20 layers (8.2 G) leave room for the int8 copies
 # and the plain versions' operands on one 80 GB card
 DECODERS = {"qwen2-7b": None, "minitron-8b": None, "granite-20b": 20}
-# the recurrent families at published widths, nothing cut: the 8-request
+# the recurrent families at published widths: the 8-request
 # wave at none / head / all; chunked (32, refill) and token-packed (4 rows
 # of 32) admission of REC_REQUESTS seeded prompts in [5, 240] at scope
 # all; for recurrentgemma one LONG request past its 2048-token window,
 # chunked, so that the rolling buffer wraps in prefill and in decode
 RECURRENT = ("falcon-mamba-7b", "recurrentgemma-2b")
+# served depth cuts of the recurrent phase: falcon-mamba at 32 of its 64
+# layers (its eager scan sets the phase's time; the 32 layers saved about
+# 54 s of the script's 1200), to fund the perf-variant and distribution
+# phases
+RECURRENT_LAYERS = {"falcon-mamba-7b": 32}
 REC_REQUESTS = 12
 REC_MODES = ("chunked", "packed")
 LONG = dict(prompt=2200, max_new=16, max_seq=4096, bucket=2208, chunk=32)
@@ -311,6 +338,23 @@ TRAIN_FAMILIES = {DEEPSEEK: 4, "falcon-mamba-7b": 2, "recurrentgemma-2b": 6}
 # take about 77 GB of the 80)
 V3 = "deepseek-v3-671b"
 V3_LAYERS = 4
+# the absorbed MLA decode (mla_absorb) on the same v3 params: per decode
+# step its logits against the naive decode's on the same cache, ABSORB
+# steps after a prompt of ABSORB_PROMPT tokens in every slot; the bounds are
+# tests/test_perf_variants.py's (max |delta| < 0.5, cosine > 0.999)
+ABSORB = dict(prompt=16, steps=4, max_diff=0.5, cos=0.999)
+# the training variants at TRAIN's shape: bf16 AdamW moments (one step
+# each way from the phase's state, the bf16 moments through the
+# checkpoint) and the bf16 norm apply (argmax agreement with the float32
+# apply above the reference test's 0.95)
+NORM_AGREE = 0.95
+# the distribution phase: the sync over a one-rank NCCL group (llama's
+# full-width gradient leaves), and DIST_WORLD ranks spawned on the one card
+# over gloo, each with seeded gradient leaves of one decoder layer of
+# llama's at its published widths (:func:`_dist_shapes`); the one-rank
+# sync is also timed on those leaves, so that the two world sizes compare
+DIST_WORLD = 4
+DIST_FAILED = (None, 0, 1, 2, 3)
 # the library path: SDC detection over M streams of this many columns, and
 # the kernels its examples and SDC calls must launch
 LIB_SDC_N = 1 << 20
@@ -758,6 +802,8 @@ def model_config(arch):
         cfg = dataclasses.replace(cfg, n_layers=V3_LAYERS)
     if DECODERS.get(arch):
         cfg = dataclasses.replace(cfg, n_layers=DECODERS[arch])
+    if arch in RECURRENT_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=RECURRENT_LAYERS[arch])
     return cfg
 
 
@@ -1761,8 +1807,8 @@ def _long_request(dev, cfg, params, failed_group, warm):
 
 
 def phase_recurrent(dev, kernels, smi, seed):
-    """falcon-mamba-7b and recurrentgemma-2b, one at a time at published
-    widths, nothing cut: the engine's startup census at scope all in
+    """falcon-mamba-7b (cut to RECURRENT_LAYERS) and recurrentgemma-2b,
+    one at a time at published widths: the engine's startup census at scope all in
     every admission mode, every (site, shape) and the vocab head held
     against the plain version on the s8 route (and the real tied / untied
     head, quantized once, at the head's shape); the 8-request wave at
@@ -2509,6 +2555,7 @@ def phase_serve_v3(dev, kernels, smi):
         raise AssertionError(f"packed GEMMs of the {V3} path reached the "
                              f"CUDA-core kernel: {core}")
     breakdown = _breakdown(dev, cfg, params, base, tag="serve-v3")
+    absorb = v3_absorb(dev, kernels, smi, cfg, model, params, base, results)
     del params, model
     free_cuda()
     t0 = time.perf_counter()
@@ -2538,10 +2585,186 @@ def phase_serve_v3(dev, kernels, smi):
                master_bytes=n_bytes, init_s=init_s, peak_gib=peak / 2**30,
                scopes=results, breakdown=breakdown, census_check=errs,
                census_check_s=check_s, n_dense_shapes=len(dense),
-               n_grouped_shapes=len(grouped),
+               n_grouped_shapes=len(grouped), absorb=absorb,
                seconds=time.perf_counter() - t_phase)
     log(f"[serve-v3] phase {rec['seconds']:.1f} s")
     return counts, rec
+
+
+def v3_absorb(dev, kernels, smi, cfg, model, params, base, naive):
+    """[serve-v3-absorb]: deepseek-v3 on the same params with the absorbed
+    MLA decode (``mla_absorb=True``; prefill stays naive): the 8-request
+    wave at scopes moe and all, healthy and with ``failed_group=1`` on a
+    warm replica (EXACT ROLL-FORWARD (serve-v3-absorb)), with the naive
+    path's s8 launches per decode step (``naive``: its results by scope);
+    kernel counts set to 0 just before the waves and read just after. Then
+    ``ft_mode none`` and a profiler window (:func:`_breakdown`), and the
+    per-step logits against the naive decode's (:func:`_absorb_logits`).
+    Returns the record, with the path's counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg_a = dataclasses.replace(cfg, mla_absorb=True)
+    reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    results = {}
+    for scope in ("moe", "all"):
+        scfg = ServeConfig(ft_scope=scope, **base)
+        eng = ServeEngine(cfg_a, scfg, params, device=dev)
+        healthy, st_h, ln_h = _wave(eng, cfg_a, None, kernels)
+        eng2 = ServeEngine(cfg_a, scfg, params, device=dev,
+                           warm=eng.warm_state())
+        injected, st_i, ln_i = _wave(eng2, cfg_a, 1, kernels)
+        bad = sum(not np.array_equal(healthy[r], injected[r])
+                  for r in healthy)
+        ntok = sum(len(v) for v in healthy.values())
+        verdict = "EXACT ROLL-FORWARD" if bad == 0 else "RECOVERY FAILED"
+        log(f"[serve-v3-absorb] {V3} recovery summary [scope={scope}]: "
+            f"failed_group=1 injected on every step; {len(healthy)} requests "
+            f"/ {ntok} tokens compared; mismatching requests: {bad} "
+            f"({verdict} (serve-v3-absorb))")
+        if bad:
+            raise AssertionError(f"{V3} absorbed, scope {scope}: {verdict}")
+        if eng.plans.misses or eng2.plans.misses:
+            raise AssertionError("compiled plans missed a shape")
+        per_step = {name: sorted(set(ln_h[name][1:] + ln_i[name][1:]))
+                    for name in ln_h}
+        want = naive[scope]["launches_per_decode_step"]
+        if per_step != want:
+            raise AssertionError(f"absorbed decode launches {per_step} per "
+                                 f"step, the naive path {want}")
+        dec = st_h[1:] + st_i[1:]
+        results[scope] = dict(step_ms=1e3 * sum(dec) / len(dec),
+                              naive_step_ms=naive[scope]["step_ms"],
+                              launches_per_decode_step=per_step)
+        log(f"[serve-v3-absorb] {V3} scope={scope}: mean decode-step "
+            f"{results[scope]['step_ms']:.3f} ms (naive "
+            f"{results[scope]['naive_step_ms']:.3f} ms); kernel launches per "
+            f"decode step {per_step}, the naive path's; first output "
+            f"{healthy[0].tolist()} ({smi})")
+        del eng, eng2
+        free_cuda()
+    counts = {k["name"]: count(k) for k in kernels}
+    core = {k["name"]: count(k, 1) for k in kernels
+            if len(k["counters"]) > 1}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[serve-v3-absorb] {V3} kernel launches over the 4 waves: {counts};"
+        f" CUDA-core GEMM route {core}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB ({smi})")
+    for name in ("entangled_matmul", "entangled_matmul_grouped"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"absorbed {V3} path")
+    if any(core.values()):
+        raise AssertionError(f"packed GEMMs of the absorbed {V3} path "
+                             f"reached the CUDA-core kernel: {core}")
+    breakdown = _breakdown(dev, cfg_a, params, base, tag="serve-v3-absorb")
+    logits = _absorb_logits(dev, cfg, cfg_a, model, params, smi)
+    rec = dict(counts=counts, scopes=results, breakdown=breakdown,
+               peak_gib=peak / 2**30, logits=logits,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[serve-v3-absorb] phase {rec['seconds']:.1f} s")
+    return rec
+
+
+def _absorb_logits(dev, cfg, cfg_a, model, params, smi):
+    """The absorbed decode's logits against the naive decode's through the
+    model API, as tests/test_perf_variants.py holds them: a prompt of
+    ABSORB["prompt"] seeded tokens in each of SERVE["max_batch"] slots,
+    prefilled once, then ABSORB["steps"] naive decode steps; before each,
+    the absorbed decode runs on a copy of the same cache. Per step max
+    |delta| < ABSORB["max_diff"] and cosine > ABSORB["cos"], with each
+    step's host ms and its peak memory above the memory held before it.
+
+    As in the reference test no expert drops a token
+    (``capacity_factor=1e9``), and, as the CPU tests do, the absorbed step
+    is driven along the naive step's MoE routes (its own gate
+    probabilities at them): at v3's 256 experts a router near-tie decided
+    the other way would part the two far more than the attention does. How
+    many token routes the absorbed step would have taken otherwise, and
+    the largest top-k gap among them, are printed."""
+    import torch
+
+    from repro_torch.models import layers as TL
+    from repro_torch.tree import tree_map
+
+    cfg, cfg_a = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, capacity_factor=1e9)) for c in (cfg, cfg_a))
+    saved, routes, parted = TL._top_k, [], []
+
+    def recording(probs, k):
+        vals, idx = saved(probs, k)
+        routes.append(idx)
+        return vals, idx
+
+    def forcing(probs, k):
+        vals, idx = saved(probs, k + 1)
+        ids = routes.pop(0)
+        differ = (idx[..., :k].sort(-1).values != ids.sort(-1).values).any(-1)
+        gap = vals[..., k - 1] - vals[..., k]
+        parted.append((int(differ.sum()), float(gap[differ].max())
+                       if bool(differ.any()) else 0.0))
+        return torch.gather(probs, -1, ids), ids
+
+    B, P = SERVE["max_batch"], ABSORB["prompt"]
+    toks = torch.randint(0, cfg.vocab_size, (B, P + ABSORB["steps"]),
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    steps = []
+    try:
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": toks[:, :P]}, cfg,
+                                     model.init_cache(cfg, B, SERVE["max_seq"],
+                                                      device=dev))
+            for t in range(P, P + ABSORB["steps"]):
+                copy = tree_map(torch.clone, cache)
+                out = {}
+                for name, c, route in (("naive", cfg, recording),
+                                       ("absorbed", cfg_a, forcing)):
+                    TL._top_k = route
+                    torch.cuda.synchronize()
+                    held = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    t0 = time.perf_counter()
+                    logits, _ = model.decode_step(
+                        params, toks[:, t:t + 1],
+                        cache if name == "naive" else copy, t, c)
+                    torch.cuda.synchronize()
+                    out[name] = (logits.float(),
+                                 1e3 * (time.perf_counter() - t0),
+                                 torch.cuda.max_memory_allocated(dev) - held)
+                del copy
+                a, b = out["absorbed"][0], out["naive"][0]
+                diff = float((a - b).abs().max())
+                cos = float((a * b).sum() / (a.norm() * b.norm()))
+                agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                n_parted = sum(n for n, _ in parted)
+                gap = max([g for _, g in parted], default=0.0)
+                parted.clear()
+                steps.append(dict(
+                    pos=t, max_abs_diff=diff, cos=cos, argmax_agree=agree,
+                    routes_parted=n_parted, parted_max_gap=gap,
+                    ms={k: v[1] for k, v in out.items()},
+                    peak_over_held_gib={k: v[2] / 2**30
+                                        for k, v in out.items()}))
+                log(f"[serve-v3-absorb] {V3} decode step at position {t}, "
+                    f"{B} slots, one cache: absorbed vs naive logits max "
+                    f"|delta| {diff:.6f}, cosine {cos:.7f}, argmax agreement "
+                    f"{agree:.3f} (token routes the absorbed step would part"
+                    f" from: {n_parted}, largest top-k gap among them "
+                    f"{gap:.3e}); step ms naive {out['naive'][1]:.3f} / "
+                    f"absorbed {out['absorbed'][1]:.3f}; peak above held "
+                    f"memory naive {out['naive'][2] / 2**30:.3f} / absorbed "
+                    f"{out['absorbed'][2] / 2**30:.3f} GiB ({smi})")
+                if not diff < ABSORB["max_diff"] or not cos > ABSORB["cos"]:
+                    raise AssertionError(f"absorbed decode at position {t}: "
+                                         f"max |delta| {diff}, cosine {cos}")
+    finally:
+        TL._top_k = saved
+    return steps
 
 
 # ---------------------------------------------------------------- library --
@@ -2999,6 +3222,365 @@ def train_remat_checks(dev, params, smi, arch=LLAMA, tag="train"):
                             nontarget_max=ntmax, fault_nontarget_rel=fault_ce,
                             step_normwise=normwise)
     return rec
+
+
+def train_variants(dev, state, smi, arch=LLAMA, tag="train-variants"):
+    """[train-variants]: the reference's training perf variants at TRAIN's
+    shape from the phase's own state. bf16 AdamW moments: one train step
+    with float32 moments and one with the state's moments cast to
+    bfloat16 (``AdamWConfig(state_dtype='bfloat16')``), from the same
+    params and batch: the losses, the largest relative difference of the
+    updated params, the moments' bytes and each step's peak memory above
+    the memory held before it; the bf16 moments after their step saved
+    through ``CheckpointManager`` (into a temporary directory, deleted
+    after) and restored, bit for bit. The bf16 norm apply
+    (``norm_f32=False``): one ``forward_train`` batch against the float32
+    apply, max |delta| and argmax agreement (above NORM_AGREE). Returns the
+    record."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models.api import get_model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg, tcfg, dcfg = _train_configs(arch)
+    batch = _batch(dcfg, TRAIN["steps"] + 1, dev)
+    tcfg_b = dc.replace(tcfg, adamw=dc.replace(tcfg.adamw,
+                                               state_dtype="bfloat16"))
+    runs, params_after = {}, {}
+    for name, tc in (("float32", tcfg), ("bfloat16", tcfg_b)):
+        st = state if name == "float32" else dict(
+            state, opt=tree_map(lambda t: t.to(torch.bfloat16),
+                                state["opt"]))
+        moment_bytes = sum(t.numel() * t.element_size()
+                           for t in leaves(st["opt"]))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        new, m = make_train_step(cfg, tc)(st, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        runs[name] = dict(loss=loss, moment_gb=moment_bytes / 1e9,
+                          step_s=time.perf_counter() - t0,
+                          peak_over_held_gib=(torch.cuda.max_memory_allocated(
+                              dev) - held) / 2**30)
+        params_after[name] = new["params"]
+        if name == "bfloat16":
+            moments = new["opt"]
+        del new, st, m
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(leaves(params_after["bfloat16"]),
+                              leaves(params_after["float32"])))
+    del params_after
+    free_cuda()
+    log(f"[{tag}] {arch} one step each from the train state: float32 "
+        f"moments {runs['float32']['moment_gb']:.3f} GB, loss "
+        f"{runs['float32']['loss']:.6f}, peak above held memory "
+        f"{runs['float32']['peak_over_held_gib']:.2f} GiB; bfloat16 moments "
+        f"{runs['bfloat16']['moment_gb']:.3f} GB, loss "
+        f"{runs['bfloat16']['loss']:.6f}, peak above held memory "
+        f"{runs['bfloat16']['peak_over_held_gib']:.2f} GiB; largest relative "
+        f"difference of the updated params {rel:.3e} ({smi})")
+    if not all(math.isfinite(r["loss"]) for r in runs.values()):
+        raise AssertionError(f"train-variant losses bad: {runs}")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_bf16_")
+    try:
+        need = sum(t.numel() * 2 for t in leaves(moments))
+        if shutil.disk_usage(ckpt_dir).free < 1.1 * need:
+            raise RuntimeError(f"the disk under {ckpt_dir} cannot hold the "
+                               f"{need / 1e9:.2f} GB of bf16 moments")
+        mgr = CheckpointManager(ckpt_dir)
+        t0 = time.perf_counter()
+        mgr.save(moments, 1, blocking=True)
+        save_s = time.perf_counter() - t0
+        man = json.loads((pathlib.Path(ckpt_dir) / "step_00000001"
+                          / "manifest.json").read_text())
+        n_bf16 = sum(e["dtype"] == "bfloat16" for e in man["leaves"])
+        t0 = time.perf_counter()
+        back, _ = mgr.restore(moments)
+        restore_s = time.perf_counter() - t0
+        bad = sum(b.dtype != torch.bfloat16 or not torch.equal(a, b)
+                  for a, b in zip(leaves(moments), leaves(back)))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[{tag}] {arch} bf16 moments through CheckpointManager: "
+        f"{len(man['leaves'])} leaves ({n_bf16} with manifest dtype "
+        f"bfloat16), {need / 1e9:.3f} GB written in {save_s:.1f} s, restored "
+        f"in {restore_s:.1f} s; leaves differing {bad} (restored bit for "
+        f"bit: {bad == 0})")
+    if bad or n_bf16 != len(man["leaves"]):
+        raise AssertionError(f"bf16 moments: {bad} leaves came back "
+                             f"different, {n_bf16} bfloat16 entries")
+    del moments, back
+    free_cuda()
+    model = get_model(cfg)
+    with torch.no_grad():
+        f32 = model.forward_train(state["params"], batch, cfg).float()
+        b16 = model.forward_train(state["params"], batch,
+                                  dc.replace(cfg, norm_f32=False)).float()
+    diff = float((f32 - b16).abs().max())
+    agree = float((f32.argmax(-1) == b16.argmax(-1)).float().mean())
+    del f32, b16
+    free_cuda()
+    log(f"[{tag}] {arch} forward_train with the bf16 norm apply against "
+        f"the float32 apply: max |delta| {diff:.6f}, argmax agreement "
+        f"{agree:.4f} (bound > {NORM_AGREE})")
+    if not agree > NORM_AGREE:
+        raise AssertionError(f"bf16 norm apply: argmax agreement {agree}")
+    rec = dict(steps=runs, params_rel_diff=rel, ckpt_gb=need / 1e9,
+               ckpt_save_s=save_s, ckpt_restore_s=restore_s,
+               norm_max_abs_diff=diff, norm_argmax_agree=agree,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[{tag}] phase {rec['seconds']:.1f} s")
+    return rec
+
+
+def _dist_shapes() -> dict:
+    """The [dist] phase's gradient leaves, by path: one decoder layer of
+    LLAMA at its published widths (layer 0 of every stacked leaf: the
+    attention and MLP weights and their norms, 60.8 M elements) and the
+    final norm; shapes from fake tensors (no memory is taken)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.api import get_model
+    from repro_torch.tree import leaves_with_path
+
+    cfg = model_config(LLAMA)
+    with FakeTensorMode():
+        params = get_model(cfg).init(torch.Generator(), cfg, TRAIN["seq"],
+                                     device="cpu")
+        return {path: tuple(t.shape[1:]) if path.startswith("['stack']")
+                else tuple(t.shape)
+                for path, t in leaves_with_path(params)
+                if path.startswith("['stack']") or "final_norm" in path}
+
+
+def _dist_grads(dev, rank, shapes):
+    """Rank ``rank``'s seeded gradient leaves of ``shapes``, on ``dev``;
+    each rank's at another magnitude."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    return {n: torch.randn(s, generator=gen, device=dev) * 10.0 ** (rank - 2)
+            for n, s in shapes.items()}
+
+
+def _sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def _fb(fb) -> str:
+    return "none" if fb is None else str(fb)
+
+
+def _dist_cmd(rank: int, d: pathlib.Path) -> list:
+    """The command of one rank of the [dist] phase's gloo group."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker",
+            str(rank), "--dist-dir", str(d)]
+
+
+def dist_worker(rank: int, d: pathlib.Path, dev) -> int:
+    """One rank of the [dist] phase's gloo group (``chip_smoke.py
+    --dist-worker RANK --dist-dir D``, on ``cuda:0``): joins through the
+    file store ``D/store``, syncs its seeded gradient leaves with
+    ``ft_grad_sync`` across the group on the kernel codec (the kernels on
+    ``dev``) for every failed block, and writes the results' SHA-256, its
+    kernels' launches (every kernel's, counted from 0 just before the
+    checked syncs and read just after them) and the sync's ms to
+    ``D/rank<RANK>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import ft_grad_sync
+
+    kernels = kernel_table()
+    dist.init_process_group("gloo", init_method=f"file://{d / 'store'}",
+                            rank=rank, world_size=DIST_WORLD)
+    try:
+        grads = _dist_grads(dev, rank, _dist_shapes())
+        group = dist.group.WORLD
+        out = {"hashes": {}}
+        reset_counts(kernels)
+        for fb in DIST_FAILED:
+            got, _ = ft_grad_sync(grads, axis_name=group,
+                                  n_replicas=DIST_WORLD, failed_block=fb,
+                                  codec="kernel")
+            out["hashes"][_fb(fb)] = {n: _sha(t) for n, t in got.items()}
+        out["launches"] = {k["name"]: count(k) for k in kernels}
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ft_grad_sync(grads, axis_name=group, n_replicas=DIST_WORLD,
+                         codec="kernel")
+        torch.cuda.synchronize()
+        out["sync_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_dist(dev, kernels, state, smi):
+    """[dist]: the cross-replica gradient sum over ``torch.distributed``.
+    (1) A one-rank NCCL group on ``dev``: ``ft_grad_sync`` over it on the
+    kernel codec, on one backward's full-width llama gradient leaves, must
+    equal ``axis_name=None`` bit for bit, healthy and with each block
+    failed, and every failed block the healthy sync (EXACT ROLL-FORWARD
+    (dist)); every kernel's count set to 0 just before and read just
+    after. (2) DIST_WORLD ranks spawned on the one card over gloo
+    (:func:`dist_worker`): each rank's results, for every failed block,
+    must be bit-identical to every other rank's and to the single-process
+    oracle on the card (the ranks' entangled blocks summed mod 2^32, then
+    disentangled, through the kernels); every kernel's launches in the
+    ranks, summed. The sync's ms and ns per element at world size 1 (on
+    llama's whole gradient, and on the ranks' leaves) and at DIST_WORLD
+    (the ranks' leaves: :func:`_dist_shapes`). Returns (counts by path,
+    record)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fixed_point import pow2_scale
+    from repro_torch.core.plan import make_plan
+    from repro_torch.dist.collectives import _to_blocks, ft_grad_sync
+    from repro_torch.kernels import ops as kops
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg, tcfg, dcfg = _train_configs(LLAMA)
+    _, grads = loss_and_grads(cfg, state["params"],
+                              _batch(dcfg, TRAIN["steps"], dev))
+    kw = dict(n_replicas=1, M=tcfg.ft_M, codec="kernel")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        group = dist.group.WORLD
+        reset_counts(kernels)
+        bad_none, bad_fb = 0, 0
+        with torch.no_grad():
+            healthy, _ = ft_grad_sync(grads, axis_name=group, **kw)
+            for fb in DIST_FAILED:
+                want, _ = ft_grad_sync(grads, axis_name=None,
+                                       failed_block=fb, **kw)
+                got, _ = ft_grad_sync(grads, axis_name=group,
+                                      failed_block=fb, **kw)
+                bad_none += sum(not torch.equal(a, b)
+                                for a, b in zip(leaves(got), leaves(want)))
+                bad_fb += sum(not torch.equal(a, b)
+                              for a, b in zip(leaves(got), leaves(healthy)))
+                del want, got
+            counts = {k["name"]: count(k) for k in kernels}
+            shapes = _dist_shapes()
+            layer = _dist_grads(dev, 0, shapes)
+            ms = {"axis_name None, whole gradient": _event_ms(
+                lambda: ft_grad_sync(grads, axis_name=None, **kw), 3),
+                "nccl world 1, whole gradient": _event_ms(
+                lambda: ft_grad_sync(grads, axis_name=group, **kw), 3),
+                "nccl world 1, one layer": _event_ms(
+                lambda: ft_grad_sync(layer, axis_name=group, **kw), 3)}
+    finally:
+        dist.destroy_process_group()
+    n = len(leaves(healthy))
+    n_whole = sum(t.numel() for t in leaves(grads))
+    n_layer = sum(math.prod(s) for s in shapes.values())
+    del healthy, grads, layer
+    free_cuda()
+    verdict = ("EXACT ROLL-FORWARD" if bad_fb == 0 and bad_none == 0
+               else "RECOVERY FAILED")
+    log(f"[dist] {LLAMA} one backward's {n} gradient leaves synced over a "
+        f"one-rank NCCL group on the kernel codec, failed_block "
+        f"{list(DIST_FAILED)}: leaves differing from axis_name=None "
+        f"{bad_none}, from the healthy sync {bad_fb} ({verdict} (dist)); "
+        f"kernel launches {counts}; sync ms {ms} ({smi})")
+    if bad_none or bad_fb:
+        raise AssertionError(f"one-rank NCCL sync: {verdict}")
+    for name in ("entangle", "disentangle"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"one-rank NCCL sync")
+
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(_dist_cmd(r, d), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(DIST_WORLD)]
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        spawn_s = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            if p.returncode:
+                raise AssertionError(f"dist rank {r} exited {p.returncode}:"
+                                     f"\n{logs[r][-4000:]}")
+        outs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(DIST_WORLD)]
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(d, ignore_errors=True)
+    plan = make_plan(tcfg.ft_M, 32)
+    ranks = [_dist_grads(dev, r, shapes) for r in range(DIST_WORLD)]
+    want = {}
+    with torch.no_grad():
+        for name, shape in shapes.items():
+            blocks = [_to_blocks(g[name].reshape(-1), plan.M)[0]
+                      for g in ranks]
+            amax = torch.stack([b.abs().amax() for b in blocks]).amax()
+            scale = pow2_scale(amax, plan.max_output_magnitude, DIST_WORLD)
+            total = sum(kops.entangle(torch.round(b * scale).to(torch.int32),
+                                      plan).to(torch.int64) for b in blocks)
+            eps = ((total + 2**31) % 2**32 - 2**31).to(torch.int32)
+            rec = kops.disentangle(eps, plan).to(torch.float32) / (
+                scale * DIST_WORLD)
+            want[name] = _sha(rec.reshape(-1)[:math.prod(shape)])
+    del ranks
+    free_cuda()
+    bad = sum(o["hashes"][_fb(fb)][name] != want[name]
+              for o in outs for fb in DIST_FAILED for name in shapes)
+    launches = {k["name"]: sum(o["launches"][k["name"]] for o in outs)
+                for k in kernels}
+    ms[f"gloo world {DIST_WORLD}, one layer"] = max(o["sync_ms"]
+                                                    for o in outs)
+    verdict = "EXACT ROLL-FORWARD" if bad == 0 else "RECOVERY FAILED"
+    log(f"[dist] {DIST_WORLD} ranks spawned on {torch.cuda.get_device_name(0)}"
+        f" over gloo (CUDA tensors reduced by gloo itself), {len(shapes)} "
+        f"leaves of one {LLAMA} layer ({n_layer} elements a rank), "
+        f"failed_block {list(DIST_FAILED)}: results differing "
+        f"from the single-process oracle on the card (sum mod 2^32 of the "
+        f"ranks' entangled blocks, then disentangled) {bad} of "
+        f"{DIST_WORLD * len(DIST_FAILED) * len(shapes)}, so bit-identical"
+        f" on every rank and failed block: {bad == 0} ({verdict} (dist)); "
+        f"kernel launches in the ranks {launches}; {spawn_s:.1f} s for the "
+        f"ranks")
+    if bad:
+        raise AssertionError(f"{DIST_WORLD}-rank gloo sync: {verdict}")
+    for name in ("entangle", "disentangle"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was never launched by the "
+                                 f"{DIST_WORLD}-rank sync")
+    elements = {k: n_layer if k.endswith("one layer") else n_whole
+                for k in ms}
+    ns = {k: 1e6 * t / elements[k] for k, t in ms.items()}
+    rec = dict(one_rank_leaves=n, sync_ms=ms, sync_elements=elements,
+               sync_ns_per_element=ns, spawn_s=spawn_s,
+               launches={"nccl world 1": counts,
+                         f"gloo world {DIST_WORLD}": launches},
+               seconds=time.perf_counter() - t_phase)
+    log(f"[dist] sync ms {ms}; elements {elements}; ns per element {ns}; "
+        f"phase {rec['seconds']:.1f} s ({smi})")
+    return {"dist nccl world 1": counts,
+            f"dist gloo world {DIST_WORLD}": launches}, rec
 
 
 def _leaf_rel(grads, ref) -> float:
@@ -4228,6 +4810,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the serve-admission wave's prompt lengths")
+    ap.add_argument("--dist-worker", type=int, default=None,
+                    help=argparse.SUPPRESS)  # a rank of the [dist] phase
+    ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4235,6 +4820,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.dist_worker is not None:
+        torch.cuda.set_device(0)
+        return dist_worker(args.dist_worker, pathlib.Path(args.dist_dir),
+                           torch.device("cuda", 0))
     kernels = kernel_table()
     by_name = {k["name"]: k for k in kernels}
     dev = torch.device("cuda", 0)
@@ -4268,6 +4857,8 @@ def main() -> int:
         dev, kernels, ["entangle", "disentangle"])
     train_rollforward(dev, state)
     train["remat"] = train_remat_checks(dev, state["params"], smi)
+    train["variants"] = train_variants(dev, state, smi)
+    dist_counts, dist_rec = phase_dist(dev, kernels, state, smi)
     held = [state]
     del state
     train["timings"] = train_timings(dev, held)
@@ -4306,6 +4897,8 @@ def main() -> int:
                         for a, c in tf_counts.items()})
         by_path["stream-conv"] = stream["counts"][name]
         by_path[V3] = v3_counts[name]
+        by_path[f"{V3} absorb"] = serve_v3["absorb"]["counts"][name]
+        by_path.update({a: c[name] for a, c in dist_counts.items()})
         by_path["library"] = lib_counts[name]
         if name in ("entangled_conv1d", "conv1d_causal"):
             # the stream shape's row; route=None takes s8 there
@@ -4357,6 +4950,9 @@ def main() -> int:
                     if name == "entangled_matmul"},
                     **{V3: {s: r["launches_per_decode_step"][name]
                             for s, r in serve_v3["scopes"].items()}},
+                    **{f"{V3} absorb": {
+                        s: r["launches_per_decode_step"][name]
+                        for s, r in serve_v3["absorb"]["scopes"].items()}},
                     **(family_steps if name == "entangled_matmul" else {})),
                 cuda_core=dict(
                     source=k["core_source"],
@@ -4388,6 +4984,7 @@ def main() -> int:
     record["train_families"] = train_families
     record["stream_conv"] = stream
     record["serve_v3"] = serve_v3
+    record["dist"] = dist_rec
     record["library"] = library
     print(smi, flush=True)
     print(json.dumps(record), flush=True)

@@ -20,14 +20,23 @@ kernel layer (:mod:`repro_torch.kernels.ops`: the hand-written CUDA passes
 on the card, their plain versions on the CPU; the counterpart of
 ``'pallas'``).
 
-Only the single-process form is ported (``axis_name=None``): the
-cross-replica sum over ``torch.distributed`` is not.
+The cross-replica sum runs over ``torch.distributed``: ``axis_name`` is a
+process group (every rank of it one replica), or the name of a dimension
+of the mesh installed by :func:`repro_torch.dist.sharding.axis_rules`,
+or None (single process: the gradients are already the full sum). The
+replicas agree on the scale through ``all_reduce(MAX)`` of the amax (the
+reference's ``pmax``), and the entangled int32 blocks are summed by
+``all_reduce(SUM)``, which wraps mod 2^32 as ``psum`` does — exact, since
+the sum is an LSB op. The wrap is checked across several ranks on gloo
+only: NCCL has run as a one-rank group so far (it takes one GPU per rank),
+where the sum adds nothing. Each rank returns the same synced gradients.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.entangle import disentangle as _disentangle_plain
 from repro_torch.core.entangle import entangle as _entangle_plain
@@ -39,11 +48,18 @@ from repro_torch.tree import tree_map
 CODECS = ("plain", "kernel")
 
 
-def _check_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"the cross-replica sum over axis_name={axis_name!r} is not "
-            f"ported yet (it needs torch.distributed); use axis_name=None")
+def _group(axis_name):
+    """The process group of ``axis_name``: None (no cross-replica sum), a
+    group as given, or a mesh dimension's group under ``axis_rules``."""
+    if axis_name is None or not isinstance(axis_name, str):
+        return axis_name
+    from repro_torch.dist.sharding import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"axis_name={axis_name!r} names a mesh dimension, "
+                         f"but no axis_rules(mesh) is active")
+    return mesh.get_group(axis_name)
 
 
 def _to_blocks(flat: torch.Tensor, M: int) -> tuple:
@@ -67,7 +83,7 @@ def _codec_fns(codec: str, plan: EntanglePlan, failed: Optional[int]):
     raise ValueError(f"codec must be one of {CODECS}, got {codec!r}")
 
 
-def ft_grad_sync(grads: Any, *, axis_name: Optional[str] = None,
+def ft_grad_sync(grads: Any, *, axis_name=None,
                  n_replicas: int, M: int = 4,
                  failed_block: Optional[int] = None,
                  plan: Optional[EntanglePlan] = None,
@@ -75,8 +91,10 @@ def ft_grad_sync(grads: Any, *, axis_name: Optional[str] = None,
     """Entanglement-protected mean of ``grads``.
 
     Args:
-      grads: nested dicts / lists / tuples of float gradient tensors.
-      axis_name: must be None (the single-process form).
+      grads: nested dicts / lists / tuples of float gradient tensors (this
+        replica's, or the full gradients when ``axis_name`` is None).
+      axis_name: the replicas' process group, a mesh dimension's name
+        under ``axis_rules``, or None for single-process use.
       n_replicas: number of contributions to the sum (reduction headroom).
       M: number of entangled stream blocks per tensor.
       failed_block: fail-stopped block index; its entangled data is
@@ -87,16 +105,20 @@ def ft_grad_sync(grads: Any, *, axis_name: Optional[str] = None,
     Returns:
       (synced gradients of the same structure, diagnostics dict).
     """
-    _check_axis(axis_name)
+    group = _group(axis_name)
     plan = plan or make_plan(M, 32)
     entangle_fn, disentangle_fn = _codec_fns(codec, plan, failed_block)
 
     def sync_leaf(g: torch.Tensor) -> torch.Tensor:
         blocks, n = _to_blocks(g.reshape(-1).to(torch.float32), M)
-        scale = _pow2_scale(blocks.abs().amax(), plan.max_output_magnitude,
-                            n_replicas)
+        amax = blocks.abs().amax()
+        if group is not None:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        scale = _pow2_scale(amax, plan.max_output_magnitude, n_replicas)
         q = torch.round(blocks * scale).to(torch.int32)
         eps = entangle_fn(q)
+        if group is not None:
+            dist.all_reduce(eps, op=dist.ReduceOp.SUM, group=group)
         if failed_block is not None:
             eps[failed_block % M] = GARBAGE
         rec = disentangle_fn(eps)
@@ -108,15 +130,20 @@ def ft_grad_sync(grads: Any, *, axis_name: Optional[str] = None,
     return tree_map(sync_leaf, grads), diag
 
 
-def checksum_grad_sync(grads: Any, *, axis_name: Optional[str] = None,
+def checksum_grad_sync(grads: Any, *, axis_name=None,
                        n_replicas: int, M: int = 4,
                        failed_block: Optional[int] = None) -> tuple:
-    """Checksum-ABFT baseline: one extra sum stream, float recovery."""
-    _check_axis(axis_name)
+    """Checksum-ABFT baseline: one extra sum stream, float recovery;
+    ``axis_name`` as in :func:`ft_grad_sync`."""
+    group = _group(axis_name)
 
     def sync_leaf(g: torch.Tensor) -> torch.Tensor:
         blocks, n = _to_blocks(g.reshape(-1).to(torch.float32), M)
         csum = blocks.sum(dim=0)
+        if group is not None:
+            blocks = blocks.clone()  # the reduce is in place; g may share it
+            dist.all_reduce(blocks, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(csum, op=dist.ReduceOp.SUM, group=group)
         if failed_block is not None:
             fb = failed_block % M
             others = blocks.sum(dim=0) - blocks[fb]

@@ -4,9 +4,11 @@
 Trains the arch's config (``--smoke``: its reduced config) on the
 synthetic corpus through :func:`repro_torch.train.trainer.train_loop` on
 one device, ``--device`` (default ``cuda``; it raises when no GPU is
-present). The flags are the reference launcher's; there is no mesh, since
-the port runs on one device. As in the reference, the CLI exposes no codec
-flag: the entangled sync runs ``TrainConfig.grad_codec``'s default.
+present). The flags are the reference launcher's, and as there the loop
+runs under ``axis_rules(make_local_mesh())``; with no process group yet,
+the launcher makes a one-rank group from a local store (NCCL on the card,
+gloo on the CPU) and ends it afterwards. The CLI exposes no codec flag:
+the entangled sync runs ``TrainConfig.grad_codec``'s default.
 Every decoder family trains: the dense decoders, MLA + MoE
 (deepseek-v2-lite-16b), Mamba-1 (falcon-mamba-7b), RG-LRU + local
 attention (recurrentgemma-2b) and the vision-language text path; the
@@ -15,12 +17,17 @@ synthetic corpus has no audio frames for whisper-small.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
+
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.data.synthetic import DataConfig
+from repro_torch.dist.sharding import axis_rules, mesh_shape
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.train_step import TrainConfig
 from repro_torch.train.trainer import LoopConfig, train_loop
@@ -58,10 +65,32 @@ def main(argv=None):
                       ckpt_every=max(args.steps // 4, 1),
                       ckpt_dir=args.ckpt_dir,
                       log_every=max(args.steps // 10, 1))
-    print(f"[launch.train] arch={cfg.name} device={dev} "
-          f"grad_sync={args.grad_sync} codec={tcfg.grad_codec}")
-    state, losses = train_loop(cfg, tcfg, dcfg, loop, device=dev)
+    with _process_group(dev):
+        mesh = make_local_mesh()
+        print(f"[launch.train] arch={cfg.name} device={dev} "
+              f"mesh={mesh_shape(mesh)} grad_sync={args.grad_sync} "
+              f"codec={tcfg.grad_codec}")
+        with axis_rules(mesh):
+            state, losses = train_loop(cfg, tcfg, dcfg, loop, device=dev)
     print(f"[launch.train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+
+@contextlib.contextmanager
+def _process_group(dev):
+    """The default process group: the caller's if one exists, else a
+    one-rank group from a local store (NCCL on a card, gloo on the CPU),
+    ended on exit. The NCCL group is not bound to the card, so NCCL sets
+    up no communicator until a collective runs, and a one-card loop runs
+    none (the train step syncs with ``axis_name=None``)."""
+    if dist.is_initialized():
+        yield
+        return
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -42,6 +42,9 @@ ACT_DTYPE = torch.bfloat16
 # 1024 rows of falcon-mamba-7b's 4096 x 16384 in_proj differed
 # (tests/test_torch_cuda.py holds every served projection shape)
 GEMM_ROWS = 256
+# the absorbed MLA decode runs its float32 einsums over slabs of
+# this many rows (the engine's default slot count), for the same reason
+ABSORB_ROWS = 8
 # the training scan of a Mamba block runs in checkpointed chunks of this
 # many steps when they divide the sequence (the reference's Q)
 MAMBA_CHUNK = 64
@@ -97,20 +100,23 @@ def init_norm(cfg: ModelConfig, shape: tuple, device) -> dict:
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The config's norm in float32, cast to bfloat16: RMSNorm (the
-    decoders), or LayerNorm (whisper: mean and biased variance, scale and
-    bias)."""
+    """The config's norm, cast to bfloat16: LayerNorm (whisper: mean and
+    biased variance, scale and bias) in float32, or RMSNorm (the
+    decoders): float32 statistics, then with ``cfg.norm_f32`` a float32
+    apply, else the reference's bf16 elementwise apply ``x * inv * scale``
+    in bfloat16 (no float32 [B, T, D] product)."""
     x32 = x.to(torch.float32)
     if cfg.norm_kind == "layernorm":
         mu = torch.mean(x32, -1, keepdim=True)
         var = torch.mean(torch.square(x32 - mu), -1, keepdim=True)
         y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
         return (y * p["scale"] + p["bias"]).to(ACT_DTYPE)
-    if cfg.norm_kind != "rmsnorm" or not cfg.norm_f32:
-        raise NotImplementedError(f"norm {cfg.norm_kind!r} (norm_f32="
-                                  f"{cfg.norm_f32}) is not ported yet")
     ms = torch.mean(torch.square(x32), -1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]).to(ACT_DTYPE)
+    if cfg.norm_f32:
+        return (x32 * torch.rsqrt(ms + cfg.norm_eps)
+                * p["scale"]).to(ACT_DTYPE)
+    inv = torch.rsqrt(ms + cfg.norm_eps).to(ACT_DTYPE)
+    return x.to(ACT_DTYPE) * inv * p["scale"].to(ACT_DTYPE)
 
 
 # ------------------------------------------------------------------ rope ----
@@ -570,20 +576,19 @@ def init_mla_cache(cfg: ModelConfig, repeat: int, batch: int, max_seq: int,
 
 def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
               mode: str, ft=None):
-    """Multi-head latent attention (DeepSeek), the reference's
-    non-absorbed path: the cache holds only the normed latent c_kv [B, S,
-    r] and the shared roped key [B, S, dr], written in place, and every
-    step up-projects the cached latents to per-head keys and values
-    (``wkv_b``, an unprotected projection). ``pos`` and ``mode`` as in
+    """Multi-head latent attention (DeepSeek): the cache holds only the
+    normed latent c_kv [B, S, r] and the shared roped key [B, S, dr],
+    written in place, and every step up-projects the cached latents to
+    per-head keys and values (``wkv_b``, an unprotected projection) — the
+    reference's naive path; with ``cfg.mla_absorb`` a decode step instead
+    attends over the latents themselves (:func:`_mla_absorbed`), and
+    prefill stays naive, as in the reference. ``pos`` and ``mode`` as in
     :func:`apply_attention`, the per-row prefill offsets and train mode
     (no cache, the sequence's own latents) included."""
     from repro_torch.models.attention_core import (attend, attend_decode,
                                                    attend_prefill_packed)
 
     m = cfg.mla
-    if cfg.mla_absorb:
-        raise NotImplementedError("absorbed MLA (mla_absorb) is not ported "
-                                  "yet")
     B, T, _ = x.shape
     H, r = cfg.n_heads, m.kv_lora_rank
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
@@ -624,6 +629,10 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
         cache["krope"][:, off:off + T] = k_rope
         ckv_s = cache["ckv"][:, :off + T] if off else ckv
         kr_s = cache["krope"][:, :off + T] if off else k_rope
+    if mode == "decode" and cfg.mla_absorb:
+        o = _mla_absorbed(p["wkv_b"]["w"], q_nope, q_rope, ckv_s, kr_s,
+                          positions[:, 0], cfg)
+        return dense(p["wo"], o.to(ACT_DTYPE), ft=ft, site="out.o"), cache
     Tk = ckv_s.shape[1]
     kvb = dense(p["wkv_b"], ckv_s).reshape(B, Tk, H, dn + dv)
     k_nope, v = kvb[..., :dn], kvb[..., dn:]
@@ -644,6 +653,55 @@ def apply_mla(p, x: torch.Tensor, *, cfg: ModelConfig, cache: dict, pos,
         o = attend(qg, kt, vt, kind="causal", scale=scale, q_off=off)
     out = o[:, :, 0].permute(0, 2, 1, 3).reshape(B, T, H * dv)
     return dense(p["wo"], out.to(ACT_DTYPE), ft=ft, site="out.o"), cache
+
+
+def _mla_absorbed(w_kv_b: torch.Tensor, q_nope, q_rope, ckv, kr,
+                  pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's absorbed MLA decode (``mla_absorb``): ``W_uk`` folded
+    into the queries and ``W_uv`` out of the value sum, so that attention
+    runs over the cached latents ``ckv`` [B, S, r] themselves, in float32
+    einsums; ``kr`` [B, S, dr] is the shared roped key, ``pos`` [B] each
+    row's position. Returns the heads' values [B, T, H * dv] in float32.
+
+    The rows go in slabs of :data:`ABSORB_ROWS` (the last one padded with
+    zero rows), each through the same einsums of one shape, so that a
+    slot's bits do not depend on how many slots share the step
+    (:func:`_rows_matmul`'s rule). TF32 stays off, as everywhere in the
+    port."""
+    B = q_nope.shape[0]
+    if B == ABSORB_ROWS:
+        return _mla_absorbed_rows(w_kv_b, q_nope, q_rope, ckv, kr, pos, cfg)
+    pad = (-B) % ABSORB_ROWS
+
+    def padded(t, fill=0):
+        return torch.cat([t, t.new_full((pad,) + t.shape[1:], fill)]) \
+            if pad else t
+
+    args = [padded(t) for t in (q_nope, q_rope, ckv, kr)] + [padded(pos, -1)]
+    outs = [_mla_absorbed_rows(w_kv_b, *(t[i:i + ABSORB_ROWS] for t in args),
+                               cfg) for i in range(0, B + pad, ABSORB_ROWS)]
+    return torch.cat(outs)[:B]
+
+
+def _mla_absorbed_rows(w_kv_b, q_nope, q_rope, ckv, kr, pos,
+                       cfg: ModelConfig) -> torch.Tensor:
+    m, H = cfg.mla, cfg.n_heads
+    B, T = q_nope.shape[:2]
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    f32 = torch.float32
+    wb = w_kv_b.to(f32).reshape(m.kv_lora_rank, H, dn + dv)
+    w_uk, w_uv = wb[..., :dn], wb[..., dn:]
+    ckv32 = ckv.to(f32)
+    q_eff = torch.einsum("bthd,rhd->bthr", q_nope.to(f32), w_uk)
+    s_nope = torch.einsum("bthr,bsr->bhts", q_eff, ckv32)
+    s_rope = torch.einsum("bthd,bsd->bhts", q_rope.to(f32), kr.to(f32))
+    s = (s_nope + s_rope) * (1.0 / math.sqrt(dn + dr))
+    ok = _cache_abs_pos(ckv.shape[1], pos) >= 0  # [B, S]
+    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, -1e30))
+    probs = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhts,bsr->bthr", probs, ckv32)
+    o = torch.einsum("bthr,rhd->bthd", ctx, w_uv)
+    return o.reshape(B, T, H * dv)
 
 
 # ------------------------------------------------------------------- MLP ----

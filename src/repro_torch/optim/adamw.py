@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -28,6 +29,7 @@ class AdamWConfig:
     weight_decay: float = 0.1
     warmup_steps: int = 100
     total_steps: int = 10_000
+    state_dtype: Optional[str] = None  # None = float32 moments | 'bfloat16'
 
 
 # muP-style width transfer: ``lr`` is tuned at this width; the effective
@@ -61,19 +63,24 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def init(params) -> dict:
-    """Zero float32 moments ``m`` and ``v``, one pair per param (the
-    reference's default ``state_dtype``; its bfloat16 moments are not
-    ported)."""
+def init(params, cfg: Optional[AdamWConfig] = None) -> dict:
+    """Zero moments ``m`` and ``v``, one pair per param, in float32, or in
+    bfloat16 when ``cfg.state_dtype == 'bfloat16'`` (the reference's
+    low-precision moments: half the optimizer state's bytes)."""
+    dt = (torch.bfloat16 if cfg is not None and cfg.state_dtype == "bfloat16"
+          else torch.float32)
+
     def z(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros(p.shape, dtype=dt, device=p.device)
 
     return {"m": tree_map(z, params), "v": tree_map(z, params)}
 
 
 def update(grads, opt_state, params, step: torch.Tensor, cfg: AdamWConfig):
     """One AdamW step; returns ``(new params, {"m", "v"})``. ``step`` is the
-    int32 0-dim step counter before this update."""
+    int32 0-dim step counter before this update. The moments are updated
+    in float32 and cast back to their own dtype; the params' update reads
+    the cast moments."""
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     t = (step + 1).to(torch.float32)
@@ -82,17 +89,19 @@ def update(grads, opt_state, params, step: torch.Tensor, cfg: AdamWConfig):
     bc2 = 1 - torch.pow(_f32(b2, dev), t)
 
     def m_upd(g, m):
-        return b1 * m + (1 - b1) * g.to(torch.float32)
+        return (b1 * m.to(torch.float32)
+                + (1 - b1) * g.to(torch.float32)).to(m.dtype)
 
     def v_upd(g, v):
-        return b2 * v + (1 - b2) * torch.square(g.to(torch.float32))
+        return (b2 * v.to(torch.float32)
+                + (1 - b2) * torch.square(g.to(torch.float32))).to(v.dtype)
 
     m_new = tree_map(m_upd, grads, opt_state["m"])
     v_new = tree_map(v_upd, grads, opt_state["v"])
 
     def p_upd(p, m, v):
-        mhat = m / bc1
-        vhat = v / bc2
+        mhat = m.to(torch.float32) / bc1
+        vhat = v.to(torch.float32) / bc2
         step_ = (mhat / (torch.sqrt(vhat) + cfg.eps)
                  + cfg.weight_decay * p.to(torch.float32))
         return (p.to(torch.float32) - lr * step_).to(p.dtype)

@@ -9,11 +9,20 @@
     mid-write never corrupts the latest checkpoint;
   * async: the device->host copy happens on the caller's thread, the file
     I/O on a background thread; ``wait`` re-raises a failed write;
-  * verified: restore refuses a leaf whose SHA-256 does not match.
+  * verified: restore refuses a leaf whose SHA-256 does not match;
+  * elastic: ``restore(..., shardings=...)`` places each leaf on a target
+    ``DeviceMesh`` as a ``DTensor``: a checkpoint written on one mesh
+    restores onto another (or onto one device without shardings).
 
-The reference's elastic re-sharding on restore (target shardings) needs a
-mesh, which the port does not have yet: restore places each leaf on the
-device of the matching leaf of ``state_like``.
+bfloat16 leaves (the low-precision AdamW moments) have no numpy dtype.
+The reference writes them through ``ml_dtypes`` as 2-byte void ``.npy``
+files (header descr ``'<V2'``, manifest dtype ``"bfloat16"``); the port
+writes the same bytes — so the same SHA-256 — and reads such a leaf back
+by its manifest dtype, through a ``uint16`` view.
+
+Under a process group of several ranks every rank calls ``save`` (a
+sharded ``DTensor`` leaf is gathered, a collective) and rank 0 writes;
+a blocking save ends with a barrier, so that every rank can restore it.
 """
 from __future__ import annotations
 
@@ -28,13 +37,62 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, tree_map, unflatten
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 
-def _to_host(x) -> np.ndarray:
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
-    return np.asarray(x)
+BF16 = "bfloat16"
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _to_host(x):
+    """A host copy of a leaf: a numpy array, or a CPU tensor for
+    bfloat16 (which numpy cannot hold); a ``DTensor`` is gathered whole."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    if _is_dtensor(x):
+        x = x.full_tensor()
+    x = x.detach().to("cpu", copy=True)
+    return x if x.dtype == torch.bfloat16 else x.numpy()
+
+
+def _save_leaf(path: pathlib.Path, leaf) -> tuple:
+    """Write one host leaf as ``.npy``; returns its (shape, dtype name). A
+    bfloat16 tensor gets the reference's bytes: descr ``'<V2'``, then the
+    raw little-endian 2-byte words."""
+    if not isinstance(leaf, torch.Tensor):
+        np.save(path, leaf)
+        return list(np.shape(leaf)), str(leaf.dtype)
+    words = leaf.contiguous().view(torch.int16).numpy()
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": "<V2", "fortran_order": False, "shape": words.shape})
+        f.write(words.astype("<i2", copy=False).tobytes())
+    return list(leaf.shape), BF16
+
+
+def _load_leaf(path: pathlib.Path, dtype: str) -> torch.Tensor:
+    arr = np.load(path)
+    if dtype == BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _rank0() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 class CheckpointManager:
@@ -48,14 +106,18 @@ class CheckpointManager:
     # ------------------------------------------------------------ save ----
 
     def save(self, state, step: int, blocking: bool = False) -> None:
-        """Snapshot to host memory synchronously, write files async."""
+        """Snapshot to host memory synchronously, write files async (on
+        rank 0 of a process group)."""
         host = tree_map(_to_host, state)
         self.wait()
-        self._thread = threading.Thread(
-            target=self._write_guarded, args=(host, int(step)), daemon=True)
-        self._thread.start()
+        if _rank0():
+            self._thread = threading.Thread(
+                target=self._write_guarded, args=(host, int(step)),
+                daemon=True)
+            self._thread.start()
         if blocking:
             self.wait()
+            _barrier()
 
     def wait(self) -> None:
         """Join the writer; re-raise its failure, if any."""
@@ -81,11 +143,11 @@ class CheckpointManager:
         manifest = {"step": step, "leaves": []}
         for i, (path, leaf) in enumerate(leaves_with_path(host_state)):
             fn = f"leaf_{i:05d}.npy"
-            np.save(tmp / fn, leaf)
+            shape, dtype = _save_leaf(tmp / fn, leaf)
             digest = hashlib.sha256((tmp / fn).read_bytes()).hexdigest()
             manifest["leaves"].append(
                 {"path": path, "file": fn, "sha256": digest,
-                 "shape": list(np.shape(leaf)), "dtype": str(leaf.dtype)})
+                 "shape": shape, "dtype": dtype})
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if final.exists():
             shutil.rmtree(final)
@@ -107,26 +169,41 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, state_like, step: Optional[int] = None) -> tuple:
+    def restore(self, state_like, step: Optional[int] = None,
+                shardings=None) -> tuple:
         """Load step ``step`` (default: the latest) into the structure of
-        ``state_like``, each leaf on the device of its ``state_like`` leaf;
-        returns ``(state, step)``. Raises ``IOError`` on a leaf whose hash
-        does not match its manifest entry."""
+        ``state_like``; returns ``(state, step)``. Each leaf goes on the
+        device of its ``state_like`` leaf, or, with ``shardings`` (a tree
+        of the same structure of
+        :class:`~repro_torch.dist.sharding.NamedSharding`, None leaves
+        allowed), onto its sharding's mesh as a ``DTensor`` with its
+        placements — the elastic path, a collective over the mesh. Raises
+        ``IOError`` on a leaf whose hash does not match its manifest
+        entry."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         by_path = {e["path"]: e for e in manifest["leaves"]}
+        pairs = leaves_with_path(state_like)
+        targets = (leaves(shardings) if shardings is not None
+                   else [None] * len(pairs))
         out = []
-        for path, like in leaves_with_path(state_like):
+        for (path, like), shd in zip(pairs, targets):
             entry = by_path[path]
             raw = (d / entry["file"]).read_bytes()
             if hashlib.sha256(raw).hexdigest() != entry["sha256"]:
                 raise IOError(
                     f"checkpoint corruption detected in {entry['file']} "
                     f"(sha mismatch) — refusing to load")
-            arr = np.load(d / entry["file"])
-            dev = like.device if isinstance(like, torch.Tensor) else "cpu"
-            out.append(torch.from_numpy(arr).to(dev))
+            t = _load_leaf(d / entry["file"], entry["dtype"])
+            if shd is not None:
+                from torch.distributed.tensor import distribute_tensor
+
+                out.append(distribute_tensor(
+                    t.to(shd.mesh.device_type), shd.mesh, shd.placements))
+            else:
+                dev = like.device if isinstance(like, torch.Tensor) else "cpu"
+                out.append(t.to(dev))
         return unflatten(state_like, out), step

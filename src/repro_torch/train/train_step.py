@@ -51,7 +51,7 @@ def init_state(gen: torch.Generator, cfg: ModelConfig, tcfg: TrainConfig,
     (CUDA unless the caller asks for the CPU)."""
     dev = resolve_device(device)
     params = get_model(cfg).init(gen, cfg, tcfg.max_seq, device=dev)
-    return {"params": params, "opt": adamw_mod.init(params),
+    return {"params": params, "opt": adamw_mod.init(params, tcfg.adamw),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 

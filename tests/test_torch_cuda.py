@@ -877,3 +877,98 @@ def test_sdc_on_the_card_matches_the_cpu(cuda_device):
         assert torch.equal(det.cpu(), sdc.detect(bad, plan))
         assert torch.equal(loc.cpu(), sdc.localize(bad, plan))
         assert bool(det[pos]) and int(det.sum()) == 1
+
+
+@pytest.mark.requires_cuda
+def test_absorbed_mla_decode_rows_do_not_depend_on_the_batch(cuda_device):
+    """The absorbed MLA decode (``mla_absorb``) at deepseek-v3-671b's
+    published MLA widths (128 heads, kv_lora 512, a low-rank Q) gives a
+    slot the same bits at batch 1 as among 8 (and 11, two slabs) on a
+    256-position latent cache, and stays within the reference test's
+    bounds of the naive decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as TL
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b"),
+                              mla_absorb=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = tree_map(lambda t: t[0], TL.init_mla(gen, cfg, 1))
+    S, B = 256, 11
+    cache = {k: (torch.randn(v.shape[1:], generator=gen, device=cuda_device)
+                 .to(v.dtype))
+             for k, v in TL.init_mla_cache(cfg, 1, B, S, cuda_device).items()}
+    x = torch.randn(B, 1, cfg.d_model, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    pos = torch.randint(0, S, (B,), generator=gen, device=cuda_device)
+
+    def run(rows, c=cfg):
+        cc = {k: v[rows].clone() for k, v in cache.items()}
+        return TL.apply_mla(p, x[rows], cfg=c, cache=cc, pos=pos[rows],
+                            mode="decode")[0]
+
+    for n in (8, 11):
+        whole = run(slice(0, n))
+        for b in (0, 5, n - 1):
+            assert torch.equal(run(slice(b, b + 1)), whole[b:b + 1]), (n, b)
+    naive = run(slice(0, 8), dataclasses.replace(cfg, mla_absorb=False))
+    a, b = whole[:8].float(), naive.float()
+    assert float((a - b).abs().max()) < 0.5
+    assert float((a * b).sum() / (a.norm() * b.norm())) > 0.999
+
+
+@pytest.mark.requires_cuda
+def test_one_rank_nccl_sync_equals_the_single_process_sync(cuda_device):
+    """``ft_grad_sync`` over a one-rank NCCL group on the card (the
+    cross-replica MAX and SUM through NCCL) on the kernel codec equals
+    ``axis_name=None`` bit for bit, healthy and with each block failed;
+    ``checksum_grad_sync`` likewise."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import checksum_grad_sync, ft_grad_sync
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    grads = {"w": torch.randn(2048, 515, generator=gen, device=cuda_device),
+             "b": torch.randn(4097, generator=gen, device=cuda_device) * 1e-3}
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        group = dist.group.WORLD
+        for fb in (None, 0, 1, 2, 3):
+            for fn, kw in ((ft_grad_sync, dict(codec="kernel")),
+                           (checksum_grad_sync, {})):
+                want, _ = fn(grads, axis_name=None, n_replicas=1,
+                             failed_block=fb, **kw)
+                got, _ = fn(grads, axis_name=group, n_replicas=1,
+                            failed_block=fb, **kw)
+                for a, b in zip(leaves(got), leaves(want)):
+                    assert torch.equal(a, b), (fn.__name__, fb)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.requires_cuda
+def test_train_launcher_on_the_card(cuda_device, tmp_path, capsys):
+    """The training launcher's card branch: with no process group it makes
+    a one-rank NCCL group, builds the (1, 1) data x model mesh over
+    ``cuda``, trains two smoke steps under ``axis_rules`` to a finite loss,
+    checkpoints, and ends the group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import main
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    main(["--arch", "llama3.2-1b", "--smoke", "--steps", "2", "--seq", "32",
+          "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert f"device={cuda_device}" in out
+    assert "mesh={'data': 1, 'model': 1}" in out
+    first, last = (float(x) for x in out.split("done: loss ")[1].split(
+        " -> "))
+    assert np.isfinite([first, last]).all()
+    assert CheckpointManager(str(tmp_path)).latest_step() == 2
+    assert not dist.is_initialized()

@@ -10,7 +10,13 @@ loss_recovery, test_prefetcher_order and test_deadline_executor_marks_
 straggler, tests/test_system.py::test_fixed_point_roundtrip_error and
 tests/test_ft_engine.py::test_sdc_detection_guaranteed and
 test_sdc_localization_heuristic.
+
+The module runs on one torch intra-op thread (its ops are small; under
+several test workers more threads only contend), and the outputs it
+compares against more than once — each package's shard-store files, the
+entangled streams of the SDC tests — are built once per module.
 """
+import shutil
 import time
 
 import jax.numpy as jnp
@@ -34,9 +40,30 @@ from repro_torch.tree import leaves
 M = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _streams(seed, n=96, lim=1000):
     rng = np.random.default_rng(seed)
     return rng.integers(-lim, lim, size=(M, n)).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def entangled():
+    """Per seed of :func:`_streams`: (plan, reference plan, the port's
+    entangled streams, the reference's)."""
+    plan, jplan = make_plan(M, 32), jmake_plan(M, 32)
+    out = {}
+    for seed in (0, 1):
+        c = _streams(seed)
+        out[seed] = (plan, jplan, entangle(torch.from_numpy(c), plan),
+                     jentangle(jnp.asarray(c), jplan))
+    return out
 
 
 # ----------------------------------------------------------- shard store --
@@ -59,21 +86,35 @@ def test_token_shard_store_single_loss_recovery(tmp_path):
         store.read_group("g")
 
 
+STORES = {"port": TokenShardStore, "reference": JStore}
+
+
+@pytest.fixture(scope="module")
+def shard_groups(tmp_path_factory):
+    """One group written by each package: (tokens, {package: (directory,
+    shard paths)})."""
+    toks = np.random.default_rng(1).integers(
+        0, 65000, size=(3, 7, 129)).astype(np.int32)
+    groups = {}
+    for name, cls in STORES.items():
+        d = tmp_path_factory.mktemp(f"shards_{name}")
+        groups[name] = (d, cls(str(d), M=4).write_group("c", toks))
+    return toks, groups
+
+
 @pytest.mark.parametrize("writer", ["port", "reference"])
-def test_shard_store_files_interchangeable(tmp_path, writer):
+def test_shard_store_files_interchangeable(tmp_path, writer, shard_groups):
     """A group written by one package reads back in the other, with every
     single shard lost in turn; the files and manifests are the same
     bytes."""
-    toks = np.random.default_rng(1).integers(
-        0, 65000, size=(3, 7, 129)).astype(np.int32)
-    stores = {"port": TokenShardStore, "reference": JStore}
-    w_dir, r_dir = tmp_path / "w", tmp_path / "other"
-    paths = stores[writer](str(w_dir), M=4).write_group("c", toks)
-    other = [k for k in stores if k != writer][0]
-    stores[other](str(r_dir), M=4).write_group("c", toks)
+    toks, groups = shard_groups
+    other = [k for k in STORES if k != writer][0]
+    w_dir, r_dir = tmp_path / "w", groups[other][0]
+    shutil.copytree(groups[writer][0], w_dir)
+    paths = [w_dir / p.name for p in groups[writer][1]]
     for p in list(paths) + [w_dir / "c.json"]:
         assert p.read_bytes() == (r_dir / p.name).read_bytes(), p.name
-    reader = stores[other](str(w_dir), M=4)
+    reader = STORES[other](str(w_dir), M=4)
     np.testing.assert_array_equal(reader.read_group("c"), toks)
     for lost in range(4):
         backup = paths[lost].read_bytes()
@@ -147,11 +188,8 @@ def test_fixed_point_stochastic_rounding_is_unbiased():
 
 # ------------------------------------------------------------------- sdc --
 
-def test_sdc_detection_guaranteed():
-    plan, jplan = make_plan(M, 32), jmake_plan(M, 32)
-    c = _streams(0)
-    delta = entangle(torch.from_numpy(c), plan)
-    jdelta = jentangle(jnp.asarray(c), jplan)
+def test_sdc_detection_guaranteed(entangled):
+    plan, jplan, delta, jdelta = entangled[0]
     assert not sdc.detect(delta, plan).any()
     for j in range(M):
         for mag in (1, 255, 1 << 15):
@@ -164,11 +202,8 @@ def test_sdc_detection_guaranteed():
                 np.asarray(jsdc.detect(jdelta.at[j, 17].add(mag), jplan)))
 
 
-def test_sdc_localization_heuristic():
-    plan, jplan = make_plan(M, 32), jmake_plan(M, 32)
-    c = _streams(1)
-    delta = entangle(torch.from_numpy(c), plan)
-    jdelta = jentangle(jnp.asarray(c), jplan)
+def test_sdc_localization_heuristic(entangled):
+    plan, jplan, delta, jdelta = entangled[1]
     hits = 0
     for j in range(M):
         bad = delta.clone()

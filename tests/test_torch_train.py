@@ -124,10 +124,14 @@ def test_checksum_grad_sync_vs_reference(sync_ref):
 
 
 def test_sync_refuses_what_is_not_ported():
+    """What the sync refuses: a mesh dimension's name with no
+    ``axis_rules`` mesh to find it in, and an unknown codec. (The
+    cross-replica sum over a process group or a mesh dimension is ported:
+    tests/test_torch_dist.py.)"""
     g = {"a": torch.ones(4)}
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="axis_rules"):
         tcoll.ft_grad_sync(g, axis_name="data", n_replicas=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="axis_rules"):
         tcoll.checksum_grad_sync(g, axis_name="data", n_replicas=2)
     with pytest.raises(ValueError, match="codec"):
         tcoll.ft_grad_sync(g, n_replicas=1, codec="xla")
@@ -340,19 +344,20 @@ def test_failstop_step_bit_identical(ref, codec):
 
 
 def test_train_refuses_what_is_not_ported():
-    """What training still refuses: the bf16 norm apply
-    (``norm_f32=False``) and an unknown gradient sync. (Remat, the
+    """What training still refuses: an unknown gradient sync. The bf16
+    norm apply (``norm_f32=False``) trains (a finite loss here; held to
+    the reference in tests/test_torch_perf_variants.py), as do remat, the
     streamed CE, the MTP head and its loss, MLA with a low-rank Q and the
-    MLA / MoE / Mamba / RG-LRU / local-attention blocks train:
-    tests/test_torch_loss.py, test_torch_v3.py, test_torch_train_moe.py,
-    test_torch_train_recurrent.py.)"""
+    MLA / MoE / Mamba / RG-LRU / local-attention blocks
+    (tests/test_torch_loss.py, test_torch_v3.py, test_torch_train_moe.py,
+    test_torch_train_recurrent.py)."""
     cfg = get_smoke_config(ARCH)
     state = init_state(torch.Generator().manual_seed(0), cfg,
                        TrainConfig(max_seq=32), device="cpu")
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="norm"):
-        make_train_step(dataclasses.replace(cfg, norm_f32=False),
-                        TrainConfig())(state, batch)
+    _, metrics = make_train_step(dataclasses.replace(cfg, norm_f32=False),
+                                 TrainConfig())(state, batch)
+    assert torch.isfinite(metrics["loss"])
     with pytest.raises(ValueError, match="grad_sync"):
         make_train_step(cfg, TrainConfig(grad_sync="psum"))
 
