@@ -7,13 +7,15 @@ It drives the port's serving paths and its training paths, each at its
 model's published widths with random weights from a seeded
 ``torch.Generator``: llama3.2-1b (dense decoder, 16 layers) served, served
 by a 4-replica fleet and trained; deepseek-v2-lite-16b (MLA attention, a
-dense first layer and 64-expert top-6 MoE layers; cut to 8 of its 27
-layers, since its float32 masters and int8 copies at all 27 layers do not
-fit one 80 GB card) served, and trained cut to 4 layers; qwen2-7b (28 layers, qkv bias) and
+dense first layer and 64-expert top-6 MoE layers; cut to 4 of its 27
+layers: its float32 masters and int8 copies at all 27 layers do not fit
+one 80 GB card, and 8 layers took the script past its time limit on a
+slow host) served, and trained cut to 2 layers; qwen2-7b (28 layers, qkv
+bias) and
 minitron-8b (32 layers, ungated relu2 MLP) served whole, and granite-20b
 (MQA, ungated gelu MLP) served cut to 20 of its 52 layers (about 20.3 G
 parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20);
-falcon-mamba-7b (Mamba-1) served cut to 32 of its 64 layers and
+falcon-mamba-7b (Mamba-1) served cut to 16 of its 64 layers and
 recurrentgemma-2b (RG-LRU and rolling-window MQA, 26 layers) served
 whole, and trained cut to 2 and 6 layers; internvl2-2b (24 layers
 behind 256 patch embeddings) and whisper-small (12 encoder and 12 decoder
@@ -66,6 +68,30 @@ exits nonzero:
                and without a prefill call, TTFT, tokens/s and the recycle
                zeroing's launches. deepseek: chunked and packed at scope
                all;
+  3a. autotune — right after the two serving paths: the launch
+               parameters of the kernels (``blocks``) swept over every
+               candidate of ``kernels/autotune.py::candidates_for`` at the
+               shapes furthest from their bounds (llama's mlp.down and
+               head, recurrentgemma's MQA k / v and qkv.gate, v3's q_a,
+               deepseek-v2-lite's grouped moe.gate/up at decode
+               occupancy, the entangle and disentangle passes at [4,
+               67,108,864], the conv at the stream and the depthwise
+               shape), every candidate held bit for bit against the plain
+               version, the rule's and the winner's times beside the
+               bound; llama3.2-1b served with ``blocks="auto"`` from an
+               empty user cache over the shipped seed
+               (``kernels/pretuned/cuda_sm90.json``, made by
+               ``chip_autotune_seed.py``): 0 sweeps, EXACT ROLL-FORWARD
+               (autotune) with ``failed_group=1`` on a warm replica,
+               tokens equal to ``blocks=None``'s; ``launch.serve
+               --blocks '{"bb": 1, "splits": 2}'`` on the card, the head
+               GEMM's last launch carrying them; after the train phase,
+               the roofline shares: ``launch/op_cost.py`` on the meta
+               device over one llama decode step at scope all and one
+               train step at the train phase's shape, over the measured
+               step times (``mfu`` against 989 TFLOP/s bf16, the int8
+               share against 1,979 TOP/s, the HBM share against 3.35
+               TB/s);
   3c. fleet — llama3.2-1b on 4 warm replicas (scope all,
                ``failed_group=1`` on every step), 16 requests (prompt
                lengths from ``--seed`` in 5..128, buckets 8..128 under
@@ -89,7 +115,7 @@ exits nonzero:
                entangle / all, healthy and with ``failed_group=1`` (EXACT
                ROLL-FORWARD); decode-step ms against none in the same
                call, s8 launches per decode step, ``max_memory_allocated``;
-  3e. recurrent — falcon-mamba-7b (32 of 64 layers) and
+  3e. recurrent — falcon-mamba-7b (16 of 64 layers) and
                recurrentgemma-2b at published widths, one at a time: the census shapes of
                every admission mode at scope all, the vocab head and the
                model's own quantized head held against the plain version on
@@ -173,8 +199,8 @@ exits nonzero:
                and to the single-process oracle on the card for every
                failed block, and the sync's ms at world size 1 and 4. Then
                the mean step time per gradient sync and a profiler window;
-  4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 4 of 27 layers:
-               the dense first layer and 3 MoE layers), falcon-mamba-7b
+  4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 2 of 27 layers:
+               the dense first layer and one MoE layer), falcon-mamba-7b
                (Mamba-1; 2 of 64) and recurrentgemma-2b (RG-LRU + local
                attention; 6 of 26, two whole units) at published widths,
                one at a time, each as phase 4: ``train_loop`` with block 1
@@ -254,7 +280,9 @@ L2_BYTES = 50 * 2**20
 
 LLAMA = "llama3.2-1b"
 DEEPSEEK = "deepseek-v2-lite-16b"
-DEEPSEEK_LAYERS = 8  # 1 dense + 7 MoE layers at published widths
+# 1 dense + 3 MoE layers at published widths: 8 layers (PR 12-24) took the
+# script past 1200 s on a slow host (PR 24's review round: 1209.3 s)
+DEEPSEEK_LAYERS = 4
 SERVE = dict(max_batch=8, ft_M=4, max_seq=256, requests=8, prompt_len=8,
              max_new=8)
 # the fleet path: llama3.2-1b on 4 replicas of the serving geometry above,
@@ -275,11 +303,11 @@ DECODERS = {"qwen2-7b": None, "minitron-8b": None, "granite-20b": 20}
 # all; for recurrentgemma one LONG request past its 2048-token window,
 # chunked, so that the rolling buffer wraps in prefill and in decode
 RECURRENT = ("falcon-mamba-7b", "recurrentgemma-2b")
-# served depth cuts of the recurrent phase: falcon-mamba at 32 of its 64
-# layers (its eager scan sets the phase's time; the 32 layers saved about
-# 54 s of the script's 1200), to fund the perf-variant and distribution
-# phases
-RECURRENT_LAYERS = {"falcon-mamba-7b": 32}
+# served depth cuts of the recurrent phase: falcon-mamba at 16 of its 64
+# layers (its eager scan sets the phase's time; 64 -> 32 saved about 54 s
+# of the script's 1200 and funded the perf-variant and distribution
+# phases; 32 -> 16 brings a slow host back under the limit)
+RECURRENT_LAYERS = {"falcon-mamba-7b": 16}
 REC_REQUESTS = 12
 REC_MODES = ("chunked", "packed")
 LONG = dict(prompt=2200, max_new=16, max_seq=4096, bucket=2208, chunk=32)
@@ -326,12 +354,14 @@ TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=2,
 # depth to what its training state (float32 params, gradients and two
 # AdamW moments, 16 bytes per param, and the out-of-place update) leaves
 # room for on one 80 GB card: deepseek-v2-lite-16b's dense first layer and
-# 3 MoE layers of 27 (2.255 G params), recurrentgemma-2b 6 of 26, two
+# one MoE layer of 27 (3 MoE layers, 2.255 G params, until a slow host
+# took the script past 1200 s: their 27 GB checkpoint alone took 62.4 s),
+# recurrentgemma-2b 6 of 26, two
 # (rglru, rglru, local_attn) units (1.169 G); falcon-mamba-7b 2 of 64
 # (0.743 G): memory allows 4, but its scan's eager steps (2.9 s a step at
 # 4 layers) took the phase to 392 s on the H100, past its share of the
 # script's time limit
-TRAIN_FAMILIES = {DEEPSEEK: 4, "falcon-mamba-7b": 2, "recurrentgemma-2b": 6}
+TRAIN_FAMILIES = {DEEPSEEK: 2, "falcon-mamba-7b": 2, "recurrentgemma-2b": 6}
 # deepseek-v3-671b at published widths cut to the shallowest depth that
 # keeps its published first_dense_layers=3: 3 dense layers and 1 MoE layer
 # of 61, bf16 masters (float32 masters and scope all's int8 copies would
@@ -4715,6 +4745,363 @@ def phase_timings(dev):
     return rows
 
 
+# --------------------------------------------------------------- autotune --
+
+# the [autotune] phase's calls per printed time (CUDA-graph replay; the
+# codec pass's 1 GB outputs are timed between events instead)
+AUTOTUNE_ITERS = 50
+# the launch parameters the launcher's dict sets on the head GEMM
+LAUNCHER_BLOCKS = {"bb": 1, "splits": 2}
+# the codec passes' swept width: the largest llama gradient leaf's
+AUTOTUNE_CODEC_N = 1 << 26
+
+
+def _sweep(dev, smi, site, op, call, want, sig, flags, bound, graph=True):
+    """One shape of the sweep: every candidate of ``candidates_for`` at the
+    signature ``sig`` (the rule's first) held bit for bit against the plain version's ``want``,
+    then ``tune`` on a fresh cache that reads no seed, and the rule and the
+    winner re-timed in a CUDA graph of AUTOTUNE_ITERS calls
+    (``call(blocks, i)`` rotates weight copies by i) or, ``graph`` False,
+    between events. Returns the row."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels import autotune as at
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cands = at.candidates_for(op, sms=sms, **at.sig_dims(op, sig, flags))
+    for cand in cands:
+        if not torch.equal(call(cand, 0), want):
+            raise AssertionError(f"[autotune] {site}: candidate {cand} "
+                                 f"differs from the plain version")
+    cache = at.AutotuneCache(None, seeds=False)
+    it = itertools.count()
+    won = at.tune(op, sig, "cuda_sm90",
+                  lambda b: (lambda: call(b, next(it))), candidates=cands,
+                  flags=flags, cache=cache)
+
+    def timed(b):
+        if graph:
+            return _graph_ms(lambda i: call(b, i), AUTOTUNE_ITERS)
+        return _event_ms(lambda: call(b, next(it)), 10)
+
+    rule_ms = timed(cands[0])
+    won_ms = rule_ms if won == cands[0] else timed(won)
+    sweep = cache.reports[at.cache_key(op, sig, "cuda_sm90", flags)]
+    log(f"[autotune] {site}: {len(cands)} candidates, each bit-identical to "
+        f"the plain version; rule {cands[0]} {rule_ms:.4f} ms, winner {won} "
+        f"{won_ms:.4f} ms ({rule_ms / won_ms:.2f}x the winner), bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}): rule "
+        f"{rule_ms / bound['bound_ms']:.2f}x, winner "
+        f"{won_ms / bound['bound_ms']:.2f}x; {smi}")
+    return dict(site=site, op=op, candidates=len(cands), rule=cands[0],
+                rule_ms=rule_ms, winner=won, winner_ms=won_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                sweep_ms=[[c, t] for c, t in sweep])
+
+
+def _gemm_bound(M, occupied, Cg, K, N, E=1):
+    """The packed GEMM's bound: bytes (each input once, the output once) at
+    3.35 TB/s against the s8 kernel's 4 limb MACs per int32 MAC of the
+    M-1 computed streams at 1,979 TOP/s, as the [timing] rows."""
+    nbytes = 4 * (M * E * Cg * K + occupied * (K // 4) * N + M * E * Cg * N)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_s8 = 1e3 * 2 * 4 * (M - 1) * occupied * Cg * K * N / INT8_TENSOR_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_s8),
+                bound_by="bytes" if t_bytes >= t_s8 else "operations")
+
+
+def autotune_sweeps(dev, smi):
+    """The shapes furthest from their bounds (PERF.md §6) swept over every
+    launch parameter the kernel takes: the dense GEMM at llama's mlp.down
+    and head, recurrentgemma's MQA k / v (N = 256) and qkv.gate, v3's
+    q_a (seeded operands of its shape), the grouped GEMM at
+    deepseek-v2-lite's decode moe.gate/up at decode occupancy, the
+    entangle and disentangle passes at [4, 67,108,864], and the conv at
+    the stream and the depthwise shape. Decode GEMMs: M = 4, 2 rows per
+    group, packed, fused, failed = 1, weights rotated through copies past
+    the L2."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.quantize import activation_budget
+    from repro_torch.kernels import checksum as kcks  # noqa: F401
+    from repro_torch.kernels import conv1d as kconv
+    from repro_torch.kernels import disentangle as kdis
+    from repro_torch.kernels import entangle as kent
+    from repro_torch.kernels import entangled_matmul as emm
+    from repro_torch.kernels import entangled_matmul_grouped as emmg
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.codec import pack_int8
+    from repro_torch.models.layers import _moe_capacity
+
+    plan = make_plan(SERVE["ft_M"], 32)
+    M, B = plan.M, SERVE["max_batch"] // plan.M
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kw = dict(fuse_epilogue=True, failed=1, packed=True)
+    flags = kops._matmul_flags(plan, True, True)
+    llama, rg = model_config(LLAMA), model_config(RECURRENT[1])
+    v3 = model_config(V3)
+    rows = []
+    for site, (K, N) in (
+            (f"{LLAMA} mlp.down", (llama.d_ff, llama.d_model)),
+            (f"{LLAMA} head", (llama.d_model, llama.vocab_size)),
+            (f"{rg.name} qkv.k/v", (rg.d_model,
+                                    rg.n_kv_heads * rg.resolved_head_dim)),
+            (f"{rg.name} qkv.gate", (rg.d_model, rg.rglru.lru_width)),
+            (f"{V3} qkv.q_a", (v3.d_model, v3.mla.q_lora_rank))):
+        bud = activation_budget(plan, K)
+        c = _rand(gen, -bud, bud + 1, (M, B, K), dev)
+        gs = [pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
+              for _ in range(max(1, -(-2 * L2_BYTES // (K * N))))]
+        want = emm.entangled_matmul_plain(c, gs[0], plan, **kw)
+        rows.append(_sweep(
+            dev, smi, f"{site} decode [{M},{B},{K}] x [{K // 4},{N}]",
+            "entangled_matmul",
+            lambda b, i: kops.entangled_matmul(c, gs[i % len(gs)], plan,
+                                               blocks=b, **kw),
+            want, (M, B, K, N), flags, _gemm_bound(M, 1, B, K, N)))
+        del c, gs, want
+        free_cuda()
+    cfg = model_config(DEEPSEEK)
+    E, F, D = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
+    Cg = -(-_moe_capacity(SERVE["max_batch"], cfg) // M)
+    occ = decode_occupancy(E, cfg.moe.top_k, SERVE["max_batch"], seed=7)
+    bud = activation_budget(plan, D)
+    c = _rand(gen, -bud, bud + 1, (M, E, Cg, D), dev)
+    c[:, ~occ.to(dev)] = 0
+    gs = [_packed_weights(gen, E, D, F, dev)
+          for _ in range(max(1, -(-2 * L2_BYTES // (E * D * F))))]
+    want = emmg.entangled_matmul_grouped_plain(c, gs[0], plan, **kw)
+    rows.append(_sweep(
+        dev, smi, f"{DEEPSEEK} decode moe.gate/up [{M},{E},{Cg},{D}] x "
+        f"[{E},{D // 4},{F}] at decode occupancy ({int(occ.sum())} of {E} "
+        f"experts)", "entangled_matmul_grouped",
+        lambda b, i: kops.entangled_matmul_grouped(c, gs[i % len(gs)], plan,
+                                                   blocks=b, **kw),
+        want, (M, E, Cg, D, F), flags,
+        _gemm_bound(M, int(occ.sum()), Cg, D, F, E=E)))
+    del c, gs, want
+    free_cuda()
+    n = AUTOTUNE_CODEC_N
+    x = _rand(gen, -2**31, 2**31 - 1, (M, n), dev)
+    codec_bound = dict(bound_ms=1e3 * 2 * 4 * M * n / HBM_BYTES_PER_S,
+                       bound_by="bytes")
+    for op, call, plain in (
+            ("entangle", lambda b, i: kops.entangle(x, plan, blocks=b),
+             lambda: kent.entangle_plain(x, plan)),
+            ("disentangle",
+             lambda b, i: kops.disentangle(x, plan, failed=1, blocks=b),
+             lambda: kdis.disentangle_plain(x, plan, 1))):
+        rows.append(_sweep(dev, smi, f"{op} [{M}, {n}]", op, call, plain(),
+                           (M, n), kops._plan_flags(plan), codec_bound,
+                           graph=False))
+        free_cuda()
+    del x
+    free_cuda()
+    inputs = stream_inputs(dev)
+    c, g = inputs[(max(STREAM_MS), 4500)]
+    xs = _padded(c, 4500)[:, None, :].contiguous()  # [B = 8, D = 1, T]
+    w = g[None, :].contiguous()
+    Bd, Dd, Td, Kd = DEPTHWISE
+    xd = _rand(gen, -2**31, 2**31 - 1, (Bd, Dd, Td), dev)
+    wd = _rand(gen, -2**13, 2**13, (Dd, Kd), dev)
+    for site, xx, ww in (
+            (f"conv1d stream [{xs.shape[0]}, 1, {xs.shape[-1]}] x [1, 4500]",
+             xs, w),
+            (f"conv1d depthwise [{Bd}, {Dd}, {Td}] x [{Dd}, {Kd}]", xd, wd)):
+        B_, D_, T_ = xx.shape
+        macs = B_ * D_ * _causal_macs(T_, ww.shape[-1])
+        rows.append(_sweep(
+            dev, smi, site, "conv1d_causal",
+            lambda b, i, xx=xx, ww=ww: kops.conv1d_causal(xx, ww, blocks=b),
+            kconv.conv1d_causal_plain(xx, ww), (B_, D_, T_, ww.shape[-1]), (),
+            conv_bound(dev, macs, 4 * (2 * xx.numel() + ww.numel()),
+                       tap_limbs_needed(ww))))
+    del inputs, c, g, xs, w, xd, wd
+    free_cuda()
+    return rows
+
+
+def autotune_cold_start(dev, kernels, smi):
+    """llama3.2-1b at published widths served with ``blocks="auto"`` at
+    scope all from an empty user cache over the shipped seed
+    (``pretuned/cuda_sm90.json``): the engine must start with 0 sweeps and
+    > 0 hits, serve the wave healthy and with failed_group=1 (on a warm
+    replica, which sweeps nothing) with equal tokens, and give the tokens
+    of the blocks=None engine. Counts are set to 0 before the auto
+    engines' waves and read after. Returns (counts, record)."""
+    import numpy as np
+
+    from repro_torch.kernels import autotune as at
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg, _, params = init_model(dev, LLAMA)
+    base = dict(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+                ft_mode="entangle", ft_M=SERVE["ft_M"], ft_scope="all")
+    eng = ServeEngine(cfg, ServeConfig(**base), params, device=dev)
+    want, _, _ = _wave(eng, cfg, None, kernels)
+    del eng
+    free_cuda()
+    tmp = tempfile.mkdtemp(prefix="autotune-")
+    try:
+        at.reset_cache(str(pathlib.Path(tmp) / "autotune.json"))
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, ServeConfig(blocks="auto", **base), params,
+                          device=dev)
+        startup_s = time.perf_counter() - t0
+        st0 = at.stats()
+        if st0["sweeps"] != 0 or st0["hits"] <= 0:
+            raise AssertionError(f"[autotune] the cold start swept: {st0}")
+        healthy, st_h, _ = _wave(eng, cfg, None, kernels)
+        eng2 = ServeEngine(cfg, ServeConfig(blocks="auto", **base), params,
+                           device=dev, warm=eng.warm_state())
+        injected, _, _ = _wave(eng2, cfg, 1, kernels)
+        counts = {k["name"]: count(k) for k in kernels}
+        st = at.stats()
+        winners = eng.census.get("head_gemm")
+        del eng, eng2
+    finally:
+        at.reset_cache(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = sum(not np.array_equal(healthy[r], injected[r]) for r in healthy)
+    differ = sum(not np.array_equal(healthy[r], want[r]) for r in healthy)
+    verdict = "EXACT ROLL-FORWARD" if bad == 0 else "RECOVERY FAILED"
+    log(f"[autotune] {cfg.name} blocks=auto from the seed, scope all: "
+        f"startup {startup_s:.1f} s with {st0['sweeps']} sweeps and "
+        f"{st0['hits']} hits ({st0['keys']} seeded keys); head-GEMM winners "
+        f"{winners}; recovery summary: failed_group=1 injected on every "
+        f"step (warm replica); {len(healthy)} requests compared; "
+        f"mismatching requests: {bad} ({verdict} (autotune)); tokens equal "
+        f"to blocks=None's: {len(healthy) - differ} of {len(healthy)}; "
+        f"after the waves {st['sweeps']} sweeps, {st['hits']} hits; "
+        f"launches {counts}; {smi}")
+    if bad or differ or st["sweeps"]:
+        raise AssertionError(f"[autotune] cold start: {verdict}, {differ} "
+                             f"requests differ from blocks=None, "
+                             f"{st['sweeps']} sweeps")
+    if counts["entangled_matmul"] <= 0:
+        raise AssertionError("[autotune] the auto engines launched no GEMM")
+    del params
+    free_cuda()
+    return counts, dict(startup_s=startup_s, stats_at_start=st0,
+                        stats_after=st, head_winners=str(winners),
+                        step_ms=1e3 * float(np.mean(st_h[1:])))
+
+
+def autotune_launcher(kernels, smi):
+    """``launch.serve`` on the card (llama3.2-1b at published widths, scope
+    head, 4 requests of 4 new tokens) with ``--blocks`` a JSON dict: the
+    head GEMM's last launch must carry its bb and splits. Counts are set
+    to 0 before and read after. Returns (counts, record)."""
+    from repro_torch.kernels import entangled_matmul as emm
+    from repro_torch.launch import serve as launch_serve
+
+    reset_counts(kernels)
+    emm.last_launch.clear()
+    launch_serve.main(["--arch", LLAMA, "--ft-mode", "entangle",
+                       "--requests", "4", "--max-new", "4",
+                       "--blocks", json.dumps(LAUNCHER_BLOCKS)])
+    counts = {k["name"]: count(k) for k in kernels}
+    got = {k: emm.last_launch.get(k) for k in LAUNCHER_BLOCKS}
+    log(f"[autotune] launch.serve --blocks '{json.dumps(LAUNCHER_BLOCKS)}': "
+        f"the head GEMM's last launch {dict(emm.last_launch)}; launches "
+        f"{counts}; {smi}")
+    if got != LAUNCHER_BLOCKS or counts["entangled_matmul"] <= 0:
+        raise AssertionError(f"[autotune] the launcher's blocks did not "
+                             f"reach the kernel: {got}")
+    free_cuda()
+    return counts, dict(blocks=LAUNCHER_BLOCKS,
+                        last_launch=dict(emm.last_launch))
+
+
+def phase_autotune(dev, kernels, smi):
+    """[autotune]: the sweeps, the cold start from the seed and the
+    launcher's dict (the roofline shares come after the train phase,
+    :func:`roofline_shares`). Returns (counts by path, record)."""
+    t0 = time.perf_counter()
+    rows = autotune_sweeps(dev, smi)
+    cold_counts, cold = autotune_cold_start(dev, kernels, smi)
+    launcher_counts, launcher = autotune_launcher(kernels, smi)
+    secs = time.perf_counter() - t0
+    log(f"[autotune] phase {secs:.1f} s")
+    return ({"autotune": cold_counts, "autotune launcher": launcher_counts},
+            dict(sweeps=rows, cold_start=cold, launcher=launcher,
+                 seconds=secs))
+
+
+def roofline_shares(dev, smi, decode_ms, train_ms):
+    """``op_cost`` on the meta device over one llama3.2-1b decode step at
+    scope all (8 slots, the engine's packed int8 copies, the head through
+    ``ft_logits_decode``) and one train step at the train phase's shape
+    (entangled sync on the kernel codec), each divided by the step time the
+    serve and train phases measured: the bf16 share (``mfu``, against
+    989 TFLOP/s), the int8 share of the kernels' integer operations
+    (1,979 TOP/s) and the HBM share of the bytes (op_cost's unfused
+    upper bound, 3.35 TB/s)."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft import FTContext, PlanRegistry, prepare_params
+    from repro_torch.ft.heads import ft_logits_decode, quantize_head
+    from repro_torch.kernels.codec import pack_int8
+    from repro_torch.launch import input_specs as isp
+    from repro_torch.launch import op_cost
+    from repro_torch.launch.roofline import HBM_BW, PEAK_BF16, PEAK_INT8
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.train.train_step import make_train_step
+
+    meta = isp.META
+    cfg = model_config(LLAMA)
+    model = get_model(cfg)
+    B, S = SERVE["max_batch"], SERVE["max_seq"]
+    plan = make_plan(SERVE["ft_M"], 32)
+    p = isp.params_specs(cfg, S)
+    ftp = prepare_params(p, scope="all")
+    head_q, w_scale = quantize_head(model.head_weights(p, cfg))
+    head_q = pack_int8(head_q, axis=0)
+    ftx = FTContext(registry=PlanRegistry(plan), scope="all")
+    cache = model.init_cache(cfg, B, S, device=meta)
+    tok = torch.zeros((B, 1), dtype=torch.int64, device=meta)
+    pos = torch.zeros((B,), dtype=torch.int64, device=meta)
+
+    def decode():
+        h, _ = model.decode_hidden(ftp, tok, cache, pos, cfg, ft=ftx)
+        return ft_logits_decode(h.float(), head_q, w_scale,
+                                plan=plan).argmax(-1)
+
+    _, dc = op_cost.count(decode)
+    tcfg_cfg, tcfg, dcfg = _train_configs(LLAMA)
+    tp = isp.params_specs(tcfg_cfg, TRAIN["seq"])
+    state = {"params": tp, "opt": adamw_mod.init(tp, tcfg.adamw),
+             "step": torch.zeros((), dtype=torch.int32, device=meta)}
+    batch = {k: torch.zeros((TRAIN["batch"], TRAIN["seq"]), dtype=dt,
+                            device=meta)
+             for k, dt in (("tokens", torch.int64),
+                           ("loss_mask", torch.int32))}
+    _, tc = op_cost.count(make_train_step(tcfg_cfg, tcfg), state, batch)
+    out = {}
+    for name, cost, ms in (("decode", dc, decode_ms), ("train", tc,
+                                                        train_ms)):
+        s = ms / 1e3
+        moved = cost.bytes + cost.kernel_bytes
+        out[name] = dict(step_ms=ms, flops=cost.flops, int_ops=cost.int_ops,
+                         bytes=moved, mfu=cost.flops / (s * PEAK_BF16),
+                         int8_share=cost.int_ops / (s * PEAK_INT8),
+                         hbm_share=moved / (s * HBM_BW))
+        log(f"[autotune] roofline, one {cfg.name} {name} step "
+            f"({'scope all, 8 slots' if name == 'decode' else 'batch 4 x seq 512, entangle/kernel'}): "
+            f"op_cost {cost.flops / 1e9:.3f} GFLOP bf16/float, "
+            f"{cost.int_ops / 1e9:.3f} G kernel int ops, {moved / 1e9:.3f} GB "
+            f"(unfused bound) over the measured {ms:.3f} ms: mfu "
+            f"{out[name]['mfu']:.5f}, int8 share {out[name]['int8_share']:.5f}, "
+            f"HBM share {out[name]['hbm_share']:.5f}; {smi}")
+    return out
+
+
 # ------------------------------------------------------------------- main --
 
 def run_path(dev, kernels, arch, path_kernels, scopes, admission, smi,
@@ -4832,24 +5219,41 @@ def main() -> int:
     smi = nvidia_smi()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+    last = [t_all]
+
+    def lap(name):
+        # each path's share of the script's time limit, for depth cuts
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - last[0]:.1f} s (at {now - t_all:.1f} s)")
+        last[0] = now
+
     phase_build(kernels)
-    paths = {
-        LLAMA: run_path(dev, kernels, LLAMA, ["entangled_matmul"],
-                        ("head", "all"),
-                        (tuple(ADMIT_MODES), ("head", "all"), True), smi,
-                        args.seed),
-        DEEPSEEK: run_path(dev, kernels, DEEPSEEK,
-                           ["entangled_matmul", "entangled_matmul_grouped"],
-                           ("moe", "all"), (("chunked", "packed"), ("all",),
-                                            False), smi, args.seed),
-    }
+    lap("build")
+    paths = {LLAMA: run_path(dev, kernels, LLAMA, ["entangled_matmul"],
+                             ("head", "all"),
+                             (tuple(ADMIT_MODES), ("head", "all"), True),
+                             smi, args.seed)}
+    lap(LLAMA)
+    paths[DEEPSEEK] = run_path(
+        dev, kernels, DEEPSEEK, ["entangled_matmul",
+                                 "entangled_matmul_grouped"],
+        ("moe", "all"), (("chunked", "packed"), ("all",), False), smi,
+        args.seed)
+    lap(DEEPSEEK)
+    autotune_counts, autotune = phase_autotune(dev, kernels, smi)
+    lap("autotune")
     fleet_counts, fleet = phase_fleet(dev, kernels, smi, args.seed,
                                       paths[LLAMA]["dense"])
+    lap("fleet")
     decoder_counts, decoders = phase_decoders(dev, kernels, smi)
+    lap("dense-decoders")
     recurrent_counts, recurrent = phase_recurrent(dev, kernels, smi,
                                                   args.seed)
+    lap("recurrent")
     family_counts, families, family_rows = phase_families(dev, kernels, smi)
+    lap("families")
     v3_counts, serve_v3 = phase_serve_v3(dev, kernels, smi)
+    lap("serve-v3")
     grad_shapes = llama_grad_shapes(dev)
     check_codec(dev, {n: by_name[n]["checker"]
                       for n in ("entangle", "disentangle")}, grad_shapes)
@@ -4858,16 +5262,26 @@ def main() -> int:
     train_rollforward(dev, state)
     train["remat"] = train_remat_checks(dev, state["params"], smi)
     train["variants"] = train_variants(dev, state, smi)
+    lap("train")
     dist_counts, dist_rec = phase_dist(dev, kernels, state, smi)
+    lap("dist")
     held = [state]
     del state
     train["timings"] = train_timings(dev, held)
     free_cuda()
+    autotune["roofline"] = roofline_shares(
+        dev, smi, paths[LLAMA]["results"]["all"]["step_ms"],
+        train["timings"]["entangle/kernel"])
+    lap("train timings, roofline")
     tf_counts, train_families = phase_train_families(dev, kernels)
+    lap("train-families")
     stream = run_stream_conv(dev, kernels)
+    lap("stream-conv")
     lib_counts, library = phase_library(dev, kernels, smi)
+    lap("library")
     rows = phase_timings(dev)
     rows.update(codec_timings(dev))
+    lap("timings")
     rows.update(stream.pop("rows"))
     rows["entangled_matmul"] += family_rows
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
@@ -4900,6 +5314,7 @@ def main() -> int:
         by_path[f"{V3} absorb"] = serve_v3["absorb"]["counts"][name]
         by_path.update({a: c[name] for a, c in dist_counts.items()})
         by_path["library"] = lib_counts[name]
+        by_path.update({a: c[name] for a, c in autotune_counts.items()})
         if name in ("entangled_conv1d", "conv1d_causal"):
             # the stream shape's row; route=None takes s8 there
             head = rows[name][0]
@@ -4986,6 +5401,7 @@ def main() -> int:
     record["serve_v3"] = serve_v3
     record["dist"] = dist_rec
     record["library"] = library
+    record["autotune"] = autotune
     print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,13 +8,15 @@ from repro_torch.ft.protected import (SCOPES, FTContext, ProtectedLinear,
 from repro_torch.ft.quantize import (activation_budget, chain_budget,
                                      quantize_acts, quantize_weight,
                                      quantize_weight_stacked)
-from repro_torch.ft.registry import (PlanRegistry, ProtectionPlan,
+from repro_torch.ft.registry import (PlanEntry, PlanRegistry,
+                                     ProtectionPlan, default_blocks,
                                      group_rows)
 
 __all__ = [
-    "CompiledPlans", "FTContext", "PROTECTED_WEIGHT_KEYS", "PlanRegistry",
-    "ProtectedLinear", "ProtectionPlan", "SCOPES", "activation_budget",
-    "chain_budget", "compile_plans", "entangled_chain", "group_order",
+    "CompiledPlans", "FTContext", "PROTECTED_WEIGHT_KEYS", "PlanEntry",
+    "PlanRegistry", "ProtectedLinear", "ProtectionPlan", "SCOPES",
+    "activation_budget", "chain_budget", "compile_plans", "default_blocks",
+    "entangled_chain", "group_order",
     "group_rows", "prepare_params", "protected_matmul",
     "protected_matmul_grouped", "quantize_acts", "quantize_weight",
     "quantize_weight_stacked",

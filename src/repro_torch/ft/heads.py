@@ -25,38 +25,45 @@ from repro_torch.ft.quantize import quantize_weight as quantize_head  # noqa: F4
 def ft_logits(h: torch.Tensor, head_q: torch.Tensor, w_scale: torch.Tensor,
               *, M: int = 4, plan: Optional[EntanglePlan] = None,
               failed_group: Optional[int] = None,
-              fuse_epilogue: bool = True) -> torch.Tensor:
+              fuse_epilogue: bool = True, blocks=None,
+              backend: Optional[str] = None) -> torch.Tensor:
     """Library form: the rows of ``h`` [B, D] grouped contiguously (the
     caller's [M, B/M] layout); ``plan`` defaults to ``make_plan(M, 32)``.
-    Returns float32 logits [B, V]."""
+    ``blocks`` and ``backend`` go to the kernel call. Returns float32
+    logits [B, V]."""
     B = h.shape[0]
     if B % M:
         raise ValueError(f"batch {B} must split into M={M} request groups")
     return protected_matmul(h, (head_q, w_scale),
                             plan=plan or make_plan(M, 32),
                             failed_group=failed_group,
-                            fuse_epilogue=fuse_epilogue, contiguous=True)
+                            fuse_epilogue=fuse_epilogue, contiguous=True,
+                            blocks=blocks, backend=backend)
 
 
 def ft_logits_decode(h: torch.Tensor, head_q: torch.Tensor,
                      w_scale: torch.Tensor, *, plan: EntanglePlan,
                      failed_group: Optional[int] = None,
-                     fuse_epilogue: bool = True) -> torch.Tensor:
+                     fuse_epilogue: bool = True, blocks=None,
+                     backend: Optional[str] = None) -> torch.Tensor:
     """The engine's per-step entry: one fused entangled head GEMM over the
     whole slot batch ``h`` [B, D]; returns float32 logits [B, V]."""
     return protected_matmul(h, (head_q, w_scale), plan=plan,
                             failed_group=failed_group,
-                            fuse_epilogue=fuse_epilogue)
+                            fuse_epilogue=fuse_epilogue, blocks=blocks,
+                            backend=backend)
 
 
 def ft_logits_prefill(h: torch.Tensor, head_q: torch.Tensor,
                       w_scale: torch.Tensor, *, plan: EntanglePlan,
                       failed_group: Optional[int] = None,
-                      fuse_epilogue: bool = True) -> torch.Tensor:
+                      fuse_epilogue: bool = True, blocks=None,
+                      backend: Optional[str] = None) -> torch.Tensor:
     """Admission-time entry: the last-prompt hidden states [n, D] of a
     bucketed batched prefill through the SAME fused kernel and plan as
     decode (rows padded to a multiple of M with zero rows, which is
     exact)."""
     return protected_matmul(h, (head_q, w_scale), plan=plan,
                             failed_group=failed_group,
-                            fuse_epilogue=fuse_epilogue)
+                            fuse_epilogue=fuse_epilogue, blocks=blocks,
+                            backend=backend)

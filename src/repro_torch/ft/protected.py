@@ -136,6 +136,8 @@ def protected_matmul(
     failed_group: Optional[int] = None,
     fuse_epilogue: bool = True,
     contiguous: bool = False,
+    blocks=None,
+    backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Entangled int8 GEMM with in-kernel fail-stop roll-forward.
 
@@ -145,6 +147,8 @@ def protected_matmul(
     unfused path: the kernel returns raw entangled accumulators, the failed
     group's are overwritten with GARBAGE, and a separate disentangle
     recovers them (the reference the fused path is held against).
+    ``blocks`` and ``backend`` go to the kernel call
+    (:mod:`repro_torch.kernels.ops`).
     """
     wq, w_scale = _split_weight(w)
     lead, K = tuple(x.shape[:-1]), x.shape[-1]
@@ -152,9 +156,11 @@ def protected_matmul(
     xg, a_scale, inv, _ = _grouped_acts(x, plan, contiguous)
     if fuse_epilogue:
         rec = kops.entangled_matmul(xg, wq, plan, fuse_epilogue=True,
-                                    failed=failed_group, packed=packed)
+                                    failed=failed_group, packed=packed,
+                                    blocks=blocks, backend=backend)
     else:
-        delta = kops.entangled_matmul(xg, wq, plan, packed=packed)
+        delta = kops.entangled_matmul(xg, wq, plan, packed=packed,
+                                      blocks=blocks, backend=backend)
         if failed_group is not None:
             delta = delta.clone()
             delta[failed_group] = GARBAGE
@@ -169,6 +175,8 @@ def protected_matmul_grouped(
     plan: EntanglePlan,
     failed_group: Optional[int] = None,
     fuse_epilogue: bool = True,
+    blocks=None,
+    backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Grouped (per-expert) entangled int8 GEMM — the MoE form.
 
@@ -179,8 +187,8 @@ def protected_matmul_grouped(
     excludes that stream's accumulators from the extraction, so every
     expert's outputs roll forward at once. A float ``w`` is quantized per
     expert. ``fuse_epilogue=False`` is the unfused path, as in
-    :func:`protected_matmul`. Returns dequantized float32 ``[..., E, C,
-    N]``.
+    :func:`protected_matmul`, and so are ``blocks`` and ``backend``.
+    Returns dequantized float32 ``[..., E, C, N]``.
     """
     if isinstance(w, tuple):
         wq, w_scale = w
@@ -210,9 +218,10 @@ def protected_matmul_grouped(
     if fuse_epilogue:
         rec = kops.entangled_matmul_grouped(
             xg, wq, plan, fuse_epilogue=True, failed=failed_group,
-            packed=packed)
+            packed=packed, blocks=blocks, backend=backend)
     else:
-        delta = kops.entangled_matmul_grouped(xg, wq, plan, packed=packed)
+        delta = kops.entangled_matmul_grouped(xg, wq, plan, packed=packed,
+                                              blocks=blocks, backend=backend)
         if failed_group is not None:
             delta = delta.clone()
             delta[failed_group] = GARBAGE
@@ -232,6 +241,8 @@ def entangled_chain(
     plan: EntanglePlan,
     failed_group: Optional[int] = None,
     contiguous: bool = False,
+    blocks=None,
+    backend: Optional[str] = None,
 ) -> torch.Tensor:
     """N consecutive strictly-linear protected GEMMs that never leave the
     entangled domain: one entangle, N GEMMs, one extraction.
@@ -250,10 +261,15 @@ def entangled_chain(
     chain_budget`'s grid. When that budget is 0 (infeasible under this
     plan), or for a single hop, each hop runs as its own
     :func:`protected_matmul` (one extraction per hop, requantizing
-    between hops). Returns dequantized float32 outputs ``[..., N_last]``.
+    between hops). ``blocks`` is None or one blocks policy per hop, and
+    ``backend`` names the kernel backend. Returns dequantized float32
+    outputs ``[..., N_last]``.
     """
     if not ws:
         raise ValueError("entangled_chain needs at least one hop")
+    bl = list(blocks) if blocks is not None else [None] * len(ws)
+    if len(bl) != len(ws):
+        raise ValueError(f"{len(bl)} blocks policies for {len(ws)} hops")
     split = [_split_weight(w) for w in ws]
     lead, K = tuple(x.shape[:-1]), x.shape[-1]
     # a packed hop's true N is its column count (packing runs along K)
@@ -261,9 +277,10 @@ def entangled_chain(
     budget = chain_budget(plan, depths)
     if budget < 1 or len(ws) == 1:
         y = x
-        for w in ws:
+        for w, b in zip(ws, bl):
             y = protected_matmul(y, w, plan=plan, failed_group=failed_group,
-                                 contiguous=contiguous)
+                                 contiguous=contiguous, blocks=b,
+                                 backend=backend)
         return y
     cur, a_scale, inv, _ = _grouped_acts(x, plan, contiguous, budget=budget)
     depth = K
@@ -272,7 +289,8 @@ def entangled_chain(
                 "chain_final" if i == len(split) - 1 else "chain")
         cur = kops.entangled_matmul(cur, wq, plan, fuse_epilogue=mode,
                                     failed=failed_group,
-                                    packed=_is_packed(wq, depth))
+                                    packed=_is_packed(wq, depth),
+                                    blocks=bl[i], backend=backend)
         depth = wq.shape[1]
     w_prod = 1.0
     for _, w_scale in split:
@@ -283,9 +301,10 @@ def entangled_chain(
 @dataclasses.dataclass(frozen=True)
 class ProtectedLinear:
     """Thin executor over ONE :class:`ProtectionPlan`: the plan (site,
-    shape, entanglement parameters, grouped-ness) is fixed at
-    construction, and a call runs :func:`protected_matmul` (or
-    :func:`protected_matmul_grouped` for a grouped site) with it."""
+    shape, entanglement parameters, backend, launch parameters,
+    grouped-ness) is fixed at construction, and a call runs
+    :func:`protected_matmul` (or :func:`protected_matmul_grouped` for a
+    grouped site) with it."""
 
     plan: ProtectionPlan
 
@@ -294,10 +313,12 @@ class ProtectedLinear:
                  contiguous: bool = False) -> torch.Tensor:
         p = self.plan
         if p.grouped:
-            return protected_matmul_grouped(x, w, plan=p.plan,
-                                            failed_group=failed_group)
+            return protected_matmul_grouped(
+                x, w, plan=p.plan, failed_group=failed_group,
+                blocks=p.blocks, backend=p.backend)
         return protected_matmul(x, w, plan=p.plan, failed_group=failed_group,
-                                contiguous=contiguous)
+                                contiguous=contiguous, blocks=p.blocks,
+                                backend=p.backend)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -378,7 +399,8 @@ class FTContext:
             wq, w_scale = _split_weight(w)
             rec = kops.entangled_matmul(
                 xg, wq, p.plan, fuse_epilogue=True, failed=self.failed_group,
-                packed=_is_packed(wq, K))
+                packed=_is_packed(wq, K), blocks=p.blocks,
+                backend=p.backend)
             outs.append(_dequant(rec, inv, rows, a_scale, w_scale,
                                  tuple(x.shape[:-1])))
         return outs

@@ -10,9 +10,23 @@ census-only forward pass populates it, and
 A plain site's shape is ``(M, Bg, K, N)``: ``Bg`` rows per stream (the
 flattened row count padded to a multiple of M, divided by M). A grouped
 (MoE per-expert) site's shape is ``(M, E, Bg, K, N)`` with ``grouped=True``;
-``Bg`` then counts per-expert rows per stream. The reference also
-keys plans by kernel backend and carries TPU block sizes; the port's only
-kernel picks its own tiling from the shape, so neither exists here.
+``Bg`` then counts per-expert rows per stream.
+
+Each plan carries the kernel ``backend`` its calls name (None: the
+device rule of :func:`repro_torch.kernels.ops.resolve_backend`) and its
+``blocks``, the registry's policy:
+
+  * policy ``None`` — None: the launcher's rule, which picks the tiles for
+    the kernel the call reaches (packed weights: the s8 kernel; float or
+    unpacked weights: the CUDA-core kernel) and the card's SM count.
+    :func:`default_blocks` reports what that rule picks for the engine's
+    packed, fused calls; the reference's plans carry its block sizes
+    because its Pallas wrapper's defaults do not fit a decode batch;
+  * policy ``"auto"`` — :mod:`repro_torch.kernels.autotune`; the engine's
+    ``warm_autotune`` sweeps every registered shape at startup, so each
+    call is a cache hit;
+  * a dict — that dict, for every site (the engine gives its layer sites
+    the ``None`` policy: a user's dict targets the head's shape).
 """
 from __future__ import annotations
 
@@ -27,6 +41,20 @@ def group_rows(rows: int, M: int) -> int:
     return -(-rows // M)
 
 
+def default_blocks(Bg: int, K: int, N: int, *, M: int = 4,
+                   sms: Optional[int] = None) -> dict:
+    """The rule's launch tiles, ``{"bb", "splits"}``, of one (Bg, K, N)
+    protected GEMM as the engine runs it (packed weights, the fused
+    extraction: the s8 kernel over M - 1 computed streams) on a card of
+    ``sms`` SMs (default: an H100's). For reporting: a plan under the
+    ``None`` policy passes None, and the launcher applies this rule
+    itself."""
+    from repro_torch.kernels import entangled_matmul as emm
+
+    return emm.rule_blocks("s8", M, 1, Bg, K, N, True,
+                           sms or emm.SMS_H100)
+
+
 @dataclasses.dataclass(frozen=True)
 class ProtectionPlan:
     """Immutable protection parameters of one GEMM site at one call shape."""
@@ -35,13 +63,23 @@ class ProtectionPlan:
     shape: tuple  # (M, Bg, K, N), or (M, E, Bg, K, N) when grouped
     plan: EntanglePlan
     grouped: bool = False
+    backend: Optional[str] = None  # None: the device rule
+    blocks: object = None  # None | dict | "auto", passed to kernels.ops
+
+
+# the reference's older name of the same record
+PlanEntry = ProtectionPlan
 
 
 class PlanRegistry:
-    """(site, shape) -> :class:`ProtectionPlan` map."""
+    """(site, shape) -> :class:`ProtectionPlan` map; ``blocks`` is the
+    policy its plans carry, ``backend`` the kernel backend they name."""
 
-    def __init__(self, plan: EntanglePlan):
+    def __init__(self, plan: EntanglePlan, *, blocks: object = None,
+                 backend: Optional[str] = None):
         self.plan = plan
+        self.blocks_policy = blocks
+        self.backend = backend
         self._entries: dict[tuple, ProtectionPlan] = {}
         # fanout site groups noted by the census: sites consuming the same
         # activations, which share one quantize/permute pass
@@ -63,7 +101,9 @@ class PlanRegistry:
         e = self._entries.get((site, shape))
         if e is None:
             e = ProtectionPlan(site=site, shape=shape, plan=self.plan,
-                               grouped=groups is not None)
+                               grouped=groups is not None,
+                               backend=self.backend,
+                               blocks=self.blocks_policy)
             self._entries[(site, shape)] = e
         return e
 
@@ -79,5 +119,6 @@ class PlanRegistry:
         return list(self._entries.values())
 
     def census(self) -> dict:
-        """{(site, shape): plan} over every registered entry."""
+        """{(site, shape): plan} over every registered entry (what
+        ``warm_autotune`` iterates; grouped sites carry 5-tuple shapes)."""
         return {(e.site, e.shape): e for e in self._entries.values()}

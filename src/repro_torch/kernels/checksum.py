@@ -38,9 +38,10 @@ def checksum_plain(c: torch.Tensor) -> torch.Tensor:
     return torch.sum(c.to(torch.int32), dim=0, dtype=torch.int32)
 
 
-def checksum_cuda(c: torch.Tensor) -> torch.Tensor:
+def checksum_cuda(c: torch.Tensor, *, blocks=None) -> torch.Tensor:
     """Launch the CUDA kernel on ``c [M, N]`` int32, contiguous on a CUDA
-    device, any M >= 1. Returns ``[N]`` int32 on
+    device, any M >= 1 (``blocks``: see :func:`.entangle.grid`). Returns
+    ``[N]`` int32 on
     ``torch.cuda.current_stream()``; raises on any input the kernel does
     not take and on a failed launch."""
     global launches
@@ -59,7 +60,7 @@ def checksum_cuda(c: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(c.device).cuda_stream
         rc = lib.codec_checksum_launch(c.data_ptr(), out.data_ptr(),
                                        c.shape[0], c.shape[1],
-                                       _ent.grid(c, lib), stream)
+                                       _ent.grid(c, lib, blocks), stream)
     _ent.raise_on(rc, lib, "checksum")
     launches += 1
     return out

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import Optional
 
 import torch
 
@@ -106,6 +107,17 @@ def resolve_route(route, kf: int, T: int, entangled: bool = False) -> str:
         raise ValueError(f"route must be None or one of {ROUTES}, got "
                          f"{route!r}")
     return route
+
+
+def blocks_route(blocks) -> Optional[str]:
+    """The route a ``blocks`` dict ({"route": ...}) sets, or None (the
+    rule) when ``blocks`` is None or lacks it; raises on any other key."""
+    if not blocks:
+        return None
+    if set(blocks) - {"route"}:
+        raise ValueError(f"the convs take blocks keys ('route',), got "
+                         f"{sorted(set(blocks) - {'route'})}")
+    return blocks.get("route")
 
 
 def build(verbose: bool = False) -> tuple:

@@ -47,9 +47,10 @@ def disentangle_plain(delta: torch.Tensor, plan: EntanglePlan,
 
 
 def disentangle_cuda(delta: torch.Tensor, plan: EntanglePlan,
-                     r: int = 0) -> torch.Tensor:
+                     r: int = 0, *, blocks=None) -> torch.Tensor:
     """Launch the CUDA kernel on ``delta [M, N]`` int32, contiguous on a
-    CUDA device; row ``r`` (taken mod M) is never read. Returns ``[M, N]``
+    CUDA device; row ``r`` (taken mod M) is never read (``blocks``: see
+    :func:`.entangle.grid`). Returns ``[M, N]``
     int32 on ``torch.cuda.current_stream()``; raises on any input the
     kernel does not take and on a failed launch."""
     global launches
@@ -61,7 +62,7 @@ def disentangle_cuda(delta: torch.Tensor, plan: EntanglePlan,
         rc = lib.codec_disentangle_launch(
             delta.data_ptr(), out.data_ptr(), plan.M, delta.shape[1], plan.l,
             int(r) % plan.M, int(plan.temp == "dualword"),
-            _ent.grid(delta, lib), stream)
+            _ent.grid(delta, lib, blocks), stream)
     _ent.raise_on(rc, lib, "disentangle")
     launches += 1
     return out

@@ -38,8 +38,13 @@ SRC = pathlib.Path(__file__).resolve().parent / "csrc" / "codec_pass.cu"
 launches = 0
 
 # blocks per SM of the grid-stride launch: enough resident warps to keep
-# the loads of every SM in flight
+# the loads of every SM in flight (the rule; a ``blocks`` dict's
+# "blocks_per_sm" sets it per call)
 BLOCKS_PER_SM = 8
+CODEC_KEYS = ("blocks_per_sm",)
+
+# blocks_per_sm and grid of the last launch of any of the three passes
+last_launch: dict = {}
 
 
 def build(verbose: bool = False) -> tuple:
@@ -83,11 +88,32 @@ def check_streams(x: torch.Tensor, plan: EntanglePlan) -> None:
         raise ValueError(f"the kernel takes 3 <= M <= 8, got M={plan.M}")
 
 
-def grid(x: torch.Tensor, lib) -> int:
-    """Blocks of the grid-stride launch over the N columns of ``x``."""
+def blocks_per_sm(blocks) -> int:
+    """The blocks per SM that ``blocks`` (None or {"blocks_per_sm": n})
+    sets; raises on any other key or on n < 1."""
+    if not blocks:
+        return BLOCKS_PER_SM
+    unknown = set(blocks) - set(CODEC_KEYS)
+    if unknown:
+        raise ValueError(f"the codec passes take blocks keys {CODEC_KEYS}, "
+                         f"got {sorted(unknown)}")
+    n = blocks.get("blocks_per_sm", BLOCKS_PER_SM)
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"blocks_per_sm must be an int >= 1, got {n!r}")
+    return n
+
+
+def grid(x: torch.Tensor, lib, blocks=None) -> int:
+    """Blocks of the grid-stride launch over the N columns of ``x``: one
+    per column of threads, at most ``blocks_per_sm`` (the rule's
+    :data:`BLOCKS_PER_SM` unless ``blocks`` sets it) per SM. Records the
+    launch in :data:`last_launch`."""
+    global last_launch
+    bps = blocks_per_sm(blocks) if blocks else BLOCKS_PER_SM
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return max(1, min(-(-x.shape[1] // lib.codec_threads()),
-                      BLOCKS_PER_SM * sms))
+    n = max(1, min(-(-x.shape[1] // lib.codec_threads()), bps * sms))
+    last_launch = {"blocks_per_sm": bps, "grid": n}
+    return n
 
 
 def raise_on(rc: int, lib, what: str) -> None:
@@ -105,10 +131,12 @@ def entangle_plain(c: torch.Tensor, plan: EntanglePlan) -> torch.Tensor:
     return entangle_block(c, plan.l)
 
 
-def entangle_cuda(c: torch.Tensor, plan: EntanglePlan) -> torch.Tensor:
+def entangle_cuda(c: torch.Tensor, plan: EntanglePlan, *,
+                  blocks=None) -> torch.Tensor:
     """Launch the CUDA kernel on ``c [M, N]`` int32, contiguous on a CUDA
-    device. Returns ``[M, N]`` int32 on ``torch.cuda.current_stream()``;
-    raises on any input the kernel does not take and on a failed launch."""
+    device (``blocks``: see :func:`grid`). Returns ``[M, N]`` int32 on
+    ``torch.cuda.current_stream()``; raises on any input the kernel does
+    not take and on a failed launch."""
     global launches
     check_streams(c, plan)
     lib = load()
@@ -116,8 +144,8 @@ def entangle_cuda(c: torch.Tensor, plan: EntanglePlan) -> torch.Tensor:
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream(c.device).cuda_stream
         rc = lib.codec_entangle_launch(c.data_ptr(), out.data_ptr(), plan.M,
-                                       c.shape[1], plan.l, grid(c, lib),
-                                       stream)
+                                       c.shape[1], plan.l,
+                                       grid(c, lib, blocks), stream)
     raise_on(rc, lib, "entangle")
     launches += 1
     return out

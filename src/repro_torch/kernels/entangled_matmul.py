@@ -76,6 +76,21 @@ launches_cuda_core = 0
 # so no limb's partial sum leaves s32; deeper K is cut into such slices
 S8_MAX_K = 65536
 
+# the kernels' tile geometry (csrc/entangled_matmul_s8.cu: BN = WARPS *
+# WARP_N, BK = 4 * BKQ, MAX_PAIRS, MAX_CROWS; csrc/entangled_matmul.cu: BN
+# = THREADS * TN, BK), checked against the built library at each launch
+S8_BLOCK_N, S8_BLOCK_K = 256, 64
+S8_MAX_PAIRS, S8_MAX_CROWS = 16, 24
+CORE_BLOCK_N, CORE_BLOCK_K = 256, 32
+# the launch parameters a ``blocks`` dict may set: rows per block, K splits
+GEMM_KEYS = ("bb", "splits")
+# the SM count the rule's split assumes where no card is at hand (candidate
+# lists on the CPU): an H100 SXM's
+SMS_H100 = 132
+
+# route, bb, splits and k_chunk of the last launch of either kernel
+last_launch: dict = {}
+
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _SRC = _CSRC / "entangled_matmul.cu"
 _SRC_S8 = _CSRC / "entangled_matmul_s8.cu"
@@ -252,6 +267,92 @@ def _split_k(n_tiles: int, K: int, block_k: int, sms: int,
     return -(-K // k_chunk), k_chunk
 
 
+def geometry(route: str) -> tuple:
+    """(block_n, block_k) of the ``route`` kernel: columns per block and
+    contraction depth per staged tile (the sources' BN and BK)."""
+    if route == "s8":
+        return S8_BLOCK_N, S8_BLOCK_K
+    if route == "cuda_core":
+        return CORE_BLOCK_N, CORE_BLOCK_K
+    raise ValueError(f"unknown route {route!r}")
+
+
+def max_rows_per_block(route: str, M: int, extract: bool) -> int:
+    """The most rows per block the ``route`` kernel takes at M streams:
+    the s8 kernel holds ns * bb <= MAX_PAIRS (stream, row) pairs and
+    M * bb <= MAX_CROWS rows of c (ns = M - extract computed streams);
+    the CUDA-core kernel has instances for bb in 1, 2, 4 and 8 (8 only
+    for M <= 4)."""
+    if route == "s8":
+        return min(S8_MAX_PAIRS // (M - int(extract)), S8_MAX_CROWS // M)
+    return 8 if M <= 4 else 4
+
+
+def rule_blocks(route: str, M: int, E: int, Cg: int, K: int, N: int,
+                extract: bool, sms: int = SMS_H100) -> dict:
+    """The launch parameters the launcher picks by rule, ``{"bb": rows per
+    block, "splits": K splits}``, on a card of ``sms`` SMs."""
+    block_n, block_k = geometry(route)
+    if route == "s8":
+        bb = _s8_rows_per_block(Cg, M - int(extract))
+    else:
+        bb = _rows_per_block(Cg, M)
+    n_tiles = -(-N // block_n) * E * -(-Cg // bb)
+    splits, _ = _split_k(n_tiles, K, block_k, sms,
+                         S8_MAX_K if route == "s8" else 0)
+    return {"bb": bb, "splits": splits}
+
+
+def check_blocks(route: str, M: int, E: int, Cg: int, K: int,
+                 blocks: dict, extract: bool) -> int:
+    """Raise, with the kernel's own reason, unless the ``route`` kernel
+    takes ``blocks`` ({"bb", "splits"}) at this shape; returns the depth
+    of one split (k_chunk). A split count is taken only as it is: K is
+    cut into ``splits`` slices of ceil(k_tiles / splits) tiles, and a
+    count that this leaves smaller (fewer slices needed) raises rather
+    than being re-tiled."""
+    unknown = set(blocks) - set(GEMM_KEYS)
+    if unknown:
+        raise ValueError(f"entangled_matmul takes blocks keys {GEMM_KEYS}, "
+                         f"got {sorted(unknown)}")
+    bb, splits = blocks["bb"], blocks["splits"]
+    if not (isinstance(bb, int) and isinstance(splits, int)):
+        raise TypeError(f"bb and splits must be ints, got {blocks}")
+    top = max_rows_per_block(route, M, extract)
+    if route == "s8" and not 1 <= bb <= top:
+        ns = M - int(extract)
+        raise ValueError(
+            f"the s8 kernel takes bb={bb} rows per block only if ns * bb <= "
+            f"MAX_PAIRS = {S8_MAX_PAIRS} and M * bb <= MAX_CROWS = "
+            f"{S8_MAX_CROWS} (ns = {ns} computed streams, M = {M}): bb <= "
+            f"{top}")
+    if route == "cuda_core" and bb not in ((1, 2, 4, 8) if M <= 4
+                                           else (1, 2, 4)):
+        raise ValueError(f"the CUDA-core kernel has instances for bb in "
+                         f"1, 2, 4 (and 8 when M <= 4), got bb={bb} at "
+                         f"M={M}")
+    if E * -(-Cg // bb) > 65535:
+        raise ValueError(f"bb={bb} gives {E * -(-Cg // bb)} row tiles; the "
+                         f"grid's y extent is at most 65535")
+    _, block_k = geometry(route)
+    k_tiles = -(-K // block_k)
+    if not 1 <= splits <= min(k_tiles, 65535):
+        raise ValueError(f"splits={splits} must lie in 1..{k_tiles} (K={K} "
+                         f"is {k_tiles} tiles of {block_k})")
+    k_chunk = -(-k_tiles // splits) * block_k
+    if -(-K // k_chunk) != splits:
+        raise ValueError(
+            f"splits={splits} over {k_tiles} K tiles gives slices of "
+            f"{k_chunk // block_k} tiles, which make "
+            f"{-(-K // k_chunk)} splits, not {splits}")
+    if route == "s8" and k_chunk > S8_MAX_K:
+        raise ValueError(
+            f"splits={splits} leaves K slices of {k_chunk} > S8_MAX_K = "
+            f"{S8_MAX_K}: the s8 limb sums would leave s32 (need splits >= "
+            f"{-(-K // S8_MAX_K)})")
+    return k_chunk
+
+
 def check_operands(c: torch.Tensor, g: torch.Tensor, dims: int) -> None:
     """Raise unless c and g are contiguous int32 tensors on one CUDA device,
     c with ``dims`` axes and g with ``dims - 1``."""
@@ -271,13 +372,19 @@ def check_operands(c: torch.Tensor, g: torch.Tensor, dims: int) -> None:
 
 def launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *, E: int,
            Cg: int, K: int, N: int, fuse_epilogue, failed: Optional[int],
-           packed: bool, route: str) -> torch.Tensor:
+           packed: bool, route: str,
+           blocks: Optional[dict] = None) -> torch.Tensor:
     """Launch the ``route`` kernel ("s8", packed weights only, or
     "cuda_core") over E experts of Cg rows per stream (E = 1 is the dense
     form) on checked operands; returns ``[M, E * Cg, N]`` int32. Sizes the
-    grid, splits K when the card would have too few blocks, allocates the
-    output and split-K scratch, and raises on a launch the kernel refuses.
+    grid, splits K when the card would have too few blocks (the rule of
+    :func:`rule_blocks`; ``blocks`` {"bb", "splits"}, either or both, sets
+    them instead, checked by :func:`check_blocks`; without "splits" the
+    rule splits K for the block's bb; None or {} is the rule, unchecked),
+    allocates the output and split-K scratch, records the launch in
+    :data:`last_launch`, and raises on a launch the kernel refuses.
     Counting the launch is the caller's."""
+    global last_launch
     M = plan.M
     if c.shape[0] != M or not 3 <= M <= 8:
         raise ValueError(f"c has {c.shape[0]} streams; need plan.M={M} "
@@ -291,18 +398,38 @@ def launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *, E: int,
     extract = fuse_epilogue in EXTRACT_MODES
     if route == "s8":  # packed weights only
         lib = _load_s8()
-        bb = _s8_rows_per_block(Cg, M - extract)
-        block_n, block_k = lib.emm_s8_block_n(), lib.emm_s8_block_k()
+        geo = lib.emm_s8_block_n(), lib.emm_s8_block_k()
     elif route == "cuda_core":
         lib = _load()
-        bb = _rows_per_block(Cg, M)
-        block_n, block_k = lib.emm_block_n(), lib.emm_block_k()
+        geo = lib.emm_block_n(), lib.emm_block_k()
     else:
         raise ValueError(f"unknown route {route!r}")
-    n_tiles = -(-N // block_n) * E * -(-Cg // bb)
+    if geo != geometry(route):
+        raise RuntimeError(f"the {route} kernel's (BN, BK) {geo} differ from "
+                           f"the wrapper's {geometry(route)}")
+    block_n, block_k = geo
     sms = torch.cuda.get_device_properties(c.device).multi_processor_count
+    if blocks and "bb" in blocks:
+        bb = blocks["bb"]
+        if not isinstance(bb, int) or bb < 1:
+            raise ValueError(f"bb must be an int >= 1, got {bb!r}")
+    elif route == "s8":
+        bb = _s8_rows_per_block(Cg, M - extract)
+    else:
+        bb = _rows_per_block(Cg, M)
+    # the rule's split for this bb, with its own last slice, unless
+    # blocks sets the split
+    n_tiles = -(-N // block_n) * E * -(-Cg // bb)
     splits, k_chunk = _split_k(n_tiles, K, block_k, sms,
                                S8_MAX_K if route == "s8" else 0)
+    if blocks:
+        splits = blocks.get("splits", splits)
+        chunk = check_blocks(route, M, E, Cg, K,
+                             {**blocks, "bb": bb, "splits": splits}, extract)
+        if "splits" in blocks:
+            k_chunk = chunk
+    last_launch = {"route": route, "bb": bb, "splits": splits,
+                   "k_chunk": k_chunk}
     B = E * Cg
     if splits == 1:
         out = torch.empty((M, B, N), dtype=torch.int32, device=c.device)
@@ -340,20 +467,22 @@ def launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan, *, E: int,
 def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
                           plan: EntanglePlan, *, fuse_epilogue=False,
                           failed: Optional[int] = None,
-                          packed: bool = False) -> torch.Tensor:
+                          packed: bool = False,
+                          blocks: Optional[dict] = None) -> torch.Tensor:
     """Launch a CUDA kernel: c ``[M, B, K]`` int32, g ``[K, N]`` int32 or
     packed ``[ceil(K/4), N]``, both contiguous on one CUDA device. Packed
     weights take the s8 tensor-core kernel (any K), unpacked ones the
-    CUDA-core kernel. Returns ``[M, B, N]`` int32 on
-    ``torch.cuda.current_stream()``; raises on any input the kernel does
-    not take and on a failed launch."""
+    CUDA-core kernel; ``blocks`` ({"bb", "splits"}) overrides the rule's
+    launch parameters (see :func:`launch`). Returns ``[M, B, N]`` int32 on
+    ``torch.cuda.current_stream()``; raises on any input or ``blocks`` the
+    kernel does not take and on a failed launch."""
     global launches_s8, launches_cuda_core
     _check_mode(fuse_epilogue)
     check_operands(c, g, 3)
     M, B, K = c.shape
     out = launch(c, g, plan, E=1, Cg=B, K=K, N=g.shape[1],
                  fuse_epilogue=fuse_epilogue, failed=failed, packed=packed,
-                 route="s8" if packed else "cuda_core")
+                 route="s8" if packed else "cuda_core", blocks=blocks)
     if packed:
         launches_s8 += 1
     else:
@@ -364,7 +493,8 @@ def entangled_matmul_cuda(c: torch.Tensor, g: torch.Tensor,
 def entangled_matmul_cuda_core(c: torch.Tensor, g: torch.Tensor,
                                plan: EntanglePlan, *, fuse_epilogue=False,
                                failed: Optional[int] = None,
-                               packed: bool = False) -> torch.Tensor:
+                               packed: bool = False,
+                               blocks: Optional[dict] = None) -> torch.Tensor:
     """Launch the CUDA-core kernel on either weight form (packed weights
     too, so it can be timed beside the s8 kernel); otherwise as
     :func:`entangled_matmul_cuda`."""
@@ -374,6 +504,6 @@ def entangled_matmul_cuda_core(c: torch.Tensor, g: torch.Tensor,
     M, B, K = c.shape
     out = launch(c, g, plan, E=1, Cg=B, K=K, N=g.shape[1],
                  fuse_epilogue=fuse_epilogue, failed=failed, packed=packed,
-                 route="cuda_core")
+                 route="cuda_core", blocks=blocks)
     launches_cuda_core += 1
     return out

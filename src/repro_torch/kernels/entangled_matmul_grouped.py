@@ -98,7 +98,7 @@ def entangled_matmul_grouped_plain(c: torch.Tensor, g: torch.Tensor,
 
 def _launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan,
             fuse_epilogue, failed: Optional[int], packed: bool,
-            route: str) -> torch.Tensor:
+            route: str, blocks: Optional[dict]) -> torch.Tensor:
     _check_mode(fuse_epilogue)
     emm.check_operands(c, g, 4)
     M, E, Cg, K = c.shape
@@ -106,23 +106,27 @@ def _launch(c: torch.Tensor, g: torch.Tensor, plan: EntanglePlan,
         raise ValueError(f"g has {g.shape[0]} experts, c has E={E}")
     out = emm.launch(c, g, plan, E=E, Cg=Cg, K=K, N=g.shape[2],
                      fuse_epilogue=fuse_epilogue, failed=failed,
-                     packed=packed, route=route)
+                     packed=packed, route=route, blocks=blocks)
     return out.reshape(M, E, Cg, g.shape[2])
 
 
 def entangled_matmul_grouped_cuda(c: torch.Tensor, g: torch.Tensor,
                                   plan: EntanglePlan, *, fuse_epilogue=False,
                                   failed: Optional[int] = None,
-                                  packed: bool = False) -> torch.Tensor:
+                                  packed: bool = False,
+                                  blocks: Optional[dict] = None
+                                  ) -> torch.Tensor:
     """Launch a CUDA kernel: c ``[M, E, Cg, K]`` int32, g ``[E, K, N]``
     int32 or packed ``[E, ceil(K/4), N]``, both contiguous on one CUDA
     device. Packed weights take the s8 tensor-core kernel (any K),
-    unpacked ones the CUDA-core kernel. Returns ``[M, E, Cg, N]`` int32 on
-    ``torch.cuda.current_stream()``; raises on any input the kernel does
-    not take and on a failed launch."""
+    unpacked ones the CUDA-core kernel; ``blocks`` ({"bb", "splits"})
+    overrides the rule's launch parameters, as in the dense form. Returns
+    ``[M, E, Cg, N]`` int32 on ``torch.cuda.current_stream()``; raises on
+    any input or ``blocks`` the kernel does not take and on a failed
+    launch."""
     global launches_s8, launches_cuda_core
     out = _launch(c, g, plan, fuse_epilogue, failed, packed,
-                  "s8" if packed else "cuda_core")
+                  "s8" if packed else "cuda_core", blocks)
     if packed:
         launches_s8 += 1
     else:
@@ -134,11 +138,14 @@ def entangled_matmul_grouped_cuda_core(c: torch.Tensor, g: torch.Tensor,
                                        plan: EntanglePlan, *,
                                        fuse_epilogue=False,
                                        failed: Optional[int] = None,
-                                       packed: bool = False) -> torch.Tensor:
+                                       packed: bool = False,
+                                       blocks: Optional[dict] = None
+                                       ) -> torch.Tensor:
     """Launch the CUDA-core kernel on either weight form (packed weights
     too, so it can be timed beside the s8 kernel); otherwise as
     :func:`entangled_matmul_grouped_cuda`."""
     global launches_cuda_core
-    out = _launch(c, g, plan, fuse_epilogue, failed, packed, "cuda_core")
+    out = _launch(c, g, plan, fuse_epilogue, failed, packed, "cuda_core",
+                  blocks)
     launches_cuda_core += 1
     return out

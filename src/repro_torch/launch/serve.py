@@ -38,15 +38,19 @@ exits 1), and ``--max-replicas M --scale-up-depth D`` turns on
 queue-depth autoscaling between the initial pool and M.
 
 ``--ckpt-dir D`` serves the params of the latest checkpoint under D (one
-written by either package's trainer) instead of the random ones. The
-reference launcher's ``--blocks`` (autotuned block sizes) belongs to a
-later slice of the port and is rejected at parse time with "not ported
-yet".
+written by either package's trainer) instead of the random ones.
+
+``--blocks`` sets the kernels' launch parameters (``ServeConfig.blocks``):
+'' keeps the rules, ``auto`` autotunes every protected GEMM at startup
+(a sweep on the card, or a hit in the H100 seed cache; the CPU's plain
+versions have none to tune, so ``auto`` needs the card), and a JSON dict
+such as ``'{"bb": 2, "splits": 4}'`` sets the head GEMM's.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -63,10 +67,6 @@ from repro_torch.train.checkpoint import CheckpointManager
 # the drain bound of a closed wave; kill schedules are checked against it
 # at parse time
 MAX_WAVE_STEPS = 10_000
-
-# flag -> its "off" value; any other value is a later slice's feature
-_NOT_PORTED = {"blocks": ""}
-
 
 def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
           failed_group, arrival_rate: float = 0.0, deadline_ms=None) -> dict:
@@ -154,9 +154,14 @@ def _fleet_wave(cfg, scfg: ServeConfig, params, args, failed_group,
 
 def _validate_args(ap: argparse.ArgumentParser, args):
     """Fail misconfigurations at parse time; returns the bucket tuple."""
-    for flag, off in _NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet")
+    if args.blocks not in ("", "auto"):
+        try:
+            blocks = json.loads(args.blocks)
+        except ValueError:
+            blocks = None
+        if not isinstance(blocks, dict):
+            ap.error(f"--blocks must be '', 'auto' or a JSON object, got "
+                     f"{args.blocks!r}")
     if args.ft_mode == "entangle":
         if args.ft_M < 3:
             ap.error(f"--ft-M must be >= 3 (the paper's minimum stream "
@@ -286,10 +291,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default="",
                     help="serve the params of the latest checkpoint under "
                          "this directory")
-    # a later slice's flag: accepted by the parser so that using it gives
-    # a clear "not ported yet" error
-    ap.add_argument("--blocks", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--blocks", default="",
+                    help="kernel launch parameters: '' (the rules), 'auto' "
+                         "(autotuned at startup, on the card) or a JSON "
+                         "dict for the head GEMM, e.g. '{\"bb\": 2}'")
     return ap
+
+
+def parse_blocks(text: str):
+    """``--blocks``'s value as ``ServeConfig.blocks``: None, "auto" or a
+    dict."""
+    if text in ("", "auto"):
+        return text or None
+    return json.loads(text)
 
 
 def main(argv=None) -> None:
@@ -321,7 +335,8 @@ def main(argv=None) -> None:
                        ft_scope=args.ft_scope, prefill_buckets=buckets,
                        prefill_chunk=args.prefill_chunk,
                        token_budget=args.token_budget,
-                       refill=not args.no_refill)
+                       refill=not args.no_refill,
+                       blocks=parse_blocks(args.blocks))
     failed = args.failed_group if args.failed_group >= 0 else None
 
     if (args.replicas > 1 or args.max_replicas > 0
@@ -337,6 +352,12 @@ def main(argv=None) -> None:
     print(f"[launch.serve] {len(outs)}/{args.requests} requests completed in "
           f"{eng.decode_calls} batched decode calls; first output: {first}")
     print(f"[launch.serve] shape census: {eng.census}")
+    if args.blocks == "auto":
+        from repro_torch.kernels import autotune
+
+        print(f"[launch.serve] autotune: {autotune.stats()}; head-GEMM "
+              f"winners: {eng.census.get('head_gemm')}; protected sites "
+              f"warmed: {len(eng.census.get('protected', {}))}")
     del eng  # the recovery summary's engines hold their own int8 copies
 
     if args.smoke and args.ft_mode == "entangle":

@@ -961,11 +961,15 @@ def _mamba_scan(dt, dtu, Bc, Cc, A, h, valid) -> tuple:
     and ``db`` formed per step ([B, d_inner, d_state], never over T) and
     h held where ``valid`` [T, B] is False (a pad step). dt, dtu [B, T,
     di]; Bc, Cc [B, T, S]; A [di, S]; h [B, di, S]. Returns (y [B, T, di],
-    the last h). On the ``meta`` device (the engine's shape census; no
-    protected site lies inside) the steps are skipped."""
-    B, T, di = dt.shape
+    the last h). On the ``meta`` device (the engine's shape census and
+    the dry run; no protected site lies inside) the steps are skipped: one
+    expression of the outputs' shapes over every input stands in, so that
+    a backward still reaches each of them."""
     if h.is_meta:
-        return dt.new_empty((B, T, di)), h
+        y = (dt * dtu + (Bc * Cc).sum(-1, keepdim=True)
+             + (A.sum(-1) + h.sum((0, 2)))[None, None])
+        return y, h + A
+    T = dt.shape[1]
     dts, dbu = dt[..., None].unbind(1), dtu[..., None].unbind(1)
     bs, cs = Bc[:, :, None, :].unbind(1), Cc[:, :, None, :].unbind(1)
     vs = valid[..., None, None].unbind(0) if valid is not None else None
@@ -1001,7 +1005,8 @@ def _lru_scan(a, x, h, valid) -> tuple:
     Returns (every step's h [B, T, w], the last h); on the ``meta`` device
     the steps are skipped, as in :func:`_mamba_scan`."""
     if h.is_meta:
-        return a.new_empty(a.shape), h
+        hs = a * x + h[:, None]
+        return hs, hs[:, -1]
     a_s, x_s = a.unbind(1), x.unbind(1)
     vs = valid[..., None].unbind(0) if valid is not None else None
     hs = []

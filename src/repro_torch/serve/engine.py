@@ -68,9 +68,18 @@ compile and no weight quantization.
 
 The reference jit-compiles its programs and donates buffers so XLA updates
 them in place; PyTorch runs eagerly, and the port's layers write the
-caches in place themselves. Not ported: autotuned ``blocks`` (the kernels
-pick their tiles by rule) and ``prefill_batch`` (no ported caller sets it;
-admission batches have ``max_batch`` rows).
+caches in place themselves. Not ported: ``prefill_batch`` (no ported
+caller sets it; admission batches have ``max_batch`` rows).
+
+Launch parameters (``ServeConfig.blocks``): None keeps the kernels' rules
+(the launcher picks the head's rows per block for each call's rows, which
+is what the reference's ``_default_head_blocks`` clamp does, so the port
+has no such method); a dict ({"bb", "splits"}) sets the head GEMM's;
+``"auto"`` autotunes the head and every in-model protected site:
+:meth:`ServeEngine.warm_autotune` sweeps the head's decode and prefill
+shapes and the startup census at startup (:mod:`repro_torch.kernels.autotune`; a shape the shipped H100
+seed cache covers is a hit, not a sweep), so every call in a step is a
+cache hit. A replica started from ``warm=`` state sweeps nothing.
 """
 from __future__ import annotations
 
@@ -88,6 +97,7 @@ from repro_torch.ft import (SCOPES, FTContext, PlanRegistry, compile_plans,
                             prepare_params)
 from repro_torch.ft.heads import (ft_logits_decode, ft_logits_prefill,
                                   quantize_head)
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.codec import pack_int8
 from repro_torch.models.api import get_model
 from repro_torch.models.layers import ACT_DTYPE
@@ -127,7 +137,9 @@ class ServeConfig:
     ft_w: int = 32
     ft_scope: str = "head"  # head | qkv | mlp | out | moe | all
     greedy: bool = True
-    blocks: Optional[object] = None  # not ported: the kernel picks its tiles
+    # head-GEMM launch parameters: None | dict | "auto" (autotuned at
+    # startup, the in-model sites too)
+    blocks: Optional[object] = None
     prefill_buckets: Optional[Sequence[int]] = None  # None = geometric set
     prefill_chunk: int = 0  # > 0: chunked prefill, one chunk per call
     # > 0: token-packed admission, one [token_budget // prefill_chunk,
@@ -163,10 +175,10 @@ class ServeEngine:
         self.cfg, self.scfg, self.params = cfg, scfg, params
         if not scfg.greedy:
             raise NotImplementedError("only greedy decode is implemented")
-        if scfg.blocks is not None:
-            raise NotImplementedError(
-                f"blocks={scfg.blocks!r}: block sizes and autotuning are "
-                f"not ported yet")
+        if not (scfg.blocks is None or scfg.blocks == "auto"
+                or isinstance(scfg.blocks, dict)):
+            raise ValueError(f"blocks must be None, a dict or 'auto', got "
+                             f"{scfg.blocks!r}")
         if warm is not None and warm.get("sig") != self._warm_sig():
             raise ValueError(
                 "warm state was built by a differently configured engine; "
@@ -275,7 +287,11 @@ class ServeEngine:
                 self.head_q, self.w_scale = quantize_head(
                     self.model.head_weights(params, cfg))
                 self.head_q = pack_int8(self.head_q, axis=0)
-                self.registry = PlanRegistry(self.plan)
+                # layer sites are autotuned only when the engine tunes; a
+                # user's dict targets the head's shape, not theirs
+                self.registry = PlanRegistry(
+                    self.plan,
+                    blocks="auto" if scfg.blocks == "auto" else None)
             self.ftx = FTContext(registry=self.registry, scope=scfg.ft_scope)
         elif scfg.ft_mode != "none":
             raise ValueError(f"unknown ft_mode {scfg.ft_mode!r}")
@@ -297,6 +313,39 @@ class ServeEngine:
             self.plans.assert_covers(self.protected_census)
             self.ftx = self.ftx.with_plans(self.plans)
             self.ft_params = prepare_params(params, scope=scfg.ft_scope)
+        if scfg.blocks == "auto":
+            self.warm_autotune()
+
+    def warm_autotune(self) -> dict:
+        """Sweep (or find in the cache) the launch parameters of every
+        protected GEMM the engine runs: the head's decode and prefill
+        shapes and, beyond scope head, every in-model site of the startup
+        census. Runs on the engine's device, now, so that ``blocks="auto"``
+        in a step is a cache hit; a no-op unless the entangled head is on
+        and ``blocks == "auto"``. Returns {shape or (site, shape):
+        winner}, also recorded in ``census["head_gemm"]`` and
+        ``census["protected"]``."""
+        if self.scfg.ft_mode != "entangle" or self.scfg.blocks != "auto":
+            return {}
+        M, B = self.plan.M, self.scfg.max_batch
+        D, V = self.cfg.d_model, self.head_q.shape[1]
+        # admission batches pad to a multiple of M: ceil(Bp / M) rows
+        shapes = {(M, B // M, D, V), (M, -(-self.Bp // M), D, V)}
+        won = {}
+        for shape in sorted(shapes):
+            won[shape] = kops.warm_entangled_matmul(
+                *shape, self.plan, fuse_epilogue=True, packed=True,
+                device=self.device)
+            self.census.setdefault("head_gemm", {})[shape] = won[shape]
+        for site, shape in sorted(self.protected_census):
+            # 5-tuple shapes are grouped (MoE per-expert) sites
+            warm = (kops.warm_entangled_matmul_grouped if len(shape) == 5
+                    else kops.warm_entangled_matmul)
+            w = warm(*shape, self.plan, fuse_epilogue=True, packed=True,
+                     device=self.device)
+            self.census.setdefault("protected", {})[(site, shape)] = w
+            won[(site, shape)] = w
+        return won
 
     def _warm_sig(self) -> tuple:
         """What replicas sharing startup products must share: the model
@@ -418,7 +467,7 @@ class ServeEngine:
             return self.model.head_project(self.ft_params, h, self.cfg)
         hf = torch.where(mask[:, None], h.to(torch.float32), 0.0)
         logits = ft_fn(hf, self.head_q, self.w_scale, plan=self.plan,
-                       failed_group=failed_group)
+                       failed_group=failed_group, blocks=self.scfg.blocks)
         return logits * readout_scale(self.cfg)
 
     def _copy_rows(self, src, src_rows: list, dst_slots: list,

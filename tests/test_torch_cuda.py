@@ -972,3 +972,208 @@ def test_train_launcher_on_the_card(cuda_device, tmp_path, capsys):
     assert np.isfinite([first, last]).all()
     assert CheckpointManager(str(tmp_path)).latest_step() == 2
     assert not dist.is_initialized()
+
+
+# ---------------------------------------------------------- launch params --
+
+# two shapes per op: (dims of the call) for every candidates_for entry
+CANDIDATE_SHAPES = {
+    "entangled_matmul": [(2, 2048, 512), (37, 300, 129)],
+    "entangled_matmul_grouped": [(4, 3, 256, 200), (2, 17, 1000, 64)],
+    "entangle": [1000, 1 << 20], "disentangle": [1000, 1 << 20],
+    "checksum": [1000, 1 << 20],
+    "conv1d_causal": [(2, 3, 700, 4), (1, 1, 5000, 600)],
+    "entangled_conv1d": [(1, 3, 700, 4), (1, 1, 5000, 600)],
+}
+
+
+def _candidate_calls(op, shape, dev, packed):
+    """(dims for candidates_for, call(blocks), the plain version's output)
+    of one op at one shape, on seeded operands."""
+    from repro_torch.kernels import ops
+
+    plan = make_plan(4, 32)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def ints(shape, lo=-2**31, hi=2**31 - 1):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    if op in ("entangled_matmul", "entangled_matmul_grouped"):
+        grouped = op == "entangled_matmul_grouped"
+        E, Cg, K, N = shape if grouped else (1, *shape)
+        lead = (E,) if grouped else ()
+        c = ints((4, *lead, Cg, K), -300, 300)
+        g = (pack_int8(ints((*lead, K, N), -128, 128), axis=-2) if packed
+             else ints((*lead, K, N)))
+        fn = getattr(ops, op)
+        kw = dict(fuse_epilogue=True, failed=2, packed=packed)
+        dims = dict(M=4, E=E, Cg=Cg, K=K, N=N, packed=packed, extract=True)
+        return (dims, lambda b: fn(c, g, plan, blocks=b, **kw),
+                fn(c, g, plan, backend="plain", **kw))
+    if op in ("entangle", "disentangle", "checksum"):
+        x = ints((4, shape))
+        kw = {"disentangle": dict(failed=1)}.get(op, {})
+        args = (x,) if op == "checksum" else (x, plan)
+        fn = getattr(ops, op)
+        return ({"N": shape}, lambda b: fn(*args, blocks=b, **kw),
+                fn(*args, backend="plain", **kw))
+    B, D, T, kf = shape
+    w = ints((D, kf), -4, 4)
+    if op == "conv1d_causal":
+        x = ints((B, D, T), -4096, 4096)
+        return (dict(T=T, kf=kf),
+                lambda b: ops.conv1d_causal(x, w, blocks=b),
+                ops.conv1d_causal(x, w, backend="plain"))
+    x = ints((4, B, D, T), -4096, 4096)
+    kw = dict(fuse_epilogue=True, failed=3)
+    return (dict(T=T, kf=kf),
+            lambda b: ops.entangled_conv1d(x, w, plan, blocks=b, **kw),
+            ops.entangled_conv1d(x, w, plan, backend="plain", **kw))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("op", sorted(CANDIDATE_SHAPES))
+def test_every_candidate_matches_the_plain_version(cuda_device, op):
+    """Every launch-parameter candidate of each op (both GEMM routes:
+    packed weights on the s8 kernel, unpacked on the CUDA-core one), at
+    two shapes, bit-identical to the plain version; each launch carries
+    the candidate's parameters."""
+    from repro_torch.kernels import autotune
+
+    packs = ((True, False) if op.startswith("entangled_matmul")
+             else (False,))
+    for shape in CANDIDATE_SHAPES[op]:
+        for packed in packs:
+            dims, call, want = _candidate_calls(op, shape, cuda_device,
+                                                packed)
+            sms = torch.cuda.get_device_properties(
+                cuda_device).multi_processor_count
+            cands = autotune.candidates_for(op, sms=sms, **dims)
+            assert len(cands) >= 2
+            for cand in cands:
+                assert torch.equal(call(cand), want), (op, shape, cand)
+                if op.startswith("entangled_matmul"):
+                    assert {k: emm.last_launch[k] for k in cand} == cand
+                elif "blocks_per_sm" in cand:
+                    assert (kent.last_launch["blocks_per_sm"]
+                            == cand["blocks_per_sm"])
+
+
+@pytest.mark.requires_cuda
+def test_blocks_the_kernel_cannot_take_raise_on_the_card(cuda_device):
+    """A dict the kernel cannot take raises with the kernel's reason, and
+    launches nothing."""
+    from repro_torch.kernels import ops
+
+    plan = make_plan(4, 32)
+    c = torch.zeros((4, 16, 2048), dtype=torch.int32, device=cuda_device)
+    gp = torch.ones((512, 64), dtype=torch.int32, device=cuda_device)
+    g = torch.ones((2048, 64), dtype=torch.int32, device=cuda_device)
+    before = _counts(emm)
+    with pytest.raises(ValueError, match="MAX_PAIRS"):
+        ops.entangled_matmul(c, gp, plan, fuse_epilogue=True, packed=True,
+                             blocks={"bb": 6})
+    with pytest.raises(ValueError, match="instances for bb"):
+        ops.entangled_matmul(c, g, plan, fuse_epilogue=True,
+                             blocks={"bb": 3})
+    with pytest.raises(ValueError, match="not 3"):
+        ops.entangled_matmul(c[:, :, :256], gp[:64], plan, packed=True,
+                             blocks={"splits": 3})
+    with pytest.raises(ValueError, match="blocks keys"):
+        ops.entangled_matmul(c, gp, plan, packed=True, blocks={"bn": 128})
+    assert _counts(emm) == before
+    x = torch.zeros((4, 100), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="blocks_per_sm"):
+        ops.entangle(x, plan, blocks={"blocks_per_sm": 0})
+    with pytest.raises(ValueError, match="route"):
+        ops.conv1d_causal(x[:1, None], torch.ones((1, 3), dtype=torch.int32,
+                                                  device=cuda_device),
+                          blocks={"route": "tensor"})
+
+
+@pytest.mark.requires_cuda
+def test_ft_context_over_float_weights_takes_the_launchers_rule(
+        cuda_device):
+    """The library path: FTContext over float masters (quantized unpacked,
+    so the CUDA-core kernel) at 9-20 rows, under the registry's None
+    policy. Every call launches that kernel with the rows per block its
+    rule picks, and equals the plain backend's bits, healthy and with
+    group 1 failed."""
+    from repro_torch.ft import FTContext, PlanRegistry
+
+    plan = make_plan(4, 32)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    w = torch.randn((192, 96), generator=gen, device=cuda_device)
+    ftx = FTContext(registry=PlanRegistry(plan), scope="all")
+    plain = FTContext(registry=PlanRegistry(plan, backend="plain"),
+                      scope="all")
+    for rows in range(9, 21):
+        x = torch.randn((rows, 192), generator=gen, device=cuda_device)
+        for failed in (None, 1):
+            before = emm.launches_cuda_core
+            got = ftx.with_failed(failed).matmul("mlp.up", x, w)
+            assert emm.launches_cuda_core == before + 1
+            assert emm.last_launch["bb"] == emm._rows_per_block(
+                -(-rows // 4), 4)
+            want = plain.with_failed(failed).matmul("mlp.up", x, w)
+            assert torch.equal(got, want), (rows, failed)
+
+
+@pytest.mark.requires_cuda
+def test_cold_start_from_the_seed_makes_no_sweep(cuda_device, tmp_path):
+    """llama3.2-1b at published widths served as chip_smoke.py serves it
+    (8 slots, M = 4, max_seq 256), blocks="auto", from an empty user
+    cache over the shipped seed: every protected shape of scopes head and
+    all is a hit, none is swept."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import autotune
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    cfg = get_config("llama3.2-1b")
+    params = get_model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg, max_seq=256,
+        device=cuda_device)
+    try:
+        for scope in ("head", "all"):
+            autotune.reset_cache(str(tmp_path / f"{scope}.json"))
+            eng = ServeEngine(cfg, ServeConfig(
+                max_batch=8, max_seq=256, ft_mode="entangle", ft_M=4,
+                ft_scope=scope, blocks="auto"), params, device=cuda_device)
+            st = autotune.stats()
+            assert st["sweeps"] == 0 and st["hits"] >= 1, (scope, st)
+            assert len(eng.census["head_gemm"]) >= 1
+            if scope == "all":
+                assert len(eng.census["protected"]) == len(
+                    eng.protected_census)
+            del eng
+    finally:
+        autotune.reset_cache(None)
+
+
+@pytest.mark.requires_cuda
+def test_launcher_blocks_auto_on_the_card(cuda_device, tmp_path, capsys,
+                                          monkeypatch):
+    """``launch.serve --blocks auto`` on the card (smoke shapes, which the
+    seed does not cover, so they are swept into the user cache): EXACT
+    ROLL-FORWARD at scopes head and all, and the autotune line."""
+    import json
+
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve
+
+    path = tmp_path / "autotune.json"
+    monkeypatch.setenv(autotune.ENV, str(path))
+    autotune.reset_cache(str(path))
+    try:
+        serve.main(["--arch", "llama3.2-1b", "--smoke", "--ft-mode",
+                    "entangle", "--ft-scope", "all", "--failed-group", "1",
+                    "--max-new", "4", "--blocks", "auto"])
+    finally:
+        autotune.reset_cache(None)
+    out = capsys.readouterr().out
+    assert out.count("EXACT ROLL-FORWARD") == 2
+    assert "[launch.serve] autotune: {" in out
+    keys = [k for k in json.loads(path.read_text()) if k != "_meta"]
+    assert keys and all("|cuda_sm90|" in k for k in keys)

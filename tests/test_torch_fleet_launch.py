@@ -59,18 +59,15 @@ def test_kill_with_autoscaling_pool_of_one_parses(capsys):
 
 @pytest.mark.parametrize("flag", [["--blocks", "auto"], ["--ckpt-dir", "x"]])
 def test_unported_flags_refused(capsys, flag):
-    """Only --blocks is still refused as not ported; --ckpt-dir is ported:
-    with a fleet flag it parses, and the parser dies on the next invalid
-    flag."""
+    """No flag is refused as not ported any more: --blocks and --ckpt-dir
+    are ported, so with a fleet flag each parses, and the parser dies on
+    the next invalid flag."""
     with pytest.raises(SystemExit) as e:
         serve.main([*BASE, *flag, "--replicas", "2", "--arrival-rate",
                     "-1"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    if flag[0] == "--blocks":
-        assert "not ported yet" in err
-    else:
-        assert "not ported" not in err and "arrival-rate" in err
+    assert "not ported" not in err and "arrival-rate" in err
 
 
 class _Validated(Exception):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and nothing in
-``chip_smoke.py`` or ``chip_conv_routes.py`` imports JAX or the JAX
-package (the machine with the GPU has no JAX)."""
+``chip_smoke.py``, ``chip_conv_routes.py``, ``chip_autotune_seed.py`` or
+``chip_decode_ab.py`` imports JAX or the JAX package (the machine with the
+GPU has no JAX)."""
 import os
 import pathlib
 import re
@@ -38,7 +39,11 @@ def test_importing_every_module_loads_no_jax(order):
             "repro_torch.core.fixed_point", "repro_torch.core.sdc",
             "repro_torch.data.pipeline", "repro_torch.train.straggler",
             "repro_torch.examples.failstop_demo",
-            "repro_torch.examples.serve_lm"} <= set(mods)
+            "repro_torch.examples.serve_lm",
+            "repro_torch.kernels.ref", "repro_torch.kernels.autotune",
+            "repro_torch.launch.op_cost", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.launch.report",
+            "repro_torch.launch.input_specs"} <= set(mods)
     assert len(mods) > 20
     if order == "reversed":
         mods.reverse()
@@ -58,7 +63,9 @@ def test_importing_every_module_loads_no_jax(order):
 
 def test_no_source_names_jax_or_the_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "chip_conv_routes.py"]
+                                         ROOT / "chip_conv_routes.py",
+                                         ROOT / "chip_autotune_seed.py",
+                                         ROOT / "chip_decode_ab.py"]
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _BAD.search(f.read_text())]
     assert not offenders, offenders

@@ -176,13 +176,22 @@ def test_failed_group_rolls_forward_exactly(ref, scope):
 
 
 def test_engine_rejects_unported_options(ref):
-    """Only autotuned blocks are still refused: chunked prefill, token
-    packing, boundary admission and warm replicas are ported (their tests
-    are in ``test_torch_serve_admission.py``)."""
+    """Every option is ported now: chunked prefill, token packing, boundary
+    admission and warm replicas (their tests are in
+    ``test_torch_serve_admission.py``) and ``blocks``. What is refused is
+    ``blocks="auto"`` on the CPU, whose plain versions have no launch
+    parameters to sweep, and a ``blocks`` that is no policy; a dict is
+    taken (the plain versions ignore it)."""
     cfg = tget_smoke("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ServeEngine(cfg, ServeConfig(blocks="auto"), ref["params"],
+    with pytest.raises(ValueError, match="on the card"):
+        ServeEngine(cfg, ServeConfig(blocks="auto", ft_mode="entangle"),
+                    ref["params"], device="cpu")
+    with pytest.raises(ValueError, match="blocks must be"):
+        ServeEngine(cfg, ServeConfig(blocks="fast"), ref["params"],
                     device="cpu")
+    eng = ServeEngine(cfg, ServeConfig(blocks={"bb": 1}, ft_mode="entangle"),
+                      ref["params"], device="cpu")
+    assert eng.scfg.blocks == {"bb": 1}
     for kw in (dict(prefill_chunk=4), dict(prefill_chunk=4, token_budget=8),
                dict(refill=False)):
         ServeEngine(cfg, ServeConfig(max_seq=32, **kw), ref["params"],
@@ -213,15 +222,16 @@ def test_cli_reports_exact_roll_forward():
 @pytest.mark.parametrize("flag", [
     ["--replicas", "0"], ["--kill-replica-at", "5"],
     ["--replicas", "4", "--max-replicas", "2"],
-    ["--blocks", "auto"], ["--kill-replica", "1"],
+    ["--blocks", "{bb: 2"], ["--kill-replica", "1"],
     ["--ckpt-dir", "x", "--prefill-chunk", "-1"]])
 def test_cli_rejects_later_slices_at_parse_time(capsys, flag):
-    """--blocks is still a later slice's flag; the fleet flags are ported,
-    and these uses of them break the fleet's parse-time rules (an empty
-    pool, a kill with no survivor, a bound below the pool, a kill target
-    with no kill step). --ckpt-dir is ported: it passes, and the parser
-    dies on the next invalid flag (its restore is
-    tests/test_torch_substrates.py's)."""
+    """No flag is a later slice's any more: --blocks is ported and takes
+    '', 'auto' or a JSON object (anything else dies at parse time); the
+    fleet flags are ported, and these uses of them break the fleet's
+    parse-time rules (an empty pool, a kill with no survivor, a bound
+    below the pool, a kill target with no kill step). --ckpt-dir is
+    ported: it passes, and the parser dies on the next invalid flag (its
+    restore is tests/test_torch_substrates.py's)."""
     from repro_torch.launch import serve
 
     with pytest.raises(SystemExit) as e:
@@ -229,10 +239,9 @@ def test_cli_rejects_later_slices_at_parse_time(capsys, flag):
                     *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
+    assert "not ported" not in err
     if flag[0] == "--blocks":
-        assert "not ported yet" in err
-    else:
-        assert "not ported" not in err
+        assert "--blocks must be" in err
     if flag[0] == "--ckpt-dir":
         assert "--prefill-chunk must be >= 0" in err
 
