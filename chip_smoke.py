@@ -10,14 +10,14 @@ by a 4-replica fleet and trained; deepseek-v2-lite-16b (MLA attention, a
 dense first layer and 64-expert top-6 MoE layers; cut to 4 of its 27
 layers: its float32 masters and int8 copies at all 27 layers do not fit
 one 80 GB card, and 8 layers took the script past its time limit on a
-slow host) served, and trained cut to 2 layers; qwen2-7b (28 layers, qkv
-bias) and
-minitron-8b (32 layers, ungated relu2 MLP) served whole, and granite-20b
-(MQA, ungated gelu MLP) served cut to 20 of its 52 layers (about 20.3 G
-parameters, 81 GB of float32 masters alone at 52; 8.2 G at 20);
-falcon-mamba-7b (Mamba-1) served cut to 16 of its 64 layers and
-recurrentgemma-2b (RG-LRU and rolling-window MQA, 26 layers) served
-whole, and trained cut to 2 and 6 layers; internvl2-2b (24 layers
+slow host) served, and trained cut to 2 layers, also across 2 ranks on
+the one card with llama3.2-1b; qwen2-7b (qkv bias), minitron-8b (ungated
+relu2 MLP) and granite-20b (MQA, ungated gelu MLP) served cut to half
+their depth, 14 of 28, 16 of 32 and 10 of 52 layers (granite's 52 hold
+about 20.3 G parameters, 81 GB of float32 masters alone);
+falcon-mamba-7b (Mamba-1) served cut to 8 of its 64 layers and
+recurrentgemma-2b (RG-LRU and rolling-window MQA) to 12 of 26, and
+trained cut to 1 and 6 layers; internvl2-2b (24 layers
 behind 256 patch embeddings) and whisper-small (12 encoder and 12 decoder
 layers over 1500 frames) whole; deepseek-v3-671b (MLA with a low-rank Q,
 256-expert top-8 sigmoid MoE, the MTP block) served with bf16 masters, cut
@@ -68,7 +68,24 @@ exits nonzero:
                and without a prefill call, TTFT, tokens/s and the recycle
                zeroing's launches. deepseek: chunked and packed at scope
                all;
-  3a. autotune — right after the two serving paths: the launch
+  3s. serve-mesh — right after the two serving paths: one engine split
+               across 2 ranks spawned on the one card over gloo
+               (``chip_smoke.py --dist-worker R --dist-phase
+               serve-mesh``), 4 of the 8 slots a rank: each rank holds both
+               GEMMs against their plain versions at the shapes its engine
+               sends them (its census of the wave's bucket at scope all,
+               the head at its own rows), sets the counts to 0, serves the
+               8-request wave with llama3.2-1b (16 layers; scopes head and
+               all) and deepseek-v2-lite-16b (4 layers; moe and all),
+               healthy and with ``failed_group=1``, and reads the counts;
+               meanwhile this process serves the same waves through a
+               one-rank engine (llama) and through one process of 2 MoE
+               dispatch groups (deepseek, a stand-in mesh). Every rank's
+               tokens must equal those bit for bit and roll forward
+               (EXACT ROLL-FORWARD (serve-mesh)), with no plan miss, the
+               s8 GEMM (and deepseek's grouped one) launched on every rank
+               and the CUDA-core route never;
+  3a. autotune — right after the serving paths: the launch
                parameters of the kernels (``blocks``) swept over every
                candidate of ``kernels/autotune.py::candidates_for`` at the
                shapes furthest from their bounds (llama's mlp.down and
@@ -107,7 +124,8 @@ exits nonzero:
                from the kill until every migrated request streamed its
                next token), fleet tokens/s with and without the kill, the
                fleet steps and the migration counts;
-  3d. dense-decoders — qwen2-7b, minitron-8b, granite-20b (20 layers),
+  3d. dense-decoders — qwen2-7b, minitron-8b, granite-20b (14, 16, 10
+               layers),
                one at a time: every (site, shape) of the engine's startup
                census at scope all and the vocab head held against the
                plain version on the s8 route (granite's N = 128
@@ -115,8 +133,9 @@ exits nonzero:
                entangle / all, healthy and with ``failed_group=1`` (EXACT
                ROLL-FORWARD); decode-step ms against none in the same
                call, s8 launches per decode step, ``max_memory_allocated``;
-  3e. recurrent — falcon-mamba-7b (16 of 64 layers) and
-               recurrentgemma-2b at published widths, one at a time: the census shapes of
+  3e. recurrent — falcon-mamba-7b (8 of 64 layers) and
+               recurrentgemma-2b (12 of 26) at published widths, one at a
+               time: the census shapes of
                every admission mode at scope all, the vocab head and the
                model's own quantized head held against the plain version on
                the s8 route; the 8-request wave at ft_mode none and at
@@ -201,7 +220,7 @@ exits nonzero:
                the mean step time per gradient sync and a profiler window;
   4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 2 of 27 layers:
                the dense first layer and one MoE layer), falcon-mamba-7b
-               (Mamba-1; 2 of 64) and recurrentgemma-2b (RG-LRU + local
+               (Mamba-1; 1 of 64) and recurrentgemma-2b (RG-LRU + local
                attention; 6 of 26, two whole units) at published widths,
                one at a time, each as phase 4: ``train_loop`` with block 1
                fail-stopped at step 2 (the loop's final checkpoint into a
@@ -295,19 +314,26 @@ FLEET = dict(replicas=4, requests=16, max_new=16, max_prompt=128,
 # the other dense decoders at published widths: arch -> layers kept (None:
 # all). granite-20b's 52 layers hold about 20.3 G parameters, 81 GB of
 # float32 masters alone; 20 layers (8.2 G) leave room for the int8 copies
-# and the plain versions' operands on one 80 GB card
-DECODERS = {"qwen2-7b": None, "minitron-8b": None, "granite-20b": 20}
+# and the plain versions' operands on one 80 GB card. Each cut to half its
+# published depth (qwen2-7b 28 -> 14, minitron-8b 32 -> 16, granite-20b
+# 20 -> 10) after the script took 1181.5 s on a slow host with the
+# serve-mesh phase
+DECODERS = {"qwen2-7b": 14, "minitron-8b": 16, "granite-20b": 10}
 # the recurrent families at published widths: the 8-request
 # wave at none / head / all; chunked (32, refill) and token-packed (4 rows
 # of 32) admission of REC_REQUESTS seeded prompts in [5, 240] at scope
 # all; for recurrentgemma one LONG request past its 2048-token window,
 # chunked, so that the rolling buffer wraps in prefill and in decode
 RECURRENT = ("falcon-mamba-7b", "recurrentgemma-2b")
-# served depth cuts of the recurrent phase: falcon-mamba at 16 of its 64
+# served depth cuts of the recurrent phase: falcon-mamba at 8 of its 64
 # layers (its eager scan sets the phase's time; 64 -> 32 saved about 54 s
 # of the script's 1200 and funded the perf-variant and distribution
-# phases; 32 -> 16 brings a slow host back under the limit)
-RECURRENT_LAYERS = {"falcon-mamba-7b": 16}
+# phases; 32 -> 16 brought a slow host back under the limit; 16 -> 8 and
+# recurrentgemma 26 -> 12 (four whole (rglru, rglru, local_attn) units;
+# its 2200-token request's 69 chunks run every recurrent layer's scan
+# step by step) after the script took 1181.5 s on a slow host with the
+# serve-mesh phase)
+RECURRENT_LAYERS = {"falcon-mamba-7b": 8, "recurrentgemma-2b": 12}
 REC_REQUESTS = 12
 REC_MODES = ("chunked", "packed")
 LONG = dict(prompt=2200, max_new=16, max_seq=4096, bucket=2208, chunk=32)
@@ -357,11 +383,12 @@ TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=2,
 # one MoE layer of 27 (3 MoE layers, 2.255 G params, until a slow host
 # took the script past 1200 s: their 27 GB checkpoint alone took 62.4 s),
 # recurrentgemma-2b 6 of 26, two
-# (rglru, rglru, local_attn) units (1.169 G); falcon-mamba-7b 2 of 64
-# (0.743 G): memory allows 4, but its scan's eager steps (2.9 s a step at
-# 4 layers) took the phase to 392 s on the H100, past its share of the
-# script's time limit
-TRAIN_FAMILIES = {DEEPSEEK: 2, "falcon-mamba-7b": 2, "recurrentgemma-2b": 6}
+# (rglru, rglru, local_attn) units (1.169 G); falcon-mamba-7b 1 of 64:
+# memory allows 4, but its scan's eager steps (2.9 s a step at 4 layers)
+# took the phase to 392 s on the H100, past its share of the script's
+# time limit, and 2 layers (2.4 s a step on a slow host) took the script
+# to 1181.5 s with the serve-mesh phase
+TRAIN_FAMILIES = {DEEPSEEK: 2, "falcon-mamba-7b": 1, "recurrentgemma-2b": 6}
 # deepseek-v3-671b at published widths cut to the shallowest depth that
 # keeps its published first_dense_layers=3: 3 dense layers and 1 MoE layer
 # of 61, bf16 masters (float32 masters and scope all's int8 copies would
@@ -385,6 +412,11 @@ NORM_AGREE = 0.95
 # sync is also timed on those leaves, so that the two world sizes compare
 DIST_WORLD = 4
 DIST_FAILED = (None, 0, 1, 2, 3)
+# the serving path across ranks: MESH_WORLD ranks spawned on the one card
+# over gloo, each holding SERVE["max_batch"] / MESH_WORLD slots of one
+# engine; each arch with its protected scopes (deepseek at DEEPSEEK_LAYERS)
+MESH_WORLD = 2
+MESH_PATHS = ((LLAMA, ("head", "all")), (DEEPSEEK, ("moe", "all")))
 # the library path: SDC detection over M streams of this many columns, and
 # the kernels its examples and SDC calls must launch
 LIB_SDC_N = 1 << 20
@@ -3613,6 +3645,206 @@ def phase_dist(dev, kernels, state, smi):
             f"dist gloo world {DIST_WORLD}": launches}, rec
 
 
+def _mesh_cmd(rank: int, d: pathlib.Path) -> list:
+    """The command of one rank of the [serve-mesh] phase's gloo group."""
+    return _dist_cmd(rank, d) + ["--dist-phase", "serve-mesh"]
+
+
+def _mesh_scfg(scope):
+    from repro_torch.serve.engine import ServeConfig
+
+    return ServeConfig(max_batch=SERVE["max_batch"], max_seq=SERVE["max_seq"],
+                       ft_mode="entangle", ft_M=SERVE["ft_M"],
+                       ft_scope=scope)
+
+
+def _mesh_waves(dev, arch, scopes, kernels, rank_shapes=None):
+    """Serve the 8-request wave with ``arch`` per scope, healthy and with
+    ``failed_group=1``; returns ({f"{scope}/{fg}": tokens lists}, step
+    ms by wave, plan misses, the engine's slots). With ``rank_shapes``
+    (a rank), the GEMMs are first held against their plain versions at the
+    rank's census shapes (``rank_shapes(cfg, eng)`` gives them), and every
+    kernel's count is set to 0 just before the waves."""
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, _, params = init_model(dev, arch)
+    if rank_shapes is not None:  # the census of the wave's one bucket
+        eng = ServeEngine(cfg, dataclasses.replace(
+            _mesh_scfg(scopes[-1]), prefill_buckets=(SERVE["prompt_len"],)),
+            params, device=dev)
+        rank_shapes(cfg, eng)
+        del eng
+        free_cuda()
+        reset_counts(kernels)
+    toks, ms, misses = {}, {}, 0
+    for scope in scopes:
+        for fg in (None, 1):
+            eng = ServeEngine(cfg, _mesh_scfg(scope), params, device=dev)
+            outs, steps, _ = _wave(eng, cfg, fg, kernels)
+            key = f"{scope}/{_fb(fg)}"
+            toks[key] = {str(r): o.tolist() for r, o in outs.items()}
+            ms[key] = 1e3 * sum(steps[1:]) / max(len(steps) - 1, 1)
+            misses += eng.plans.misses if eng.plans is not None else 0
+            slots = [eng.slot_lo, eng.slot_hi]
+            del eng
+            free_cuda()
+    del params
+    free_cuda()
+    return toks, ms, misses, slots
+
+
+def mesh_worker(rank: int, d: pathlib.Path, dev) -> int:
+    """One rank of the [serve-mesh] phase's gloo group (``chip_smoke.py
+    --dist-worker RANK --dist-dir D --dist-phase serve-mesh``, on
+    ``cuda:0``): per path of MESH_PATHS, holds both GEMMs against their
+    plain versions at the shapes its own engine sends them (its census at
+    scope all and the head at its rows), sets every count to 0, serves the
+    waves through one engine split across the ranks, and reads every
+    count; writes tokens, launches by route, step ms and the checks to
+    ``D/rank<RANK>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    kernels = kernel_table()
+    by_name = {k["name"]: k for k in kernels}
+    chk = {n: by_name[n]["checker"].spawn()
+           for n in ("entangled_matmul", "entangled_matmul_grouped")}
+    dist.init_process_group("gloo", init_method=f"file://{d / 'store'}",
+                            rank=rank, world_size=MESH_WORLD)
+
+    def rank_shapes(cfg, eng):
+        # this rank's head rows (its slots, padded to M) and its census
+        dense, grouped = census_shapes(cfg, eng.protected_census)
+        M = SERVE["ft_M"]
+        head = (-(-(eng.slot_hi - eng.slot_lo) // M), cfg.d_model,
+                cfg.vocab_size, "head")
+        dense = [head] + [s for s in dense if s[-1] != "head"]
+        check_dense(dev, chk["entangled_matmul"], dense, ragged=False)
+        if grouped:
+            check_grouped(dev, chk["entangled_matmul_grouped"], grouped,
+                          ragged=False, full_range=False)
+        out.setdefault("shapes", {})[cfg.name] = dict(
+            dense=[list(s[:3]) for s in dense],
+            grouped=[list(s[:4]) for s in grouped])
+
+    out = {"paths": {}}
+    try:
+        for arch, scopes in MESH_PATHS:
+            t0 = time.perf_counter()
+            toks, ms, misses, slots = _mesh_waves(dev, arch, scopes, kernels,
+                                                  rank_shapes)
+            out["paths"][arch] = dict(
+                tokens=toks, step_ms=ms, misses=misses, slots=slots,
+                launches={k["name"]: count(k) for k in kernels},
+                core={k["name"]: count(k, 1) for k in kernels
+                      if len(k["counters"]) > 1},
+                seconds=time.perf_counter() - t0)
+        out["max_abs_err"] = {n: c.worst for n, c in chk.items()}
+        out["comparisons"] = {n: c.n for n, c in chk.items()}
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_serve_mesh(dev, kernels, smi):
+    """[serve-mesh]: the engine's ``serve_mesh`` path. MESH_WORLD ranks are
+    spawned on the one card over gloo (:func:`mesh_worker`); each holds
+    SERVE["max_batch"] / MESH_WORLD slots of one engine and serves the
+    8-request wave per scope of MESH_PATHS, healthy and with
+    ``failed_group=1``, after holding both GEMMs against their plain
+    versions at its own shapes. Meanwhile this process serves the same
+    waves as oracles: llama through a one-rank engine, deepseek through
+    one process of MESH_WORLD dispatch groups (a stand-in mesh). Every
+    rank's tokens must equal the oracle's bit for bit, every injected
+    wave its healthy wave's (EXACT ROLL-FORWARD (serve-mesh)), no plan
+    may miss, and each rank must have launched the s8 GEMM (and, for
+    deepseek, the grouped one) and never the CUDA-core route. Returns
+    (counts by path, record)."""
+    import contextlib
+
+    from repro_torch.dist.sharding import StandInMesh, axis_rules
+
+    t_phase = time.perf_counter()
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    procs = []
+    try:
+        procs = [subprocess.Popen(_mesh_cmd(r, d), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(MESH_WORLD)]
+        oracle, oracle_ms = {}, {}
+        for arch, scopes in MESH_PATHS:
+            ctx = (axis_rules(StandInMesh({"data": MESH_WORLD}))
+                   if arch == DEEPSEEK else contextlib.nullcontext())
+            with ctx:
+                oracle[arch], oracle_ms[arch], misses, _ = _mesh_waves(
+                    dev, arch, scopes, kernels)
+            if misses:
+                raise AssertionError(f"{arch} oracle: plan misses {misses}")
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        for r, p in enumerate(procs):
+            if p.returncode:
+                raise AssertionError(f"serve-mesh rank {r} exited "
+                                     f"{p.returncode}:\n{logs[r][-4000:]}")
+        outs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(MESH_WORLD)]
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(d, ignore_errors=True)
+    counts, rec = {}, dict(paths={}, oracle_step_ms=oracle_ms)
+    for arch, scopes in MESH_PATHS:
+        what = ("a one-rank engine in this process" if arch == LLAMA else
+                f"one process of {MESH_WORLD} dispatch groups")
+        for r, o in enumerate(outs):
+            got = o["paths"][arch]
+            bad_oracle = sum(got["tokens"][w] != oracle[arch][w]
+                             for w in oracle[arch])
+            bad_fg = sum(got["tokens"][f"{s}/1"] != got["tokens"][f"{s}/none"]
+                         for s in scopes)
+            verdict = ("EXACT ROLL-FORWARD" if bad_fg == 0 and bad_oracle == 0
+                       else "RECOVERY FAILED")
+            log(f"[serve-mesh] {arch} rank {r} of {MESH_WORLD} (slots "
+                f"{got['slots']}, gloo on {smi.split(',')[0]}): scopes "
+                f"{list(scopes)} healthy and failed_group=1; waves differing "
+                f"from {what} {bad_oracle} of {len(oracle[arch])}, injected "
+                f"from healthy {bad_fg} ({verdict} (serve-mesh)); plan misses "
+                f"{got['misses']}; s8 GEMM launches {got['launches']}; "
+                f"CUDA-core route {got['core']}; decode-step ms "
+                f"{got['step_ms']} ({smi})")
+            if bad_oracle or bad_fg or got["misses"]:
+                raise AssertionError(f"serve-mesh {arch} rank {r}: {verdict}"
+                                     f", plan misses {got['misses']}")
+            need = ["entangled_matmul"] + (["entangled_matmul_grouped"]
+                                           if arch == DEEPSEEK else [])
+            for name in need:
+                if got["launches"][name] <= 0:
+                    raise AssertionError(f"kernel {name} was never launched "
+                                         f"by rank {r}'s {arch} path")
+            if any(got["core"].values()):
+                raise AssertionError(f"rank {r}'s {arch} path reached the "
+                                     f"CUDA-core GEMM: {got['core']}")
+            counts[f"serve-mesh {arch} rank {r}"] = got["launches"]
+        rec["paths"][arch] = dict(
+            ranks=[o["paths"][arch] for o in outs],
+            oracle=what)
+    rec["max_abs_err"] = {n: max(o["max_abs_err"][n] for o in outs)
+                          for n in outs[0]["max_abs_err"]}
+    rec["comparisons"] = {n: sum(o["comparisons"][n] for o in outs)
+                          for n in outs[0]["comparisons"]}
+    rec["shapes"] = outs[0]["shapes"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[serve-mesh] each rank's GEMMs held against their plain versions "
+        f"at its own shapes {rec['shapes']}: max |kernel - plain| "
+        f"{rec['max_abs_err']} over {rec['comparisons']} comparisons; "
+        f"phase {rec['seconds']:.1f} s ({smi})")
+    if any(rec["max_abs_err"].values()):
+        raise AssertionError("serve-mesh: a GEMM differs from its plain "
+                             "version")
+    return counts, rec
+
+
 def _leaf_rel(grads, ref) -> float:
     """Largest normwise relative difference ``|g - r| / |r|`` over the
     leaves of two gradient trees (a leaf whose reference is all zero must
@@ -5200,6 +5432,8 @@ def main() -> int:
     ap.add_argument("--dist-worker", type=int, default=None,
                     help=argparse.SUPPRESS)  # a rank of the [dist] phase
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-phase", default="dist",
+                    choices=("dist", "serve-mesh"), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -5209,8 +5443,10 @@ def main() -> int:
         return 2
     if args.dist_worker is not None:
         torch.cuda.set_device(0)
-        return dist_worker(args.dist_worker, pathlib.Path(args.dist_dir),
-                           torch.device("cuda", 0))
+        worker = mesh_worker if args.dist_phase == "serve-mesh" \
+            else dist_worker
+        return worker(args.dist_worker, pathlib.Path(args.dist_dir),
+                      torch.device("cuda", 0))
     kernels = kernel_table()
     by_name = {k["name"]: k for k in kernels}
     dev = torch.device("cuda", 0)
@@ -5240,6 +5476,8 @@ def main() -> int:
         ("moe", "all"), (("chunked", "packed"), ("all",), False), smi,
         args.seed)
     lap(DEEPSEEK)
+    mesh_counts, serve_mesh = phase_serve_mesh(dev, kernels, smi)
+    lap("serve-mesh")
     autotune_counts, autotune = phase_autotune(dev, kernels, smi)
     lap("autotune")
     fleet_counts, fleet = phase_fleet(dev, kernels, smi, args.seed,
@@ -5313,6 +5551,7 @@ def main() -> int:
         by_path[V3] = v3_counts[name]
         by_path[f"{V3} absorb"] = serve_v3["absorb"]["counts"][name]
         by_path.update({a: c[name] for a, c in dist_counts.items()})
+        by_path.update({a: c[name] for a, c in mesh_counts.items()})
         by_path["library"] = lib_counts[name]
         by_path.update({a: c[name] for a, c in autotune_counts.items()})
         if name in ("entangled_conv1d", "conv1d_causal"):
@@ -5400,6 +5639,7 @@ def main() -> int:
     record["stream_conv"] = stream
     record["serve_v3"] = serve_v3
     record["dist"] = dist_rec
+    record["serve_mesh"] = serve_mesh
     record["library"] = library
     record["autotune"] = autotune
     print(smi, flush=True)

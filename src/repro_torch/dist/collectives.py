@@ -154,3 +154,30 @@ def checksum_grad_sync(grads: Any, *, axis_name=None,
 
     diag = {"cs_failed": -1 if failed_block is None else failed_block % M}
     return tree_map(sync_leaf, grads), diag
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked along dimension 0 in rank order (the
+    ranks' shapes equal), on every rank of ``group``: the all-gather that
+    the reference's GSPMD lowering makes of a row-sharded tensor.
+
+    It runs as one ``all_reduce(SUM)`` of a zero buffer in which each rank
+    fills its own block, summed as int32 words, so that the bits come back
+    as they were (a float sum would turn -0.0 into 0.0). Gloo, which takes
+    the ranks' CUDA tensors when they share one card, runs no other
+    collective on them; NCCL runs it as well. On the ``meta`` device (a
+    shape census) it returns an empty tensor of the gathered shape."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    shape = (n * x.shape[0],) + tuple(x.shape[1:])
+    if x.device.type == "meta":
+        return x.new_empty(shape)
+    buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    rows = x.shape[0]
+    buf[r * rows:(r + 1) * rows] = x
+    words = buf.reshape(-1).view(torch.uint8)
+    if words.numel() % 4:
+        raise ValueError(f"{tuple(shape)} {x.dtype} does not fill whole "
+                         f"int32 words")
+    dist.all_reduce(words.view(torch.int32), op=dist.ReduceOp.SUM,
+                    group=group)
+    return buf

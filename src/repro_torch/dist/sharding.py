@@ -198,3 +198,53 @@ def axis_extent(name: str) -> int:
         return 1
     ms = mesh_shape(mesh)
     return _extent(_mesh_axes_for(name, ms), ms)
+
+
+class StandInMesh:
+    """A mesh that holds only a ``shape`` mapping (the rules read nothing
+    else): the layout of a mesh of several devices whose every shard one
+    process computes, as the reference's one-process mesh does."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+
+    def __repr__(self) -> str:
+        return f"StandInMesh({self.shape})"
+
+
+def is_device_mesh(mesh) -> bool:
+    """True for a ``DeviceMesh`` (one rank, one process, per coordinate),
+    False for a stand-in that holds only a ``shape`` mapping."""
+    return getattr(mesh, "mesh_dim_names", None) is not None
+
+
+def local_extent(name: str) -> int:
+    """How many of the shards of the logical axis ``name`` a tensor of
+    this process holds.
+
+    On a stand-in mesh, one process computes every shard (as the
+    reference's one-process mesh of several devices does): the tensor
+    holds all :func:`axis_extent` of them. On a ``DeviceMesh`` each rank
+    holds its own shard only, so the answer is 1; so it is with no rules
+    active."""
+    mesh = current_mesh()
+    if mesh is None or is_device_mesh(mesh):
+        return 1
+    return axis_extent(name)
+
+
+def axis_group(name: str):
+    """The process group the logical axis ``name`` is split over: the
+    group of its mesh dimension on a ``DeviceMesh`` of more than one rank
+    along it, else None (no rules, a stand-in, or an axis not split)."""
+    mesh = current_mesh()
+    if mesh is None or not is_device_mesh(mesh):
+        return None
+    ms = mesh_shape(mesh)
+    axes = _mesh_axes_for(name, ms)
+    if _extent(axes, ms) == 1:
+        return None
+    if len(axes) != 1:
+        raise NotImplementedError(f"axis {name!r} spans the mesh dimensions "
+                                  f"{axes}; one is supported")
+    return mesh.get_group(axes[0])

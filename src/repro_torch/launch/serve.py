@@ -37,6 +37,14 @@ migrates its requests and the wave still completes; an incomplete wave
 exits 1), and ``--max-replicas M --scale-up-depth D`` turns on
 queue-depth autoscaling between the initial pool and M.
 
+Across ranks: under ``torchrun --nproc-per-node N`` (``WORLD_SIZE`` > 1)
+the launcher joins the process group from the environment (NCCL on the
+cards, one per rank, ``LOCAL_RANK`` selecting it; gloo with ``--device
+cpu``) and every rank serves the same wave through one engine whose slot
+batch splits across the ranks (``ServeEngine``'s ``serve_mesh`` path).
+Every rank checks the roll-forward; rank 0 prints. The fleet flags run in
+one process only. The group is left on exit.
+
 ``--ckpt-dir D`` serves the params of the latest checkpoint under D (one
 written by either package's trainer) instead of the random ones.
 
@@ -49,12 +57,15 @@ such as ``'{"bb": 2, "splits": 4}'`` sets the head GEMM's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
@@ -68,12 +79,21 @@ from repro_torch.train.checkpoint import CheckpointManager
 # at parse time
 MAX_WAVE_STEPS = 10_000
 
+
+def _say(*args) -> None:
+    """Print on rank 0 only (every rank of a group computes the same)."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*args)
+
+
 def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
           failed_group, arrival_rate: float = 0.0, deadline_ms=None) -> dict:
     """Serve the synthetic wave (8-token prompts from a seeded generator);
     returns {rid: tokens} of the requests that completed. With
     ``arrival_rate`` > 0 each request is submitted at its seeded Poisson
-    arrival time (wall clock), the engine stepping in between."""
+    arrival time on the engine's clock (the wall clock; across ranks rank
+    0's, so every rank submits at the same step), the engine stepping in
+    between."""
     rng = np.random.default_rng(0)
     reqs = [Request(rid=r, max_new=max_new, deadline_ms=deadline_ms,
                     prompt=rng.integers(0, vocab, size=8).astype(np.int32))
@@ -86,12 +106,13 @@ def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
     else:
         arrivals = np.cumsum(rng.exponential(1.0 / arrival_rate,
                                              size=n_requests))
-        t0, i, steps = time.monotonic(), 0, 0
+        clock = eng.sched.clock
+        t0, i, steps = clock(), 0, 0
         while i < n_requests or not eng.idle():
-            now = time.monotonic() - t0
+            now = clock() - t0
             if i < n_requests and eng.idle() and arrivals[i] > now:
                 time.sleep(arrivals[i] - now)  # nothing to serve yet
-                now = time.monotonic() - t0
+                now = clock() - t0
             while i < n_requests and arrivals[i] <= now:
                 eng.submit(reqs[i])
                 i += 1
@@ -101,7 +122,7 @@ def _wave(eng: ServeEngine, n_requests: int, vocab: int, max_new: int,
                 raise RuntimeError("open-loop wave failed to drain")
     shed = sum(r.status == "shed" for r in reqs)
     if shed:
-        print(f"[launch.serve] shed {shed} queued requests past "
+        _say(f"[launch.serve] shed {shed} queued requests past "
               f"--deadline-ms {deadline_ms}")
     return {r.rid: np.asarray(r.out) for r in reqs if r.status == "done"}
 
@@ -235,6 +256,11 @@ def _validate_args(ap: argparse.ArgumentParser, args):
     elif args.kill_replica:
         ap.error(f"--kill-replica ({args.kill_replica}) requires "
                  f"--kill-replica-at to schedule the fail-stop")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and (
+            args.replicas > 1 or args.max_replicas
+            or args.kill_replica_at >= 0):
+        ap.error("the fleet flags serve in one process; under torchrun "
+                 "the ranks split one engine's slot batch")
     return buckets
 
 
@@ -306,10 +332,34 @@ def parse_blocks(text: str):
     return json.loads(text)
 
 
+@contextlib.contextmanager
+def _process_group(device: str):
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1): join the group from the
+    environment, NCCL on the cards (this rank's card, ``LOCAL_RANK``,
+    made current first) or gloo on the CPU, and leave it on exit. With no
+    ``WORLD_SIZE``, or a group already made by the caller, nothing."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        yield
+        return
+    cpu = torch.device(device).type == "cpu"
+    if not cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("gloo" if cpu else "nccl")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
     buckets = _validate_args(ap, args)
+    with _process_group(args.device):
+        _serve(ap, args, buckets)
+
+
+def _serve(ap, args, buckets) -> None:
     try:
         cfg = (get_smoke_config(args.arch) if args.smoke
                else get_config(args.arch))
@@ -329,7 +379,7 @@ def main(argv=None) -> None:
         restored, step = CheckpointManager(args.ckpt_dir).restore(
             {"params": params})
         params = restored["params"]
-        print(f"[launch.serve] restored params from step {step}")
+        _say(f"[launch.serve] restored params from step {step}")
     scfg = ServeConfig(max_batch=args.max_batch, max_seq=args.max_seq,
                        ft_mode=args.ft_mode, ft_M=args.ft_M,
                        ft_scope=args.ft_scope, prefill_buckets=buckets,
@@ -349,15 +399,18 @@ def main(argv=None) -> None:
                  arrival_rate=args.arrival_rate,
                  deadline_ms=args.deadline_ms)
     first = outs[0][:8].tolist() if 0 in outs else "<request 0 not completed>"
-    print(f"[launch.serve] {len(outs)}/{args.requests} requests completed in "
-          f"{eng.decode_calls} batched decode calls; first output: {first}")
-    print(f"[launch.serve] shape census: {eng.census}")
+    ranks = (f" over {eng.lay.procs} ranks (this one: slots "
+             f"[{eng.slot_lo}, {eng.slot_hi}))" if eng.lay.procs > 1 else "")
+    _say(f"[launch.serve] {len(outs)}/{args.requests} requests completed in "
+         f"{eng.decode_calls} batched decode calls{ranks}; first output: "
+         f"{first}")
+    _say(f"[launch.serve] shape census: {eng.census}")
     if args.blocks == "auto":
         from repro_torch.kernels import autotune
 
-        print(f"[launch.serve] autotune: {autotune.stats()}; head-GEMM "
-              f"winners: {eng.census.get('head_gemm')}; protected sites "
-              f"warmed: {len(eng.census.get('protected', {}))}")
+        _say(f"[launch.serve] autotune: {autotune.stats()}; head-GEMM "
+             f"winners: {eng.census.get('head_gemm')}; protected sites "
+             f"warmed: {len(eng.census.get('protected', {}))}")
     del eng  # the recovery summary's engines hold their own int8 copies
 
     if args.smoke and args.ft_mode == "entangle":
@@ -386,10 +439,10 @@ def main(argv=None) -> None:
             tokens = sum(len(v) for v in healthy.values())
             verdict = ("EXACT ROLL-FORWARD" if mismatches == 0
                        else "RECOVERY FAILED")
-            print(f"[launch.serve] recovery summary [scope={scope}]: "
-                  f"failed_group={inj} injected on every step; "
-                  f"{len(healthy)} requests / {tokens} tokens compared; "
-                  f"mismatching requests: {mismatches} ({verdict})")
+            _say(f"[launch.serve] recovery summary [scope={scope}]: "
+                 f"failed_group={inj} injected on every step; "
+                 f"{len(healthy)} requests / {tokens} tokens compared; "
+                 f"mismatching requests: {mismatches} ({verdict})")
             any_mismatch |= bool(mismatches)
         if any_mismatch:
             raise SystemExit(1)

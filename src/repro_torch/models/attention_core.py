@@ -32,6 +32,11 @@ DEFAULT_KB = 512
 # the card's attention GEMMs take their queries in blocks of this many
 # (_softmax_attend)
 Q_BLOCK = 16
+# ... and their batch rows in slabs of this many (layers.ABSORB_ROWS, the
+# engine's default slot count): cuBLAS picks a batched GEMM's kernel by
+# its batch count too (deepseek-v2-lite's MLA prefill scores, 192 wide,
+# got other bits at 4 rows than at 8 on the H100)
+B_SLAB = 8
 
 
 class MaskInfo(NamedTuple):
@@ -65,16 +70,42 @@ def _block_mask(info: MaskInfo, qpos: torch.Tensor,
 
 def _softmax_attend(q, k, v, ok, scale: float) -> torch.Tensor:
     """Masked softmax attention, scores and weighted sum in float32. On
-    the card the queries go in blocks of :data:`Q_BLOCK` (the last block
-    padded with masked zero queries), one pair of GEMMs of one shape per
-    block: cuBLAS picks its kernel by the query rows, and a decode step's
-    single query got other bits than the same query inside a prefill
-    chunk (recurrentgemma-2b's MQA, 10 query heads of 256 on one key head,
-    on the H100), which a position's prefill / decode bit-identity (the
-    fleet's prefix resume) cannot have. A training forward (under
-    autograd) keeps one pair of GEMMs."""
+    the card the batch rows go in slabs of :data:`B_SLAB` (the last slab
+    padded with zero rows) and, within a slab, the queries in blocks of
+    :data:`Q_BLOCK` (the last block padded with masked zero queries): one
+    pair of GEMMs of one shape per block. cuBLAS picks its kernel by the
+    query rows and by the batch count, so a decode step's single query got
+    other bits than the same query inside a prefill chunk
+    (recurrentgemma-2b's MQA, 10 query heads of 256 on one key head, on
+    the H100), which a position's prefill / decode bit-identity (the
+    fleet's prefix resume) cannot have, and a row's bits would depend on
+    how many rows share the call (the engine split across ranks). The
+    operands go in as contiguous float32 copies, so that every call hands
+    cuBLAS one layout (a padded slab is a new tensor; a cache view is
+    strided). A training forward (under autograd) keeps one pair of
+    GEMMs."""
     if not q.is_cuda or q.requires_grad:
         return _softmax_block(q, k, v, ok, scale)
+    q, k, v = (t.to(torch.float32, memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    B = q.shape[0]
+    pad = (-B) % B_SLAB
+    per_row = ok is not None and ok.dim() == 5 and ok.shape[0] != 1
+    if pad:
+        q, k, v = (torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+                   for t in (q, k, v))
+        if per_row:
+            ok = torch.cat([ok, ok.new_zeros((pad,) + ok.shape[1:])])
+    outs = [_query_blocks(q[i:i + B_SLAB], k[i:i + B_SLAB], v[i:i + B_SLAB],
+                          ok[i:i + B_SLAB] if per_row else ok, scale)
+            for i in range(0, B + pad, B_SLAB)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out[:B]
+
+
+def _query_blocks(q, k, v, ok, scale: float) -> torch.Tensor:
+    """:func:`_softmax_block` over the queries in blocks of
+    :data:`Q_BLOCK`."""
     T = q.shape[3]
     pad = (-T) % Q_BLOCK
     if pad:

@@ -107,16 +107,46 @@ def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     in bfloat16 (no float32 [B, T, D] product)."""
     x32 = x.to(torch.float32)
     if cfg.norm_kind == "layernorm":
-        mu = torch.mean(x32, -1, keepdim=True)
-        var = torch.mean(torch.square(x32 - mu), -1, keepdim=True)
+        mu = _rows_mean(x32)
+        var = _rows_mean(torch.square(x32 - mu))
         y = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
         return (y * p["scale"] + p["bias"]).to(ACT_DTYPE)
-    ms = torch.mean(torch.square(x32), -1, keepdim=True)
+    ms = _rows_mean(torch.square(x32))
     if cfg.norm_f32:
         return (x32 * torch.rsqrt(ms + cfg.norm_eps)
                 * p["scale"]).to(ACT_DTYPE)
     inv = torch.rsqrt(ms + cfg.norm_eps).to(ACT_DTYPE)
     return x.to(ACT_DTYPE) * inv * p["scale"].to(ACT_DTYPE)
+
+
+def _rows_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean(-1, keepdim=True)``; on the card in blocks of
+    :data:`GEMM_ROWS` rows (the last one padded with zero rows), one
+    reduction of one shape per block: the reduction kernel orders a row's
+    sum by how many rows share the call (a norm's mean square got other
+    float32 bits in a decode step of 4 rows than of 8 on the H100), so a
+    row's bits would depend on the batch. A training forward (under
+    autograd) keeps one reduction."""
+    if not x.is_cuda or x.requires_grad:
+        return torch.mean(x, -1, keepdim=True)
+    D = x.shape[-1]
+    R = x.numel() // D
+    xr = F.pad(x.reshape(R, D), (0, 0, 0, (-R) % GEMM_ROWS))
+    ys = [torch.mean(xr[i:i + GEMM_ROWS], -1, keepdim=True)
+          for i in range(0, xr.shape[0], GEMM_ROWS)]
+    y = ys[0] if len(ys) == 1 else torch.cat(ys)
+    return y[:R].reshape(*x.shape[:-1], 1)
+
+
+def _sum_in_order(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """``a.sum(dim)`` over a short axis as left-to-right float32 adds,
+    rounded to ``a``'s dtype once: one order on every device and batch
+    (a library reduction orders a sum by the shape of the call)."""
+    parts = a.to(torch.float32).unbind(dim)
+    acc = parts[0]
+    for t in parts[1:]:
+        acc = acc + t
+    return acc.to(a.dtype)
 
 
 # ------------------------------------------------------------------ rope ----
@@ -808,60 +838,107 @@ def _top_k(probs: torch.Tensor, k: int) -> tuple:
 
 
 def route(p, hf: torch.Tensor, *, cfg: ModelConfig, ft=None) -> tuple:
-    """The router: normed tokens [N, D] -> (combine weights [N, k] float32,
-    expert ids [N, k]), the top-k of the gate probabilities renormalized
-    to sum to 1. With ``ft`` covering ``mlp.router`` the logits come from
-    the protected GEMM, so a failed group cannot reroute tokens."""
+    """The router: normed tokens [..., D] -> (combine weights [..., k]
+    float32, expert ids [..., k]), the top-k of the gate probabilities
+    renormalized to sum to 1. With ``ft`` covering ``mlp.router`` the
+    logits come from the protected GEMM, so a failed group cannot reroute
+    tokens; else a float32 GEMM in :func:`_rows_matmul`'s blocks, so that
+    a token's route on the card does not depend on how many tokens share
+    the call."""
     if ft is not None and ft.protects("mlp.router"):
         rw = ((p["router_q8"]["w"], p["router_q8"]["scale"])
               if "router_q8" in p else p["router"])
         logits = ft.matmul("mlp.router", hf, rw)
     else:  # bf16 operands, float32 accumulation and result
-        logits = torch.matmul(hf.to(torch.float32),
+        logits = _rows_matmul(hf.to(torch.float32),
                               p["router"].to(ACT_DTYPE).to(torch.float32))
     probs = (torch.sigmoid(logits) if cfg.moe.gating == "sigmoid"
              else torch.softmax(logits, dim=-1))
     vals, idx = _top_k(probs, cfg.moe.top_k)
-    return vals / (vals.sum(-1, keepdim=True) + 1e-9), idx
+    return vals / (_sum_in_order(vals, -1)[..., None] + 1e-9), idx
+
+
+def moe_groups(n_tokens: int, cfg: ModelConfig) -> tuple:
+    """(G, group): the dispatch groups of :func:`apply_moe` over
+    ``n_tokens`` tokens of this process, and the process group whose ranks'
+    tokens it gathers first (or None).
+
+    The rule: G counts the ``batch`` shards that THIS process's tensor
+    holds (:func:`repro_torch.dist.sharding.local_extent`). Under a
+    stand-in mesh ``{"data": n}`` one process holds every shard, so G = n,
+    the reference's ``axis_extent("batch")``; on a rank of a ``DeviceMesh``
+    (the engine's mesh across processes) the tensor is that rank's shard
+    already, so G = 1, and the rank's tokens are its group. G falls back
+    to 1 where it does not divide the tokens, as in the reference.
+    ``dispatch="global_sort"`` keeps one group over every token: on a
+    ``DeviceMesh`` the ranks' tokens are all-gathered first (what the
+    reference's GSPMD lowering did), and each rank keeps its own rows of
+    the result."""
+    from repro_torch.dist.sharding import axis_group, local_extent
+
+    if getattr(cfg.moe, "dispatch", "grouped") == "grouped":
+        G, group = local_extent("batch"), None
+    else:
+        G, group = 1, axis_group("batch")
+    return (1 if n_tokens % G else G), group
 
 
 def apply_moe(p, x: torch.Tensor, *, cfg: ModelConfig, valid=None, ft=None):
-    """Routed experts plus shared experts, with the reference's sort-based
-    capacity dispatch over the whole batch (one dispatch group; the
-    reference's data-parallel groups and sharding constraints do not
-    apply to one card).
+    """Routed experts plus shared experts, with the reference's grouped
+    sort-based capacity dispatch: the N tokens split into G contiguous
+    groups of ``n_loc`` (:func:`moe_groups`), and each group routes, sorts,
+    fills its experts' buffers and combines on its own.
 
-    Each token picks its top-k experts; assignments are sorted by expert
-    (stably, so within an expert they keep token order) and expert e's
-    buffer of C rows (:func:`_moe_capacity`) takes its first C
-    assignments; later ones are dropped. ``valid`` [B, T] (bucketed
-    prefill) routes pad tokens to a virtual expert E, so they never take
-    capacity from real tokens. With ``ft`` covering ``moe.gate`` the three
-    expert projections run through the grouped entangled kernel, all E
-    experts in one call each."""
+    Each token picks its top-k experts; a group's assignments are sorted
+    by expert (stably, so within an expert they keep token order) and
+    expert e's buffer of C rows (:func:`_moe_capacity` of ``n_loc``) takes
+    its first C assignments; later ones are dropped. ``valid`` [B, T]
+    (bucketed prefill) routes pad tokens to a virtual expert E, so they
+    never take capacity from real tokens. With ``ft`` covering ``moe.gate``
+    the three expert projections run through the grouped entangled kernel
+    on the [G, E, C, D] buffer, all E experts of every group in one call
+    each."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.collectives import all_gather_rows
+
     mc = cfg.moe
     B, T, D = x.shape
-    N, E, K = B * T, mc.n_experts, mc.top_k
+    E, K = mc.n_experts, mc.top_k
     dev = x.device
-    hf = apply_norm(p["norm"], x, cfg).reshape(N, D)
-    weights, idx = route(p, hf, cfg=cfg, ft=ft)  # [N, K] each
+    hf = apply_norm(p["norm"], x, cfg).reshape(B * T, D)
+    G, group = moe_groups(B * T, cfg)
+    hr, vr = hf, valid
+    if group is not None:  # global_sort across ranks: every rank's tokens
+        hr = all_gather_rows(hf, group)
+        if valid is not None:
+            vr = all_gather_rows(valid.reshape(-1).to(torch.int32),
+                                 group).bool()
+    N = hr.shape[0]
+    n_loc = N // G
+    hg = hr.reshape(G, n_loc, D)
+    weights, idx = route(p, hr, cfg=cfg, ft=ft)  # [N, K] each
+    weights, idx = weights.reshape(G, n_loc, K), idx.reshape(G, n_loc, K)
 
-    C = _moe_capacity(N, cfg)
-    A = N * K  # assignments
-    if valid is not None:  # pad tokens -> virtual expert E
-        idx = torch.where(valid.reshape(N, 1), idx, E)
-    e_flat, w_flat = idx.reshape(A), weights.reshape(A)
-    order = torch.argsort(e_flat, stable=True)
-    starts = torch.searchsorted(e_flat[order],
-                                torch.arange(E + 1, device=dev), side="left")
-    # buffer slot e*C + j takes sorted assignment starts[e] + j
+    C = _moe_capacity(n_loc, cfg)
+    A = n_loc * K  # assignments per group
+    if vr is not None:  # pad tokens -> virtual expert E
+        idx = torch.where(vr.reshape(G, n_loc, 1), idx, E)
+    e_flat, w_flat = idx.reshape(G, A), weights.reshape(G, A)
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    starts = torch.searchsorted(
+        torch.gather(e_flat, 1, order),
+        torch.arange(E + 1, device=dev).expand(G, E + 1).contiguous(),
+        side="left")  # [G, E + 1]
+    # buffer slot e*C + j takes the group's sorted assignment starts[e] + j
     slot = torch.arange(E * C, device=dev)
     eidx = slot // C
-    src = starts[eidx] + slot % C
-    slot_ok = src < starts[eidx + 1]
-    src_tok = order[torch.clamp(src, max=A - 1)] // K
-    expert_in = torch.where(slot_ok[:, None], hf[src_tok],
-                            0).reshape(E, C, D)
+    src = starts[:, eidx] + slot % C  # [G, E*C]
+    slot_ok = src < starts[:, eidx + 1]
+    src_tok = torch.gather(order, 1, torch.clamp(src, max=A - 1)) // K
+    rows = torch.gather(hg, 1, src_tok[..., None].expand(G, E * C, D))
+    expert_in = torch.where(slot_ok[..., None], rows,
+                            0).reshape(G, E, C, D)
     if ft is not None and ft.protects("moe.gate"):
         def _we(name):
             q = p.get(name + "_q8")
@@ -879,16 +956,20 @@ def apply_moe(p, x: torch.Tensor, *, cfg: ModelConfig, valid=None, ft=None):
 
     # combine: assignment (t, k) sits at sorted position inv_order, its
     # rank within the expert is that minus starts[e], its slot e*C + rank
-    inv_order = torch.argsort(order)
-    rank = inv_order - starts[e_flat]
-    keep = rank < C
-    if valid is not None:
+    inv_order = torch.argsort(order, dim=-1)
+    within = inv_order - torch.gather(starts, 1, e_flat)
+    keep = within < C
+    if vr is not None:
         keep &= e_flat < E  # virtual-expert (pad) assignments add nothing
-    src_slot = torch.clamp(e_flat * C + rank, max=E * C - 1)
-    hsel = out_e.reshape(E * C, D)[src_slot]  # [A, D]
-    contrib = torch.where(keep[:, None],
-                          w_flat[:, None].to(ACT_DTYPE) * hsel, 0)
-    out = contrib.reshape(N, K, D).sum(dim=1)
+    src_slot = torch.clamp(e_flat * C + within, max=E * C - 1)
+    hsel = torch.gather(out_e.reshape(G, E * C, D), 1,
+                        src_slot[..., None].expand(G, A, D))  # [G, A, D]
+    contrib = torch.where(keep[..., None],
+                          w_flat[..., None].to(ACT_DTYPE) * hsel, 0)
+    out = _sum_in_order(contrib.reshape(N, K, D), 1)
+    if group is not None:  # this rank's own rows
+        r = dist.get_rank(group)
+        out = out[r * B * T:(r + 1) * B * T]
 
     if mc.n_shared:
         sp = p["shared"]

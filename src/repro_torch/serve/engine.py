@@ -71,6 +71,29 @@ them in place; PyTorch runs eagerly, and the port's layers write the
 caches in place themselves. Not ported: ``prefill_batch`` (no ported
 caller sets it; admission batches have ``max_batch`` rows).
 
+Serving across ranks: the engine reads ``dist.sharding.serve_mesh()`` at
+construction, as the reference does. Under a process group of n >= 2
+ranks (one process per GPU, e.g. ``torchrun``) that is a ``DeviceMesh``
+with one ``data`` dimension, and the slot batch splits across it as the
+reference's ``batch -> data`` rule splits it across devices: rank g holds
+the cache rows of slots ``[g B/n, (g+1) B/n)`` and runs decode and the
+entangled head over them (the M request groups are the rank's own rows).
+An admission batch's ``Bp`` rows (or a packed program's ``Rp``) split into
+n contiguous blocks too, and block g's rows take free slots of block g, so
+prefill and landing stay on that rank. The sampled tokens are all-gathered
+over a gloo group of the same ranks, on the host. Every rank is built from
+the same config and params and given the same requests and calls; it makes
+the same host decisions (shedding, EDF order, admission, finishing,
+metrics) from the exchanged state and one clock (rank 0's, broadcast), so
+its host state equals every other rank's after every step. A batch whose
+rows do not divide by n runs whole on every rank (the reference's rule
+drops the axis there), under a stand-in mesh, so that its MoE layers still
+form the n dispatch groups of :func:`repro_torch.models.layers.moe_groups`.
+Outside a group of two or more ranks the engine takes a stand-in mesh
+(``{"data": n}``, a ``shape`` mapping) from an active ``axis_rules``: one
+process then lays its slots out and runs every block, as the reference
+does on one host of n devices. With neither, everything is one block.
+
 Launch parameters (``ServeConfig.blocks``): None keeps the kernels' rules
 (the launcher picks the head's rows per block for each call's rows, which
 is what the reference's ``_default_head_blocks`` clamp does, so the port
@@ -83,6 +106,7 @@ cache hit. A replica started from ``warm=`` state sweeps nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Optional, Sequence
@@ -93,6 +117,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import make_plan
+from repro_torch.dist import sharding
 from repro_torch.ft import (SCOPES, FTContext, PlanRegistry, compile_plans,
                             prepare_params)
 from repro_torch.ft.heads import (ft_logits_decode, ft_logits_prefill,
@@ -169,6 +194,102 @@ class Request:
     tok_times: list = dataclasses.field(default_factory=list)
 
 
+class SlotLayout:
+    """Where an engine's batches lie across the ``data`` dimension of its
+    mesh (None, a stand-in, or a ``DeviceMesh`` of ``procs`` ranks).
+
+    ``n`` is the dimension's extent. A batch of X rows is *split* when the
+    ranks are processes (``procs > 1``), n divides X and the slot count B
+    (admission rows then fall in the slot blocks of their ranks); this
+    process then computes rows ``span(X)`` of it, else all X. The slots are
+    *blocked* (admission rows kept in their slots' blocks) whenever n > 1
+    divides B, in one process too, so that a stand-in engine plans the
+    same batches as the ranks do."""
+
+    def __init__(self, mesh, B: int):
+        self.mesh, self.B = mesh, B
+        self.n = (sharding.mesh_shape(mesh).get("data", 1)
+                  if mesh is not None else 1)
+        self.procs = (self.n if mesh is not None
+                      and sharding.is_device_mesh(mesh) else 1)
+        self.rank = mesh.get_local_rank("data") if self.procs > 1 else 0
+        self.blocked = self.n > 1 and B % self.n == 0
+        self.whole = sharding.StandInMesh({"data": self.n})
+        self.host = None
+        if self.procs > 1:
+            import torch.distributed as dist
+
+            g = mesh.get_group("data")
+            # the tokens and the clock go through the host: gloo
+            self.host = g if dist.get_backend(g) == "gloo" else \
+                dist.new_group(dist.get_process_group_ranks(g),
+                               backend="gloo")
+            self._src = dist.get_global_rank(self.host, 0)
+
+    def split(self, X: int) -> bool:
+        return self.procs > 1 and self.blocked and X % self.n == 0
+
+    def span(self, X: int) -> tuple:
+        """Rows [lo, hi) of an X-row batch that this process computes."""
+        if not self.split(X):
+            return 0, X
+        b = X // self.n
+        return self.rank * b, (self.rank + 1) * b
+
+    def rules(self, X: int):
+        """The sharding rules an X-row batch's program runs under: the
+        ranks' mesh where each holds its own rows, else the stand-in
+        (this process holds every shard)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding.axis_rules(self.mesh if self.split(X)
+                                   else self.whole)
+
+    def block_of_slot(self, slot: int) -> int:
+        return slot // (self.B // self.n) if self.blocked else 0
+
+    def gather(self, local: np.ndarray, X: int) -> np.ndarray:
+        """Every rank's rows of a split X-row result, in row order; the
+        result itself when this process computed all X rows."""
+        if not self.split(X):
+            return local
+        import torch.distributed as dist
+
+        t = torch.as_tensor(np.ascontiguousarray(local))
+        parts = [torch.empty_like(t) for _ in range(self.n)]
+        dist.all_gather(parts, t, group=self.host)
+        return torch.cat(parts).numpy()
+
+    def clock(self, base: Callable[[], float]) -> Callable[[], float]:
+        """One clock for every rank: rank 0's reading of ``base``,
+        broadcast (each call is a collective, which every rank makes at
+        the same point)."""
+        if self.procs == 1:
+            return base
+        import torch.distributed as dist
+
+        def shared() -> float:
+            t = torch.tensor([base()], dtype=torch.float64)
+            dist.broadcast(t, self._src, group=self.host)
+            return float(t[0])
+
+        return shared
+
+
+def _engine_mesh():
+    """The engine's mesh: ``serve_mesh()`` in a group of two or more ranks,
+    else a stand-in of more than one ``data`` shard from the active
+    ``axis_rules``, else None."""
+    mesh = sharding.serve_mesh()
+    if mesh is not None:
+        return mesh
+    cur = sharding.current_mesh()
+    if (cur is not None and not sharding.is_device_mesh(cur)
+            and sharding.mesh_shape(cur).get("data", 1) > 1):
+        return cur
+    return None
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, scfg: ServeConfig, params, *,
                  device=None, warm: Optional[dict] = None):
@@ -179,6 +300,8 @@ class ServeEngine:
                 or isinstance(scfg.blocks, dict)):
             raise ValueError(f"blocks must be None, a dict or 'auto', got "
                              f"{scfg.blocks!r}")
+        self.mesh = _engine_mesh()
+        self.lay = SlotLayout(self.mesh, scfg.max_batch)
         if warm is not None and warm.get("sig") != self._warm_sig():
             raise ValueError(
                 "warm state was built by a differently configured engine; "
@@ -191,8 +314,11 @@ class ServeEngine:
                              f"runs on {self.device}")
         self.model = get_model(cfg)
         B, S = scfg.max_batch, scfg.max_seq
-        # THE slot-batched cache: slot i = batch row i of every tensor
-        self.cache = self.model.init_cache(cfg, B, S, device=self.device)
+        # THE slot-batched cache: slot i = batch row i - slot_lo of every
+        # tensor; this process holds slots [slot_lo, slot_hi)
+        self.slot_lo, self.slot_hi = self.lay.span(B)
+        self.cache = self.model.init_cache(cfg, self.slot_hi - self.slot_lo,
+                                           S, device=self.device)
         self.slots: list = [None] * B
         self.queue: list = []
         self.done: list = []
@@ -232,13 +358,20 @@ class ServeEngine:
                    if scfg.token_budget else 0)
         self.Cp = scfg.prefill_chunk
         self.Bp = B  # admission batch rows
+        # packed programs keep their rows in the slot blocks when they split
+        self._pack_blocks = (self.lay.n if self.Rp and self.lay.blocked
+                             and self.Rp % self.lay.n == 0 else 1)
         if self.Rp:
-            # slot-indexed staging cache (row i = slot i) of every packed
-            # row's mid-prefill state, and its last-prompt hidden states
-            self._pack_cache = self.model.init_cache(cfg, B, S,
-                                                     device=self.device)
-            self._pack_hlast = torch.zeros((B, cfg.d_model), dtype=ACT_DTYPE,
-                                           device=self.device)
+            # slot-indexed staging cache (row i = slot i - stage_lo) of
+            # every packed row's mid-prefill state, and its last-prompt
+            # hidden states: this rank's slots when the program splits
+            self.stage_lo, stage_hi = (self.lay.span(B)
+                                       if self.lay.split(self.Rp) else (0, B))
+            self._pack_cache = self.model.init_cache(
+                cfg, stage_hi - self.stage_lo, S, device=self.device)
+            self._pack_hlast = torch.zeros(
+                (stage_hi - self.stage_lo, cfg.d_model), dtype=ACT_DTYPE,
+                device=self.device)
         self._inflight: list = []  # admission batches not landed yet
         self._reserved: set = set()  # slots claimed by in-flight rows
         self._dirty: list = []  # freed slots whose rows await zeroing
@@ -246,7 +379,8 @@ class ServeEngine:
         self.scatter_calls = 0  # batched row copies / zero fills
         self.sched = ChunkScheduler(
             max_prefill_per_step=scfg.max_prefill_per_step,
-            max_queue=scfg.max_queue, clock=scfg.clock or time.monotonic)
+            max_queue=scfg.max_queue,
+            clock=self.lay.clock(scfg.clock or time.monotonic))
         self._clock = self.sched.clock
         self.metrics = {"queue_depth_peak": 0, "rejected": 0, "shed": 0,
                         "refill_admissions": 0, "landings": 0,
@@ -327,10 +461,11 @@ class ServeEngine:
         ``census["protected"]``."""
         if self.scfg.ft_mode != "entangle" or self.scfg.blocks != "auto":
             return {}
-        M, B = self.plan.M, self.scfg.max_batch
+        M = self.plan.M
         D, V = self.cfg.d_model, self.head_q.shape[1]
-        # admission batches pad to a multiple of M: ceil(Bp / M) rows
-        shapes = {(M, B // M, D, V), (M, -(-self.Bp // M), D, V)}
+        # this rank's decode and landing rows, padded to a multiple of M
+        shapes = {(M, -(-self._local_rows(n) // M), D, V)
+                  for n in (self.scfg.max_batch, self.Bp)}
         won = {}
         for shape in sorted(shapes):
             won[shape] = kops.warm_entangled_matmul(
@@ -349,8 +484,14 @@ class ServeEngine:
 
     def _warm_sig(self) -> tuple:
         """What replicas sharing startup products must share: the model
-        config and the serving config but its clock."""
-        return (self.cfg, dataclasses.replace(self.scfg, clock=None))
+        config, the serving config but its clock, and the slot layout."""
+        return (self.cfg, dataclasses.replace(self.scfg, clock=None),
+                (self.lay.n, self.lay.procs, self.lay.rank))
+
+    def _local_rows(self, X: int) -> int:
+        """How many rows of an X-row batch this process computes."""
+        lo, hi = self.lay.span(X)
+        return hi - lo
 
     def warm_state(self) -> dict:
         """Startup products a replica of IDENTICAL config can share: the
@@ -392,26 +533,33 @@ class ServeEngine:
         ctx = dataclasses.replace(self.ftx, census_only=True)
         meta = torch.device("meta")
         mp = tree_map(lambda t: torch.empty_like(t, device=meta), self.params)
-        B, S = self.scfg.max_batch, self.scfg.max_seq
+        S = self.scfg.max_seq
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int64, device=meta)
 
-        self.model.decode_hidden(
-            mp, zeros(B, 1), self.model.init_cache(self.cfg, B, S,
-                                                   device=meta),
-            zeros(B), self.cfg, ft=ctx)
+        # every program at this rank's own rows, under its own rules
+        B = self._local_rows(self.scfg.max_batch)
+        with self.lay.rules(self.scfg.max_batch):
+            self.model.decode_hidden(
+                mp, zeros(B, 1), self.model.init_cache(self.cfg, B, S,
+                                                       device=meta),
+                zeros(B), self.cfg, ft=ctx)
         if self.Rp:  # one program shape for every packing mix
-            self.model.prefill_packed(
-                mp, zeros(self.Rp, self.Cp), self.cfg,
-                self.model.init_cache(self.cfg, self.Rp, S, device=meta),
-                pos0=zeros(self.Rp), lengths=zeros(self.Rp), ft=ctx)
+            R = self._local_rows(self.Rp)
+            with self.lay.rules(self.Rp):
+                self.model.prefill_packed(
+                    mp, zeros(R, self.Cp), self.cfg,
+                    self.model.init_cache(self.cfg, R, S, device=meta),
+                    pos0=zeros(R), lengths=zeros(R), ft=ctx)
         else:
+            Bp = self._local_rows(self.Bp)
             for C in sorted(self._chunk_widths):
-                self.model.prefill_chunk(
-                    mp, zeros(self.Bp, C), self.cfg,
-                    self.model.init_cache(self.cfg, self.Bp, S, device=meta),
-                    pos0=0, lengths=zeros(self.Bp), ft=ctx)
+                with self.lay.rules(self.Bp):
+                    self.model.prefill_chunk(
+                        mp, zeros(Bp, C), self.cfg,
+                        self.model.init_cache(self.cfg, Bp, S, device=meta),
+                        pos0=0, lengths=zeros(Bp), ft=ctx)
         return self.registry.census()
 
     # -- requests -------------------------------------------------------------
@@ -471,10 +619,20 @@ class ServeEngine:
         return logits * readout_scale(self.cfg)
 
     def _copy_rows(self, src, src_rows: list, dst_slots: list,
-                   zero_slots: list) -> None:
+                   zero_slots: list, src_lo: int = 0) -> None:
         """ONE batched row copy into the slot pool per cache tensor: row
         ``src_rows[j]`` of ``src`` lands in slot ``dst_slots[j]``, and the
-        recycled ``zero_slots`` are zeroed in the same copy."""
+        recycled ``zero_slots`` are zeroed in the same copy. Rows and
+        slots are batch-wide numbers; this process copies those of its own
+        slots (``src`` holds rows from ``src_lo`` on)."""
+        self.scatter_calls += 1
+        lo, hi = self.slot_lo, self.slot_hi
+        pairs = [(r - src_lo, i - lo) for r, i in zip(src_rows, dst_slots)
+                 if lo <= i < hi]
+        src_rows, dst_slots = [r for r, _ in pairs], [i for _, i in pairs]
+        zero_slots = [i - lo for i in zero_slots if lo <= i < hi]
+        if not (dst_slots or zero_slots):
+            return
         dev = self.device
         sids = torch.as_tensor(dst_slots + zero_slots, dtype=torch.int64,
                                device=dev)
@@ -493,7 +651,6 @@ class ServeEngine:
             big.index_copy_(1, sids, rows)
 
         tree_map(land, self.cache, src)
-        self.scatter_calls += 1
 
     # -- admission ------------------------------------------------------------
 
@@ -523,27 +680,48 @@ class ServeEngine:
             self.metrics["refill_admissions"] += 1
         tokens = np.zeros((self.Bp, b0), np.int64)
         lengths = np.zeros(self.Bp, np.int64)
-        for j, req in enumerate(take):
+        slots = free[: len(take)]
+        rows = self._admission_rows(slots)
+        # p["reqs"][j] is row j's (slot, request); (None, None) is an
+        # empty row between filled ones (the slot-block layout)
+        reqs = [(None, None)] * (max(rows) + 1)
+        for j, slot, req in zip(rows, slots, take):
             tokens[j, : len(req.prompt)] = req.prompt
             lengths[j] = len(req.prompt)
             req.status = "prefill"
-        slots = free[: len(take)]
+            reqs[j] = (slot, req)
         self._reserved.update(slots)
         dev = self.device
-        p = {"reqs": list(zip(slots, take)), "bucket": b0, "pos0": 0,
+        p = {"reqs": reqs, "bucket": b0, "pos0": 0,
              "tokens_np": tokens, "lengths_np": lengths,
              # each row's prefill offset (token-packed admission)
              "rowpos": np.zeros(self.Bp, np.int64)}
         if not self.Rp:  # per-batch chunking: the batch's own cache
-            p.update(tokens=torch.as_tensor(tokens, device=dev),
-                     lengths=torch.as_tensor(lengths, device=dev),
-                     cache=self.model.init_cache(self.cfg, self.Bp,
+            lo, hi = self.lay.span(self.Bp)
+            p.update(tokens=torch.as_tensor(tokens[lo:hi], device=dev),
+                     lengths=torch.as_tensor(lengths[lo:hi], device=dev),
+                     cache=self.model.init_cache(self.cfg, hi - lo,
                                                  self.scfg.max_seq,
                                                  device=dev),
-                     h_last=torch.zeros((self.Bp, self.cfg.d_model),
+                     h_last=torch.zeros((hi - lo, self.cfg.d_model),
                                         dtype=ACT_DTYPE, device=dev))
         self._inflight.append(p)
         return True
+
+    def _admission_rows(self, slots: list) -> list:
+        """The row of the admission batch each slot's request takes: in
+        order, or, with the slots blocked, the next free row of the slot's
+        block (so that a row and its slot lie on one rank)."""
+        if not self.lay.blocked:
+            return list(range(len(slots)))
+        b = self.Bp // self.lay.n
+        used = [0] * self.lay.n
+        rows = []
+        for i in slots:
+            g = self.lay.block_of_slot(i)
+            rows.append(g * b + used[g])
+            used[g] += 1
+        return rows
 
     def _prefill_fg(self, failed_group: Optional[int]) -> Optional[int]:
         """The failed group a prefill program sees: only an in-model scope
@@ -559,14 +737,16 @@ class ServeEngine:
         C = self.scfg.prefill_chunk or Tb
         pos0 = p["pos0"]
         sz = min(C, Tb - pos0)
-        h, _ = self.model.prefill_chunk(
-            self.ft_params, p["tokens"][:, pos0:pos0 + sz], self.cfg,
-            p["cache"], pos0=pos0, lengths=p["lengths"],
-            ft=self._model_ft(self._prefill_fg(failed_group)))
+        with self.lay.rules(self.Bp):
+            h, _ = self.model.prefill_chunk(
+                self.ft_params, p["tokens"][:, pos0:pos0 + sz], self.cfg,
+                p["cache"], pos0=pos0, lengths=p["lengths"],
+                ft=self._model_ft(self._prefill_fg(failed_group)))
         self.prefill_calls += 1
         idx = p["lengths"] - 1 - pos0
         in_chunk = (idx >= 0) & (idx < sz)
-        h_at = h[torch.arange(self.Bp, device=h.device), idx.clamp(0, sz - 1)]
+        h_at = h[torch.arange(h.shape[0], device=h.device),
+                 idx.clamp(0, sz - 1)]
         p["h_last"] = torch.where(in_chunk[:, None], h_at, p["h_last"])
         p["pos0"] = pos0 + sz
         if p["pos0"] < Tb:
@@ -582,15 +762,18 @@ class ServeEngine:
         ``p["h_last"]`` ([Bp] rows in admission order) and copy its live
         rows (row ``src_rows[j]`` of ``src``) into their slots, with the
         recycled rows that are waiting for zeroing in the same copy. Rows
-        cancelled mid-prefill never land."""
+        cancelled mid-prefill never land. ``p["h_last"]`` holds this
+        process's rows of the batch; the first tokens are gathered."""
         live = [(j, i, req) for j, (i, req) in enumerate(p["reqs"])
                 if req is not None]
         if live:
             valid = np.zeros(self.Bp, bool)
             valid[[j for j, _, _ in live]] = True
-            first = torch.argmax(self._head_logits(
-                p["h_last"], torch.as_tensor(valid, device=self.device),
-                failed_group, ft_logits_prefill), dim=-1).cpu()
+            lo, hi = self.lay.span(self.Bp)
+            first = self.lay.gather(torch.argmax(self._head_logits(
+                p["h_last"], torch.as_tensor(valid[lo:hi], device=self.device),
+                failed_group, ft_logits_prefill), dim=-1).cpu().numpy(),
+                self.Bp)
         dst = [i for _, i, _ in live]
         merge = [i for i in self._dirty
                  if self.slots[i] is None and i not in self._reserved
@@ -600,7 +783,9 @@ class ServeEngine:
         self.metrics["merged_zero_rows"] += len(merge)
         self.metrics["merged_landings"] += bool(merge)
         if dst or merge:
-            self._copy_rows(src, src_rows, dst, merge)
+            self._copy_rows(src, src_rows, dst, merge,
+                            src_lo=(self.stage_lo if self.Rp
+                                    else self.lay.span(self.Bp)[0]))
         now = self._clock()
         for j, i, req in live:
             self._reserved.discard(i)
@@ -625,28 +810,41 @@ class ServeEngine:
         program over rows gathered from the staging cache; then land every
         batch whose live rows are all complete. Returns True if any row
         was packed."""
-        rows = self.sched.pack_rows(self._inflight, self.Rp)
+        nb = self._pack_blocks
+        rows = self.sched.pack_rows(
+            self._inflight, self.Rp, blocks=nb,
+            block_of=lambda p, i: self.lay.block_of_slot(p["reqs"][i][0]))
         if rows:
             tok = np.zeros((self.Rp, self.Cp), np.int64)
             sids = np.zeros(self.Rp, np.int64)
             pos0r = np.zeros(self.Rp, np.int64)
             lens = np.zeros(self.Rp, np.int64)
+            real = np.zeros(self.Rp, bool)
             true_toks = 0
-            for r, (p, i) in enumerate(rows):
+            # a row's place: in order, or the next one of its slot's block
+            per, used_rows = self.Rp // nb, [0] * nb
+            for p, i in rows:
+                g = self.lay.block_of_slot(p["reqs"][i][0]) if nb > 1 else 0
+                r = g * per + used_rows[g]
+                used_rows[g] += 1
                 off = int(p["rowpos"][i])
                 n = min(self.Cp, int(p["lengths_np"][i]) - off)
                 tok[r, :n] = p["tokens_np"][i, off:off + n]
                 sids[r] = p["reqs"][i][0]
                 pos0r[r] = off
                 lens[r] = p["lengths_np"][i]
+                real[r] = True
                 true_toks += n
-            # pad rows stage in distinct spare slots; nothing is written
-            # back for them
-            used = set(sids[: len(rows)].tolist())
-            spare = [s for s in range(self.scfg.max_batch) if s not in used]
-            for r in range(len(rows), self.Rp):
-                sids[r] = spare.pop()
-            self._prefill_packed(tok, sids, pos0r, lens, len(rows),
+            # pad rows stage in distinct spare slots (of their block);
+            # nothing is written back for them
+            used = set(sids[real].tolist())
+            spare = [[s for s in range(self.scfg.max_batch) if s not in used
+                      and (nb == 1 or self.lay.block_of_slot(s) == g)]
+                     for g in range(nb)]
+            for r in np.nonzero(~real)[0]:
+                sids[r] = spare[r // per].pop()
+            self._prefill_packed(tok, sids, pos0r, lens,
+                                 len(rows) if nb == 1 else real,
                                  self._prefill_fg(failed_group))
             self.prefill_calls += 1
             self.metrics["packed_calls"] += 1
@@ -667,17 +865,22 @@ class ServeEngine:
                 self._land_packed(p, failed_group)
         return bool(rows)
 
-    def _prefill_packed(self, tok, sids, pos0r, lens, n: int,
+    def _prefill_packed(self, tok, sids, pos0r, lens, n,
                         failed_group: Optional[int]) -> None:
         """The packed program: gather the rows' staging state by slot,
         zero fresh rows (offset 0: a recycled staging row never leaks into
         a new prompt), run the model's token-packed prefill, keep each
-        row's last-prompt hidden state, and write the first ``n`` (the
-        real) rows back."""
+        row's last-prompt hidden state, and write the real rows back:
+        the first ``n``, or those of the boolean mask ``n`` (the slot-block
+        layout). This process runs its own rows of the program."""
         dev = self.device
-        sid_t = torch.as_tensor(sids, device=dev)
-        pos_t = torch.as_tensor(pos0r, device=dev)
-        len_t = torch.as_tensor(lens, device=dev)
+        lo, hi = self.lay.span(self.Rp)
+        real = (np.arange(self.Rp) < n if isinstance(n, int)
+                else np.asarray(n))[lo:hi]
+        tok = tok[lo:hi]
+        sid_t = torch.as_tensor(sids[lo:hi] - self.stage_lo, device=dev)
+        pos_t = torch.as_tensor(pos0r[lo:hi], device=dev)
+        len_t = torch.as_tensor(lens[lo:hi], device=dev)
         fresh = pos_t == 0
 
         def take(a):
@@ -686,19 +889,24 @@ class ServeEngine:
             return torch.where(f, rows.new_zeros(()), rows)
 
         rows = tree_map(take, self._pack_cache)
-        h, _ = self.model.prefill_packed(
-            self.ft_params, torch.as_tensor(tok, device=dev), self.cfg, rows,
-            pos0=pos_t, lengths=len_t, ft=self._model_ft(failed_group))
+        with self.lay.rules(self.Rp):
+            h, _ = self.model.prefill_packed(
+                self.ft_params, torch.as_tensor(tok, device=dev), self.cfg,
+                rows, pos0=pos_t, lengths=len_t,
+                ft=self._model_ft(failed_group))
         Cp = tok.shape[1]
         idx = len_t - 1 - pos_t
         in_chunk = (idx >= 0) & (idx < Cp)
-        h_at = h[torch.arange(self.Rp, device=dev), idx.clamp(0, Cp - 1)]
+        h_at = h[torch.arange(h.shape[0], device=dev), idx.clamp(0, Cp - 1)]
         hrow = torch.where(in_chunk[:, None], h_at,
                            self._pack_hlast.index_select(0, sid_t))
-        real = sid_t[:n]
-        tree_map(lambda big, small: big.index_copy_(1, real, small[:, :n]),
-                 self._pack_cache, rows)
-        self._pack_hlast.index_copy_(0, real, hrow[:n])
+        ri = torch.as_tensor(np.nonzero(real)[0], device=dev)
+        if not len(ri):
+            return
+        dst = sid_t[ri]
+        tree_map(lambda big, small: big.index_copy_(
+            1, dst, small.index_select(1, ri)), self._pack_cache, rows)
+        self._pack_hlast.index_copy_(0, dst, hrow[ri])
 
     def _land_packed(self, p: dict, failed_group: Optional[int]) -> None:
         """Land a finished packed batch: its last-prompt hidden states are
@@ -706,9 +914,18 @@ class ServeEngine:
         row -> group map is the per-batch path's), and its live rows move
         from the staging cache to the same slots of the pool."""
         sids_l = [i for i, _ in p["reqs"]]
+        sids_l += [None] * (self.Bp - len(sids_l))
         spare = [s for s in range(self.scfg.max_batch) if s not in sids_l]
-        gsids = torch.as_tensor(sids_l + spare[: self.Bp - len(sids_l)],
-                                dtype=torch.int64, device=self.device)
+        b = self.Bp // self.lay.n if self.lay.blocked else self.Bp
+        for j, i in enumerate(sids_l):  # an empty row reads a spare slot
+            if i is None:  # of its block
+                i = next(s for s in spare
+                         if self.lay.block_of_slot(s) == j // b)
+                spare.remove(i)
+                sids_l[j] = i
+        lo, hi = self.lay.span(self.Bp)
+        gsids = torch.as_tensor(sids_l[lo:hi], dtype=torch.int64,
+                                device=self.device) - self.stage_lo
         p["h_last"] = self._pack_hlast.index_select(0, gsids)
         self._land(p, failed_group, self._pack_cache,
                    [i for i, r in p["reqs"] if r is not None])
@@ -786,9 +1003,12 @@ class ServeEngine:
             (keep if i in self._reserved else flush).append(i)
         self._dirty = keep
         if flush:
-            idx = torch.as_tensor(flush, dtype=torch.int64,
-                                  device=self.device)
-            tree_map(lambda t: t.index_fill_(1, idx, 0), self.cache)
+            own = [i - self.slot_lo for i in flush
+                   if self.slot_lo <= i < self.slot_hi]
+            if own:
+                idx = torch.as_tensor(own, dtype=torch.int64,
+                                      device=self.device)
+                tree_map(lambda t: t.index_fill_(1, idx, 0), self.cache)
             self.scatter_calls += 1
             self.metrics["zero_flushes"] += 1
 
@@ -838,16 +1058,18 @@ class ServeEngine:
         active_idx = [i for i, s in enumerate(self.slots) if s is not None]
         if active_idx:
             dev = self.device
-            active = np.zeros(self.scfg.max_batch, bool)
+            B, lo, hi = self.scfg.max_batch, self.slot_lo, self.slot_hi
+            active = np.zeros(B, bool)
             active[active_idx] = True
-            h, _ = self.model.decode_hidden(
-                self.ft_params, torch.as_tensor(self.last_tok[:, None],
-                                                device=dev),
-                self.cache, torch.as_tensor(self.pos, device=dev), self.cfg,
-                ft=self._model_ft(failed_group))
-            nxt = torch.argmax(self._head_logits(
-                h, torch.as_tensor(active, device=dev), failed_group,
-                ft_logits_decode), dim=-1).cpu().numpy()
+            with self.lay.rules(B):  # this process's slots
+                h, _ = self.model.decode_hidden(
+                    self.ft_params, torch.as_tensor(
+                        self.last_tok[lo:hi, None], device=dev),
+                    self.cache, torch.as_tensor(self.pos[lo:hi], device=dev),
+                    self.cfg, ft=self._model_ft(failed_group))
+            nxt = self.lay.gather(torch.argmax(self._head_logits(
+                h, torch.as_tensor(active[lo:hi], device=dev), failed_group,
+                ft_logits_decode), dim=-1).cpu().numpy(), B)
             self.decode_calls += 1
             sig = (len(active_idx), self.scfg.max_batch)
             self.census["decode"][sig] = self.census["decode"].get(sig, 0) + 1

@@ -141,23 +141,32 @@ class ChunkScheduler:
         return min(enumerate(batches), key=lambda jp: self._batch_key(
             jp[0], jp[1], jp[1]["bucket"] - jp[1]["pos0"]))[1]
 
-    def pack_rows(self, batches: list, budget_rows: int) -> list:
+    def pack_rows(self, batches: list, budget_rows: int, blocks: int = 1,
+                  block_of: Optional[Callable] = None) -> list:
         """Rows of the next token-packed prefill step: up to
         ``budget_rows`` ``(batch, row index)`` pairs from all in-flight
         admission batches, in :meth:`pick_batch`'s order with the
         remaining prefill counted in true prompt tokens. Rows advance to
         their true prompt length (bucket padding is never packed), each
-        live row appears at most once, and cancelled rows are skipped."""
+        live row appears at most once, and cancelled rows are skipped.
+        With ``blocks`` > 1 the program's rows split into that many equal
+        blocks and ``block_of(batch, row index)`` names a row's block: a
+        block takes at most ``budget_rows / blocks`` rows."""
         def remaining(p):
             return max((int(p["lengths_np"][i]) - int(p["rowpos"][i])
                         for i in _live(p)), default=0)
 
+        cap, taken = budget_rows // blocks, [0] * blocks
         rows = []
         for j, p in sorted(enumerate(batches), key=lambda jp: self._batch_key(
                 jp[0], jp[1], remaining(jp[1]))):
             for i in _live(p):
                 if int(p["rowpos"][i]) >= int(p["lengths_np"][i]):
                     continue  # the row's prefill is complete
+                g = block_of(p, i) if blocks > 1 else 0
+                if taken[g] >= cap:
+                    continue  # its block is full
+                taken[g] += 1
                 rows.append((p, i))
                 if len(rows) >= budget_rows:
                     return rows

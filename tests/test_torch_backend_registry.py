@@ -42,6 +42,14 @@ PLANS = [(3, 16, None), (4, 32, None), (3, 32, "dualword")]
 GEMM_MODES = (False, True, "chain", "chain_final")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rs(M, mode):
     return [None, *range(M)] if mode in (True, "chain_final") else [None]
 

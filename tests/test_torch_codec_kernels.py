@@ -33,6 +33,14 @@ PLANS = [(M, 32) for M in range(3, 9)] + [(3, 16), (4, 16)]
 N = 1031  # ragged: the reference pads it to its 1024-wide blocks
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=PLANS, ids=lambda p: f"M{p[0]}w{p[1]}")
 def case(request):
     """One plan's inputs and the reference's outputs, built once: the

@@ -45,6 +45,14 @@ PLANS = [(M, 32) for M in range(3, 9)] + [(3, 16), (4, 16)]
 LONG = (1, 1, 600, 520)  # B, D, T, K_f > the reference's time tile
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _full(rng, shape):
     return rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(
         np.int32)

@@ -28,6 +28,14 @@ from repro_torch.kernels import codec
 PLANS = [(3, 16, None), (4, 32, None), (3, 32, "dualword"), (8, 32, None)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(a):
     return jnp.asarray(a), torch.from_numpy(np.array(a))
 

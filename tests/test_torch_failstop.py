@@ -41,6 +41,14 @@ M = 4
 N = 257  # ragged
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(rng):
     """Each op's kernel at stream length N (as ``examples/failstop_demo.py``
     picks them), and the inputs."""

@@ -33,6 +33,14 @@ RNG = np.random.default_rng(23)
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg = get_smoke_config("llama3.2-1b")

@@ -9,12 +9,21 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import repro.launch.serve as ref_serve
 from repro_torch.launch import serve
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("extra,msg", [
@@ -126,7 +135,8 @@ def test_fleet_parse_rules_match_reference(monkeypatch, capsys, extra):
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *BASE, *args],
         capture_output=True, text=True, env=env, timeout=300)

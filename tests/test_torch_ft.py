@@ -36,6 +36,14 @@ from repro_torch.ft import (FTContext, PlanRegistry, compile_plans,
 F32_TOL = dict(rtol=2e-7, atol=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return np.asarray(t)
 

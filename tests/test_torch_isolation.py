@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and nothing in
-``chip_smoke.py``, ``chip_conv_routes.py``, ``chip_autotune_seed.py`` or
-``chip_decode_ab.py`` imports JAX or the JAX package (the machine with the
-GPU has no JAX)."""
+``chip_smoke.py``, ``chip_conv_routes.py``, ``chip_autotune_seed.py``,
+``chip_decode_ab.py`` or ``chip_row_bits.py`` imports JAX or the JAX
+package (the machine with the GPU has no JAX)."""
 import os
 import pathlib
 import re
@@ -65,7 +65,8 @@ def test_no_source_names_jax_or_the_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "chip_conv_routes.py",
                                          ROOT / "chip_autotune_seed.py",
-                                         ROOT / "chip_decode_ab.py"]
+                                         ROOT / "chip_decode_ab.py",
+                                         ROOT / "chip_row_bits.py"]
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _BAD.search(f.read_text())]
     assert not offenders, offenders

@@ -26,6 +26,14 @@ PLANS = [(3, 16, None), (4, 32, None), (3, 32, "dualword"), (8, 32, None)]
 MODES = (False, True, "chain", "chain_final")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(M, seed, B=6, K=13, N=9):
     """Full-range int32 activations and weights (every product wraps), and
     an int8 weight with its packed words."""

@@ -10,11 +10,20 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro_torch.launch import serve
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--arch", "llama3.2-1b", "--smoke", "--device", "cpu"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("extra,msg", [
@@ -62,7 +71,8 @@ def test_valid_flags_pass_their_checks(capsys, extra, bad, msg):
 
 
 def test_cli_packed_chunked_admission_rolls_forward():
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", *BASE,
          "--prefill-chunk", "8", "--token-budget", "16", "--ft-mode",

@@ -29,6 +29,14 @@ from repro_torch.models import layers as TL
 HIDDEN_TOL = dict(rtol=0.0, atol=0.0625)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ref():
     cfg = get_smoke_config("llama3.2-1b")

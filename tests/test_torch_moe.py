@@ -59,6 +59,14 @@ LAYER_TOL = 2.0 ** -6
 ROUTE_TIE = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return np.asarray(t)
 

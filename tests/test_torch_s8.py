@@ -32,6 +32,14 @@ K_MAX = 65536
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _c(kind, shape, rng):
     """Activations at the edge of the limb range."""
     if kind == "limbs_255":  # 0xFFFFFFFF: every byte limb is 255

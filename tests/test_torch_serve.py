@@ -51,6 +51,14 @@ NEAR_TIE = 2.0 ** -6
 LOGIT_TOL = 2.0 ** -5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scfg(scope):
     return dict(max_batch=8, max_seq=32, ft_M=4,
                 ft_mode="none" if scope == "none" else "entangle",

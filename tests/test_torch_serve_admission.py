@@ -195,6 +195,21 @@ def _wave(arch, mode, scope, failed_group=None, cls=ServeEngine,
     return {r.rid: np.asarray(r.out) for r in done}, eng
 
 
+@functools.lru_cache(maxsize=None)
+def _healthy(arch, mode, scope, dropless=False):
+    """The healthy wave of ``_wave`` (tokens, engine), served once per
+    module and shared by every test that reads it."""
+    return _wave(arch, mode, scope, dropless=dropless)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gap(row, tok):
     """How far ``tok``'s logit trails the row's top logit, relative."""
     top = float(row.max())
@@ -273,7 +288,7 @@ def test_engine_matches_reference(arch, mode, monkeypatch):
 def test_failed_group_rolls_forward_exactly(arch, mode, scope):
     """The paper's property in every admission mode: a fail-stop of any
     one group on every step gives the healthy tokens bit for bit."""
-    healthy, eng = _wave(arch, mode, scope)
+    healthy, eng = _healthy(arch, mode, scope)
     assert sorted(healthy) == list(range(len(LENGTHS)))
     if mode == "chunked":
         assert eng.metrics["refill_admissions"] > 0
@@ -306,12 +321,12 @@ def test_admission_modes_give_the_same_tokens(arch, scope):
     packed == chunked for dense, SSM and hybrid models only). deepseek's
     packed wave is therefore held to the others with a capacity no routing
     fills; at the published capacity factor it gives other tokens."""
-    toks = {m: _wave(arch, m, scope)[0] for m in MODES}
+    toks = {m: _healthy(arch, m, scope)[0] for m in MODES}
     pairs = [(m, toks[m], toks["whole"]) for m in ("chunked", "boundary")]
     if arch == DEEPSEEK:
         pairs.append(("packed (dropless)",
-                      _wave(arch, "packed", scope, dropless=True)[0],
-                      _wave(arch, "whole", scope, dropless=True)[0]))
+                      _healthy(arch, "packed", scope, dropless=True)[0],
+                      _healthy(arch, "whole", scope, dropless=True)[0]))
     else:
         pairs.append(("packed", toks["packed"], toks["whole"]))
     for name, got, want in pairs:
@@ -346,7 +361,7 @@ def test_packed_one_program_shape_no_misses():
     """Whatever the packing mix, one [Rp, Cp] prefill program: one census
     entry, no plan misses, and no new registry entry after a second wave
     of another mix."""
-    out, eng = _wave(LLAMA, "packed", "all")
+    out, eng = _healthy(LLAMA, "packed", "all")
     assert set(eng.census["prefill"]) == {(2, 8)}
     assert eng.plans.misses == 0
     assert eng.metrics["packed_tokens"] == sum(LENGTHS)
@@ -367,7 +382,7 @@ def test_packed_one_program_shape_no_misses():
 def test_refill_reuses_the_census_chunk_widths():
     """A refill wave replays the startup census's chunk programs: no plan
     misses and no new registry entries."""
-    out, eng = _wave(LLAMA, "chunked", "all")
+    out, eng = _healthy(LLAMA, "chunked", "all")
     n_entries = len(eng.registry.census())
     assert eng.metrics["refill_admissions"] > 0 and eng.plans.misses == 0
     assert eng._chunk_widths == frozenset({8})

@@ -64,6 +64,14 @@ LOGITS_TOL = dict(rtol=0.0, atol=0.0625)  # test_torch_model.py's HIDDEN_TOL
 ADAMW_TOL = dict(rtol=2e-6, atol=1e-7)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x)
 
