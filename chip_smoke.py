@@ -5,19 +5,21 @@
 
 It drives the port's serving paths and its training paths, each at its
 model's published widths with random weights from a seeded
-``torch.Generator``: llama3.2-1b (dense decoder, 16 layers) served, served
-by a 4-replica fleet and trained; deepseek-v2-lite-16b (MLA attention, a
-dense first layer and 64-expert top-6 MoE layers; cut to 4 of its 27
-layers: its float32 masters and int8 copies at all 27 layers do not fit
-one 80 GB card, and 8 layers took the script past its time limit on a
-slow host) served, and trained cut to 2 layers, also across 2 ranks on
-the one card with llama3.2-1b; qwen2-7b (qkv bias), minitron-8b (ungated
-relu2 MLP) and granite-20b (MQA, ungated gelu MLP) served cut to half
-their depth, 14 of 28, 16 of 32 and 10 of 52 layers (granite's 52 hold
-about 20.3 G parameters, 81 GB of float32 masters alone);
-falcon-mamba-7b (Mamba-1) served cut to 8 of its 64 layers and
-recurrentgemma-2b (RG-LRU and rolling-window MQA) to 12 of 26, and
-trained cut to 1 and 6 layers; internvl2-2b (24 layers
+``torch.Generator``: llama3.2-1b (dense decoder) served cut to 4 of its 16
+layers, served by a 4-replica fleet, and trained at all 16 (and across 2
+ranks at 8); deepseek-v2-lite-16b (MLA attention, a
+dense first layer and 64-expert top-6 MoE layers; cut to 2 of its 27
+layers, the dense first layer and one MoE layer: its float32 masters and
+int8 copies at all 27 layers do not fit one 80 GB card, and 8, then 4,
+layers took the script past its time limit on a slow host) served, and
+trained cut to 2 layers, also served across 2 ranks on the one card
+with llama3.2-1b; qwen2-7b (qkv bias), minitron-8b (ungated relu2 MLP)
+and granite-20b (MQA, ungated gelu MLP) served cut to a quarter of their
+depth, 7 of 28, 8 of 32 and 5 of 52 layers (granite's 52 hold about 20.3
+G parameters, 81 GB of float32 masters alone); falcon-mamba-7b (Mamba-1)
+served cut to 2 of its 64 layers and recurrentgemma-2b (RG-LRU and
+rolling-window MQA) to 3 of 26, and trained cut to 1 and 6 layers;
+internvl2-2b (24 layers
 behind 256 patch embeddings) and whisper-small (12 encoder and 12 decoder
 layers over 1500 frames) whole; deepseek-v3-671b (MLA with a low-rank Q,
 256-expert top-8 sigmoid MoE, the MTP block) served with bf16 masters, cut
@@ -56,7 +58,7 @@ exits nonzero:
                have gone through the s8 kernel, none through the CUDA-core
                one;
   3b. serve-admission — the rest of the engine on the same models: a
-               24-request wave (prompt lengths from ``--seed`` in 5..240,
+               16-request wave (prompt lengths from ``--seed`` in 5..240,
                every bucket 8..256 driven, slots refilled mid-flight)
                under whole-bucket admission, chunked prefill (32) with
                refill, the same without refill, and token packing (4 rows
@@ -75,8 +77,8 @@ exits nonzero:
                GEMMs against their plain versions at the shapes its engine
                sends them (its census of the wave's bucket at scope all,
                the head at its own rows), sets the counts to 0, serves the
-               8-request wave with llama3.2-1b (16 layers; scopes head and
-               all) and deepseek-v2-lite-16b (4 layers; moe and all),
+               8-request wave with llama3.2-1b (4 layers; scopes head and
+               all) and deepseek-v2-lite-16b (2 layers; moe and all),
                healthy and with ``failed_group=1``, and reads the counts;
                meanwhile this process serves the same waves through a
                one-rank engine (llama) and through one process of 2 MoE
@@ -124,7 +126,7 @@ exits nonzero:
                from the kill until every migrated request streamed its
                next token), fleet tokens/s with and without the kill, the
                fleet steps and the migration counts;
-  3d. dense-decoders — qwen2-7b, minitron-8b, granite-20b (14, 16, 10
+  3d. dense-decoders — qwen2-7b, minitron-8b, granite-20b (7, 8, 5
                layers),
                one at a time: every (site, shape) of the engine's startup
                census at scope all and the vocab head held against the
@@ -133,8 +135,8 @@ exits nonzero:
                entangle / all, healthy and with ``failed_group=1`` (EXACT
                ROLL-FORWARD); decode-step ms against none in the same
                call, s8 launches per decode step, ``max_memory_allocated``;
-  3e. recurrent — falcon-mamba-7b (8 of 64 layers) and
-               recurrentgemma-2b (12 of 26) at published widths, one at a
+  3e. recurrent — falcon-mamba-7b (2 of 64 layers) and
+               recurrentgemma-2b (3 of 26) at published widths, one at a
                time: the census shapes of
                every admission mode at scope all, the vocab head and the
                model's own quantized head held against the plain version on
@@ -218,13 +220,36 @@ exits nonzero:
                and to the single-process oracle on the card for every
                failed block, and the sync's ms at world size 1 and 4. Then
                the mean step time per gradient sync and a profiler window;
+  4m. train-mesh — training across ranks: llama3.2-1b at published
+               widths cut to 8 of its 16 layers (two ranks' training
+               state on one card), global batch 4 x 512, entangled sync on
+               the kernel codec, 3 steps with block 1 fail-stopped at step
+               1. First the codec kernels against their plain versions at
+               every gradient-leaf size of that depth and the one-process
+               loop here (its losses and grad norms kept on the host);
+               then 2 ranks spawned on the one card over gloo
+               (``chip_smoke.py --dist-worker R --dist-phase train-mesh``)
+               each run ``train_loop`` under ``axis_rules`` of the (2, 1)
+               data x model mesh, 2 rows a rank, with every kernel's count
+               set to 0 just before and read just after: losses, grad norms
+               and params after every step bit-identical across the ranks,
+               rank 0's step within the train tests' tolerances of the
+               one-process step from the same state, the losses within
+               TRAIN_MESH's of the one-process loop, EXACT ROLL-FORWARD
+               (train-mesh) on each rank's summed gradient at the fail
+               step (healthy and blocks 0-3), one entangle and one
+               disentangle launch per gradient leaf and step on each
+               rank, the final checkpoint written by rank 0 alone and
+               restored on both to the final state bit for bit; step ms
+               beside the one-process step, the gloo sum's ms a step,
+               ``max_memory_allocated`` per rank;
   4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 2 of 27 layers:
                the dense first layer and one MoE layer), falcon-mamba-7b
                (Mamba-1; 1 of 64) and recurrentgemma-2b (RG-LRU + local
                attention; 6 of 26, two whole units) at published widths,
                one at a time, each as phase 4: ``train_loop`` with block 1
-               fail-stopped at step 2 (the loop's final checkpoint into a
-               temporary directory, deleted after), launches of the
+               fail-stopped at step 2 (no final checkpoint: phases 4 and
+               4m write and restore theirs), launches of the
                entangle / disentangle kernels per step, EXACT ROLL-FORWARD
                (train-moe / train-ssm / train-hybrid) on one backward, step
                ms per gradient sync (spmd, checksum, entangle on the
@@ -276,6 +301,7 @@ import functools
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -299,9 +325,20 @@ L2_BYTES = 50 * 2**20
 
 LLAMA = "llama3.2-1b"
 DEEPSEEK = "deepseek-v2-lite-16b"
-# 1 dense + 3 MoE layers at published widths: 8 layers (PR 12-24) took the
-# script past 1200 s on a slow host (PR 24's review round: 1209.3 s)
-DEEPSEEK_LAYERS = 4
+# llama3.2-1b served at published widths cut to 4 of its 16 layers in
+# every serving path (serve, serve-admission, serve-mesh, autotune's cold
+# start, the fleet); its training paths keep their own depths. The served
+# depth went 16 -> 4, deepseek's 4 -> 2, the dense decoders' to half and
+# the recurrent families' to a quarter, the admission wave 24 -> 16
+# requests, the timed train steps 2 + 5 -> 1 + 3 a sync, and phase 4b's
+# loops lost their final checkpoints (35 GB of writes; phase 4 and
+# train-mesh still write and restore theirs) after the script ran past
+# its 1200 s limit on a slow host with the train-mesh phase (1034.7 s on
+# another, 688.4 s at the first cuts on a fast one)
+LLAMA_SERVE_LAYERS = 4
+# the dense first layer and 1 MoE layer of 27 at published widths: 8
+# layers took the script past 1200 s on a slow host (1209.3 s), then 4
+DEEPSEEK_LAYERS = 2
 SERVE = dict(max_batch=8, ft_M=4, max_seq=256, requests=8, prompt_len=8,
              max_new=8)
 # the fleet path: llama3.2-1b on 4 replicas of the serving geometry above,
@@ -317,8 +354,9 @@ FLEET = dict(replicas=4, requests=16, max_new=16, max_prompt=128,
 # and the plain versions' operands on one 80 GB card. Each cut to half its
 # published depth (qwen2-7b 28 -> 14, minitron-8b 32 -> 16, granite-20b
 # 20 -> 10) after the script took 1181.5 s on a slow host with the
-# serve-mesh phase
-DECODERS = {"qwen2-7b": 14, "minitron-8b": 16, "granite-20b": 10}
+# serve-mesh phase, and to a quarter (7, 8, 5) after it ran past 1200 s
+# with the train-mesh phase
+DECODERS = {"qwen2-7b": 7, "minitron-8b": 8, "granite-20b": 5}
 # the recurrent families at published widths: the 8-request
 # wave at none / head / all; chunked (32, refill) and token-packed (4 rows
 # of 32) admission of REC_REQUESTS seeded prompts in [5, 240] at scope
@@ -332,8 +370,9 @@ RECURRENT = ("falcon-mamba-7b", "recurrentgemma-2b")
 # recurrentgemma 26 -> 12 (four whole (rglru, rglru, local_attn) units;
 # its 2200-token request's 69 chunks run every recurrent layer's scan
 # step by step) after the script took 1181.5 s on a slow host with the
-# serve-mesh phase)
-RECURRENT_LAYERS = {"falcon-mamba-7b": 8, "recurrentgemma-2b": 12}
+# serve-mesh phase; 8 -> 2 and 12 -> 3, one whole unit, after it ran
+# past 1200 s with the train-mesh phase)
+RECURRENT_LAYERS = {"falcon-mamba-7b": 2, "recurrentgemma-2b": 3}
 REC_REQUESTS = 12
 REC_MODES = ("chunked", "packed")
 LONG = dict(prompt=2200, max_new=16, max_seq=4096, bucket=2208, chunk=32)
@@ -354,11 +393,11 @@ WHISPER = dict(max_seq=448, steps=16)
 # per hop (M = 4, llama's mlp 2048 -> 8192 -> 2048)
 CHAINS = ((8, (64, 64, 32)), (8, (4, 4, 2, 16)), (4, (2048, 8192, 2048)))
 # the serve-admission path: the same engine geometry with every bucket of
-# the geometric set (8 .. 256), a 24-request wave of seeded prompt lengths
+# the geometric set (8 .. 256), a 16-request wave of seeded prompt lengths
 # in [5, 240] (one in every bucket, the rest log-uniform) and the four
 # admission modes, each healthy and with failed_group=1 at scopes head and
 # all (deepseek: chunked and packed at scope all)
-ADMIT = dict(requests=24, len_lo=5, len_hi=240, max_new=8, chunk=32,
+ADMIT = dict(requests=16, len_lo=5, len_hi=240, max_new=8, chunk=32,
              budget=128)
 ADMIT_MODES = {"whole": {}, "chunked": dict(prefill_chunk=32),
                "boundary": dict(prefill_chunk=32, refill=False),
@@ -374,8 +413,8 @@ LOGIT_TOL = 2.0 ** -5
 # the training path: llama3.2-1b at published widths; the loop's steps
 # (block 1 of the entangled sync fail-stopped at FAIL_STEP), then the timed
 # steps of each gradient sync
-TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=2,
-             timed_steps=5)
+TRAIN = dict(batch=4, seq=512, ft_M=4, steps=4, fail_step=2, warm_steps=1,
+             timed_steps=3)
 # phase 4b: the other trainable families at published widths, each cut in
 # depth to what its training state (float32 params, gradients and two
 # AdamW moments, 16 bytes per param, and the out-of-place update) leaves
@@ -417,6 +456,33 @@ DIST_FAILED = (None, 0, 1, 2, 3)
 # engine; each arch with its protected scopes (deepseek at DEEPSEEK_LAYERS)
 MESH_WORLD = 2
 MESH_PATHS = ((LLAMA, ("head", "all")), (DEEPSEEK, ("moe", "all")))
+# training across ranks: TRAIN_MESH["world"] ranks spawned on the one card
+# over gloo train llama3.2-1b at published widths cut to "layers" of its
+# 16 (each rank holds the whole training state: 0.749 G params at 8
+# layers, 16 bytes a param with the out-of-place AdamW update, about 20 GB
+# a rank; 16 layers took 36.38 GiB in the one-process train phase) on a
+# global batch of "batch" x "seq", "steps" steps with block 1 fail-stopped
+# at "fail_step". Tolerances: a step against the one-process step from the
+# same state, the train tests' (tests/test_torch_train_mesh.py): loss
+# LOSS_ATOL, grad norm GNORM_REL, the summed gradient within "grad_rel" of
+# one process's, normwise a leaf (the ranks' bf16 weight gradients are
+# rounded before their float32 sum, one process rounds its whole sum
+# once), params within 2·lr + 1e-6 everywhere, and, after the first step,
+# within lr · "near_rel" for all but "off_share" of them. The first
+# step's share is printed, not held: AdamW's first update is
+# g / (|g| + eps), and at lr 1e-3 the tied 128256-row head's gradients lie
+# near eps, where a gradient rounded 2^-8 apart moves the update by up to
+# lr · 2^-10 and a sum that cancels (two ranks' partials of opposite sign)
+# by more: on the H100, 8.9% of the params parted by more than 1e-6 and
+# 1.38% by more than lr / 64, 0.18% and 0.004% at the next steps, where
+# the moments smooth the update (PERF.md §6). (The CPU tests' lr is
+# 9.6e-5, where the first step holds to 1e-6.) The losses against the
+# one-process loop: LOSS_ATOL at the first step (the same params),
+# "loop_loss_atol" later (the loops part by the rounding of each step's
+# gradient)
+TRAIN_MESH = dict(world=2, layers=8, batch=4, seq=512, steps=3, fail_step=1,
+                  loss_atol=1e-4, gnorm_rel=2e-3, loop_loss_atol=1e-3,
+                  grad_rel=2.0 ** -6, off_share=0.01, near_rel=2.0 ** -6)
 # the library path: SDC detection over M streams of this many columns, and
 # the kernels its examples and SDC calls must launch
 LIB_SDC_N = 1 << 20
@@ -799,12 +865,14 @@ def llama_grad_shapes(dev):
     return out
 
 
-def check_codec(dev, checkers, grad_shapes):
+def check_codec(dev, checkers, grad_shapes, ragged=True,
+                what=f"full-width {LLAMA}"):
     """The entangle and disentangle passes against their plain versions:
     ragged widths under every plan of Table I (M = 3..8; dual-word at w=32,
-    int32 at w=16) and every r, then every llama gradient leaf as the sync
-    blocks it, ``[M, ceil(n / M)]`` under the training plan, every r; the
-    poison check (row r overwritten by GARBAGE) everywhere. Full-range
+    int32 at w=16) and every r (unless ``ragged`` is False), then every
+    gradient leaf of ``grad_shapes`` ({numel: names}, of ``what``) as the
+    sync blocks it, ``[M, ceil(n / M)]`` under the training plan, every r;
+    the poison check (row r overwritten by GARBAGE) everywhere. Full-range
     int32 words."""
     import torch
 
@@ -833,12 +901,13 @@ def check_codec(dev, checkers, grad_shapes):
     n0 = (chk_e.n, chk_d.n)
     plans = [make_plan(M, 32) for M in range(3, 9)] + [make_plan(3, 16),
                                                        make_plan(4, 16)]
-    for plan in plans:
+    for plan in plans if ragged else ():
         for n in (1, 2, 3, 1023, 1025, 65537):
             one(plan, n, f"plan(M={plan.M},l={plan.l},{plan.temp}) N={n}")
-    log(f"[kernels] entangle / disentangle ragged widths: {len(plans)} plans"
-        f" x 6 widths, {chk_e.n - n0[0]} / {chk_d.n - n0[1]} comparisons "
-        f"bit-identical; poison check passed")
+    if ragged:
+        log(f"[kernels] entangle / disentangle ragged widths: {len(plans)} "
+            f"plans x 6 widths, {chk_e.n - n0[0]} / {chk_d.n - n0[1]} "
+            f"comparisons bit-identical; poison check passed")
     n0 = (chk_e.n, chk_d.n)
     plan = make_plan(TRAIN["ft_M"], 32)
     for n, names in sorted(grad_shapes.items()):
@@ -846,7 +915,7 @@ def check_codec(dev, checkers, grad_shapes):
         free_cuda()
     n_leaves = sum(map(len, grad_shapes.values()))
     log(f"[kernels] entangle / disentangle at the {len(grad_shapes)} "
-        f"gradient-leaf sizes of full-width {LLAMA} ({n_leaves} "
+        f"gradient-leaf sizes of {what} ({n_leaves} "
         f"leaves, [{plan.M}, ceil(n/{plan.M})], plan(M={plan.M},l={plan.l},"
         f"{plan.temp})): {chk_e.n - n0[0]} / {chk_d.n - n0[1]} comparisons "
         f"bit-identical; poison check passed")
@@ -869,9 +938,17 @@ def model_config(arch):
     return cfg
 
 
+def served_config(arch):
+    """The config a serving path runs: :func:`model_config`, llama3.2-1b
+    cut to LLAMA_SERVE_LAYERS."""
+    cfg = model_config(arch)
+    if arch == LLAMA:
+        cfg = dataclasses.replace(cfg, n_layers=LLAMA_SERVE_LAYERS)
+    return cfg
+
+
 def init_model(dev, arch, max_seq=SERVE["max_seq"]):
-    """The published config (deepseek cut to DEEPSEEK_LAYERS layers,
-    granite to DECODERS' count) with
+    """The served config (:func:`served_config`) with
     random weights from a seeded ``torch.Generator`` (``max_seq`` rows of
     learned positions where the model has them); returns (cfg, model,
     params)."""
@@ -879,7 +956,7 @@ def init_model(dev, arch, max_seq=SERVE["max_seq"]):
 
     from repro_torch.models.api import get_model
 
-    cfg = model_config(arch)
+    cfg = served_config(arch)
     model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -1390,7 +1467,7 @@ def _admission_drill(dev, cfg, params):
 def phase_serve_admission(dev, kernels, path_kernels, cfg, params, modes,
                           scopes, smi, seed, drill):
     """The rest of the serving engine on the card: per admission mode and
-    scope, the 24-request wave healthy and with failed_group=1 (EXACT
+    scope, the 16-request wave healthy and with failed_group=1 (EXACT
     ROLL-FORWARD (serve-admission)), misses 0; the healthy modes compared
     pairwise (llama) under the near-tie rule; the drill once. Every
     kernel's count is set to 0 just before and read just after; each of
@@ -2975,14 +3052,15 @@ def _depth(cfg, arch) -> str:
             else f"{cfg.n_layers} layers")
 
 
-def phase_train(dev, kernels, path_kernels, arch=LLAMA, tag="train"):
+def phase_train(dev, kernels, path_kernels, arch=LLAMA, tag="train",
+                ckpt=True):
     """``train_loop`` on ``arch`` at published widths: TRAIN["steps"] steps
     with block 1 of the entangled sync fail-stopped at
-    TRAIN["fail_step"], then the loop's final blocking checkpoint into a
-    temporary directory (deleted afterwards). Every kernel's count is set
-    to 0 just before and read just after; each of ``path_kernels`` must
-    have launched, and the losses must be finite. Returns (state, counts,
-    summary)."""
+    TRAIN["fail_step"], then (with ``ckpt``) the loop's final blocking
+    checkpoint into a temporary directory (deleted afterwards). Every
+    kernel's count is set to 0 just before and read just after; each of
+    ``path_kernels`` must have launched, and the losses must be finite.
+    Returns (state, counts, summary)."""
     import numpy as np
     import torch
 
@@ -2990,16 +3068,17 @@ def phase_train(dev, kernels, path_kernels, arch=LLAMA, tag="train"):
 
     cfg, tcfg, dcfg = _train_configs(arch)
     n_params = _n_params(cfg)
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    need = 3 * 4 * n_params  # float32 params and both moments
-    free = shutil.disk_usage(ckpt_dir).free
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_") if ckpt else None
+    need = 3 * 4 * n_params if ckpt else 0  # float32 params, both moments
+    free = shutil.disk_usage(ckpt_dir).free if ckpt else 0
+    where = (f"checkpoint {need / 1e9:.2f} GB into {ckpt_dir} "
+             f"({free / 1e9:.1f} GB free)" if ckpt else "no checkpoint")
     log(f"[{tag}] {arch} published widths, {_depth(cfg, arch)} "
         f"({cfg.family}), d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
         f"{n_params / 1e9:.4f} G params; batch {TRAIN['batch']} x seq "
         f"{TRAIN['seq']}; grad_sync entangle (M={tcfg.ft_M}), codec "
         f"{tcfg.grad_codec}; fail-stop of block 1 at step "
-        f"{TRAIN['fail_step']}; checkpoint {need / 1e9:.2f} GB into "
-        f"{ckpt_dir} ({free / 1e9:.1f} GB free)")
+        f"{TRAIN['fail_step']}; {where}")
     if free < 1.1 * need:
         raise RuntimeError(f"the disk under {ckpt_dir} cannot hold the "
                            f"{need / 1e9:.2f} GB checkpoint")
@@ -3015,17 +3094,21 @@ def phase_train(dev, kernels, path_kernels, arch=LLAMA, tag="train"):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {k["name"]: count(k) for k in kernels}
-        files = list(pathlib.Path(ckpt_dir).rglob("*.npy"))
+        files = (list(pathlib.Path(ckpt_dir).rglob("*.npy")) if ckpt
+                 else [])
         ckpt_bytes = sum(f.stat().st_size for f in files)
     finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if ckpt:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated(dev)
     per_step = {n: c / TRAIN["steps"] for n, c in counts.items()}
-    log(f"[{tag}] {arch} train_loop: {TRAIN['steps']} steps + final "
-        f"checkpoint in {secs:.1f} s; losses {[float(x) for x in losses]}; "
-        f"kernel launches {counts} ({per_step} per step); "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB; checkpoint "
-        f"{len(files)} leaves, {ckpt_bytes / 1e9:.3f} GB on disk (deleted)")
+    on_disk = (f"; checkpoint {len(files)} leaves, {ckpt_bytes / 1e9:.3f} "
+               f"GB on disk (deleted)" if ckpt else "")
+    log(f"[{tag}] {arch} train_loop: {TRAIN['steps']} steps"
+        f"{' + final checkpoint' if ckpt else ''} in {secs:.1f} s; losses "
+        f"{[float(x) for x in losses]}; kernel launches {counts} "
+        f"({per_step} per step); max_memory_allocated {peak / 2**30:.2f} "
+        f"GiB{on_disk}")
     if len(losses) != TRAIN["steps"] or not np.isfinite(losses).all():
         raise AssertionError(f"training losses bad: {losses}")
     if ckpt_bytes < need:
@@ -3845,6 +3928,462 @@ def phase_serve_mesh(dev, kernels, smi):
     return counts, rec
 
 
+# ------------------------------------------------------------- train-mesh --
+
+def _train_mesh_cmd(rank: int, d: pathlib.Path) -> list:
+    """The command of one rank of the [train-mesh] phase's gloo group."""
+    return _dist_cmd(rank, d) + ["--dist-phase", "train-mesh"]
+
+
+def _train_mesh_configs(ckpt_dir):
+    """(model config, TrainConfig, DataConfig, LoopConfig) of the
+    train-mesh path: llama3.2-1b at TRAIN_MESH's depth, batch and steps,
+    the entangled sync on the kernel codec, and an LR schedule over
+    exactly the loop's steps (``train_loop`` keeps it as it is); the final
+    checkpoint alone, into ``ckpt_dir``."""
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import LoopConfig
+
+    tm = TRAIN_MESH
+    cfg = dataclasses.replace(model_config(LLAMA), n_layers=tm["layers"])
+    tcfg = TrainConfig(
+        adamw=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=tm["steps"]),
+        grad_sync="entangle", grad_codec="kernel", ft_M=TRAIN["ft_M"],
+        max_seq=tm["seq"])
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=tm["seq"],
+                      batch_size=tm["batch"])
+    loop = LoopConfig(total_steps=tm["steps"], ckpt_every=tm["steps"] + 1,
+                      ckpt_dir=str(ckpt_dir), log_every=1,
+                      fail_block_at_step=tm["fail_step"])
+    return cfg, tcfg, dcfg, loop
+
+
+def _grad_shapes(cfg) -> dict:
+    """{numel: leaf names} of every gradient leaf of ``cfg``'s params, from
+    fake tensors (no memory is taken)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.api import get_model
+    from repro_torch.tree import leaves_with_path
+
+    out = {}
+    with FakeTensorMode():
+        params = get_model(cfg).init(torch.Generator(), cfg, TRAIN["seq"],
+                                     device="cpu")
+        for path, t in leaves_with_path(params):
+            out.setdefault(t.numel(), []).append(
+                f"{path}{list(t.shape)}".replace("'", ""))
+    return out
+
+
+def _digest(tree) -> str:
+    """A fingerprint of every bit of a tree's float32 tensors, computed on
+    their device a slice at a time: per leaf the sum of its 32-bit words
+    and their sum weighted by position (mod 65521, plus 1)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in _leaves(tree):
+        words = t.detach().reshape(-1).view(torch.int32)
+        plain = weighted = 0
+        for i in range(0, words.numel(), UPDATE_SLICE):
+            w = words[i:i + UPDATE_SLICE].to(torch.int64)
+            pos = torch.arange(i, i + w.numel(), device=w.device) % 65521 + 1
+            plain += int(w.sum())
+            weighted += int((w * pos).sum())
+        h.update(f"{plain},{weighted};".encode())
+    return h.hexdigest()
+
+
+def _grad_rel(grads, one_grads) -> float:
+    """The largest normwise difference ``|g - g1| / |g1|`` of a leaf
+    between two gradient trees."""
+    import torch
+
+    with torch.no_grad():
+        return max((torch.linalg.vector_norm(a - b)
+                    / torch.linalg.vector_norm(b)).item()
+                   for a, b in zip(_leaves(grads), _leaves(one_grads)))
+
+
+def _step_diff(new, metrics, one, one_metrics, grad_rel, lr) -> dict:
+    """How far a step's result is from the one-process step's from the
+    same state: loss and grad-norm differences, the gradients' largest
+    normwise difference a leaf (``grad_rel``), the params' largest
+    difference over lr, and how many params lie past lr ·
+    TRAIN_MESH["near_rel"] and past 1e-6."""
+    import torch
+
+    thr = lr * TRAIN_MESH["near_rel"]
+    worst = off = off_abs = n = 0
+    with torch.no_grad():
+        for a, b in zip(_leaves(new["params"]), _leaves(one["params"])):
+            dd = (a - b).abs()
+            worst = max(worst, dd.max().item())
+            off += int((dd > thr).sum())
+            off_abs += int((dd > 1e-6).sum())
+            n += dd.numel()
+    return dict(loss=abs(float(metrics["loss"]) - float(one_metrics["loss"])),
+                grad_norm_rel=abs(float(metrics["grad_norm"])
+                                  / float(one_metrics["grad_norm"]) - 1),
+                grad_rel=grad_rel, max_over_lr=worst / lr, threshold=thr,
+                off=off, off_1e6=off_abs, n=n)
+
+
+def train_mesh_worker(rank: int, d: pathlib.Path, dev) -> int:
+    """One rank of the [train-mesh] phase's gloo group (``chip_smoke.py
+    --dist-worker RANK --dist-dir D --dist-phase train-mesh``, on
+    ``cuda:0``): joins through the file store ``D/store``, waits for
+    ``D/go`` (the one-process loop has freed the card), and runs
+    ``train_loop`` under ``axis_rules(make_local_mesh())``, every kernel's
+    count set to 0 just before and read just after; then restores the
+    final checkpoint. Writes ``D/rank<RANK>.json``. Wrappers record, per
+    step, its ms, loss, grad norm, params' fingerprint and launches; on
+    rank 0, the one-process step from the same state (under a stand-in
+    mesh: no split, no sum) and how far the step lies from it; the gloo
+    sum's and the initial broadcast's ms; at the fail step, the summed
+    gradient synced healthy and with each block failed; the checkpoint
+    writes. The launches of those comparisons are taken out of the
+    counts."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import (StandInMesh, axis_rules,
+                                           current_mesh, mesh_shape)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    tm = TRAIN_MESH
+    kernels = kernel_table()
+    dist.init_process_group("gloo", init_method=f"file://{d / 'store'}",
+                            rank=rank, world_size=tm["world"])
+    cfg, tcfg, dcfg, loop = _train_mesh_configs(d / "ckpt")
+    lr_cfg = adamw.effective_lr_config(tcfg.adamw, cfg.d_model)
+    out = dict(steps=[], sum_ms=[], writes=[], log=[])
+    excluded = {k["name"]: 0 for k in kernels}
+    # the data-parallel step's summed gradient, until rank 0's one-process
+    # step's sync holds it against its own (and drops it before that
+    # step's AdamW update: the card holds two ranks' training states)
+    held = dict(summed=None, grad_rel=None)
+
+    def counts():
+        return {k["name"]: count(k) for k in kernels}
+
+    @contextlib.contextmanager
+    def not_counted():
+        before = counts()
+        yield
+        for n, c in counts().items():
+            excluded[n] += c - before[n]
+
+    make, sync, sum_over = TR.make_train_step, TS.sync_grads, TS._sum_over
+    bcast, write = TR.broadcast_state, CheckpointManager._write
+
+    def sync_checked(grads, tcfg_, failed_block=None):
+        if TS.data_shard()[0] is not None:
+            held["summed"] = grads
+        elif held["summed"] is not None:
+            held["grad_rel"] = _grad_rel(held["summed"], grads)
+            held["summed"] = None
+        got = sync(grads, tcfg_, failed_block)
+        if failed_block is not None and TS.data_shard()[0] is not None:
+            with not_counted(), torch.no_grad():
+                healthy = list(_leaves(sync(grads, tcfg_)[0]))
+                bad = {}
+                for fb in range(tcfg_.ft_M):
+                    other = (got[0] if fb == failed_block
+                             else sync(grads, tcfg_, fb)[0])
+                    bad[str(fb)] = sum(not torch.equal(a, b) for a, b in
+                                       zip(healthy, _leaves(other)))
+                    del other
+                del healthy
+            out["rollforward"] = dict(bad=bad,
+                                      leaves=len(list(_leaves(grads))),
+                                      step=len(out["steps"]))
+        return got
+
+    def timed_sum(group, loss, grads):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got = sum_over(group, loss, grads)
+        torch.cuda.synchronize(dev)
+        out["sum_ms"].append(1e3 * (time.perf_counter() - t0))
+        return got
+
+    def timed_bcast(state):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        got = bcast(state)
+        torch.cuda.synchronize(dev)
+        out["broadcast_ms"] = 1e3 * (time.perf_counter() - t0)
+        return got
+
+    def counted_write(self, host_state, step):
+        out["writes"].append(step)
+        return write(self, host_state, step)
+
+    def make_checked(cfg_, tcfg_, failed_block=None):
+        step = make(cfg_, tcfg_, failed_block=failed_block)
+
+        def run(state, batch):
+            lr = adamw.schedule(lr_cfg, state["step"]).item()
+            before, ex0 = counts(), dict(excluded)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            new, m = step(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            entry = dict(
+                ms=ms, loss=loss, grad_norm=gnorm, lr=lr,
+                failed_block=failed_block, params=_digest(new["params"]),
+                on_device=all(t.device == dev for t in _leaves(new)),
+                launches={n: c - before[n] - (excluded[n] - ex0[n])
+                          for n, c in counts().items()})
+            if rank == 0:
+                with not_counted(), axis_rules(StandInMesh(
+                        mesh_shape(current_mesh()))):
+                    one, om = make(cfg_, tcfg_, failed_block=failed_block)(
+                        state, batch)
+                    entry["one"] = _step_diff(new, m, one, om,
+                                              held["grad_rel"], lr)
+                    del one, om
+            held["summed"] = None
+            out["steps"].append(entry)
+            return new, m
+
+        return run
+
+    TR.make_train_step, TS.sync_grads, TS._sum_over = (make_checked,
+                                                       sync_checked,
+                                                       timed_sum)
+    TR.broadcast_state, CheckpointManager._write = timed_bcast, counted_write
+    try:
+        while not (d / "go").exists():
+            time.sleep(0.1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with axis_rules(make_local_mesh()):
+            state, losses = TR.train_loop(cfg, tcfg, dcfg, loop,
+                                          log=out["log"].append, device=dev)
+        torch.cuda.synchronize(dev)
+        out["loop_s"] = time.perf_counter() - t0
+        out["launches"] = {n: c - excluded[n] for n, c in counts().items()}
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["losses"] = [float(x) for x in losses]
+        t0 = time.perf_counter()
+        back, step = CheckpointManager(loop.ckpt_dir).restore(state)
+        out["restored"] = dict(step=step, seconds=time.perf_counter() - t0,
+                               equal=all(torch.equal(a, b) for a, b in zip(
+                                   _leaves(back), _leaves(state))))
+        del back, state
+        (d / f"rank{rank}.json").write_text(json.dumps(out))
+        dist.barrier()
+    finally:
+        TR.make_train_step, TS.sync_grads, TS._sum_over = make, sync, sum_over
+        TR.broadcast_state, CheckpointManager._write = bcast, write
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_train_mesh(dev, kernels, smi):
+    """[train-mesh]: training across ranks (see the module docstring,
+    phase 4m). Holds the codec kernels against their plain versions at
+    this depth's gradient-leaf sizes, runs the one-process loop here (its
+    losses, grad norms and step ms kept on the host, its state freed),
+    then TRAIN_MESH["world"] ranks on the one card over gloo
+    (:func:`train_mesh_worker`), and checks them. Returns (counts by
+    path, record)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    tm = TRAIN_MESH
+    t_phase = time.perf_counter()
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_mesh_"))
+    procs = []
+    try:
+        cfg, tcfg, dcfg, loop = _train_mesh_configs(d / "ckpt")
+        n_params = _n_params(cfg)
+        need = 3 * 4 * n_params  # float32 params and both moments
+        free = shutil.disk_usage(d).free
+        log(f"[train-mesh] {LLAMA} published widths, {_depth(cfg, LLAMA)}, "
+            f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+            f"{n_params / 1e9:.4f} G params; global batch {tm['batch']} x "
+            f"seq {tm['seq']} over {tm['world']} ranks ("
+            f"{tm['batch'] // tm['world']} rows a rank) sharing the card "
+            f"over gloo; grad_sync entangle (M={tcfg.ft_M}), codec "
+            f"{tcfg.grad_codec}; {tm['steps']} steps, block 1 fail-stopped "
+            f"at step {tm['fail_step']}; final checkpoint "
+            f"{need / 1e9:.2f} GB into {d} ({free / 1e9:.1f} GB free); "
+            f"this process holds {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
+            f" GiB of the card ({torch.cuda.memory_reserved(dev) / 2**30:.2f}"
+            f" reserved)")
+        if free < 1.1 * need:
+            raise RuntimeError(f"the disk under {d} cannot hold the "
+                               f"{need / 1e9:.2f} GB checkpoint")
+        # expandable segments: two ranks' states and rank 0's one-process
+        # step share the card, so the ranks must not strand free memory
+        env = dict(os.environ,
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        procs = [subprocess.Popen(_train_mesh_cmd(r, d), env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for r in range(tm["world"])]
+        shapes = _grad_shapes(cfg)
+        n_leaves = sum(map(len, shapes.values()))
+        by_name = {k["name"]: k for k in kernels}
+        check_codec(dev, {n: by_name[n]["checker"]
+                          for n in ("entangle", "disentangle")}, shapes,
+                    ragged=False, what=f"{LLAMA} at {cfg.n_layers} layers")
+        # the one-process loop: train_loop's steps, without its checkpoint
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_state(torch.Generator(device=dev).manual_seed(loop.seed),
+                           cfg, tcfg, dev)
+        steps = {None: make_train_step(cfg, tcfg),
+                 1: make_train_step(cfg, tcfg, failed_block=1)}
+        oracle = []
+        for i in range(tm["steps"]):
+            batch = _batch(dcfg, i, dev)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = steps[1 if i == tm["fail_step"] else None](state,
+                                                                  batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize(dev)
+            oracle.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                               loss=loss, grad_norm=float(m["grad_norm"])))
+        one_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        del state, steps, m, batch
+        free_cuda()
+        (d / "go").touch()
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        for r, p in enumerate(procs):
+            if p.returncode:
+                raise AssertionError(f"train-mesh rank {r} exited "
+                                     f"{p.returncode}:\n{logs[r][-4000:]}")
+        outs = [json.loads((d / f"rank{r}.json").read_text())
+                for r in range(tm["world"])]
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(d, ignore_errors=True)
+    r0 = outs[0]
+    fails = []
+    # the ranks against each other, bit for bit
+    for r, o in enumerate(outs[1:], 1):
+        for i, (a, b) in enumerate(zip(r0["steps"], o["steps"])):
+            for key in ("loss", "grad_norm", "params", "launches"):
+                if a[key] != b[key]:
+                    fails.append(f"step {i}: rank {r}'s {key} differs from "
+                                 f"rank 0's")
+    lines = []
+    for i, (st, orc) in enumerate(zip(r0["steps"], oracle)):
+        one, first = st["one"], i == 0
+        loop_tol = tm["loss_atol"] if first else tm["loop_loss_atol"]
+        d_loop = abs(st["loss"] - orc["loss"])
+        gn_loop = abs(st["grad_norm"] / orc["grad_norm"] - 1)
+        share_ok = first or one["off"] <= tm["off_share"] * one["n"]
+        held = ("printed, not held at the first step" if first
+                else f"<= {tm['off_share']:.0%}")
+        ok = (one["loss"] < tm["loss_atol"]
+              and one["grad_norm_rel"] < tm["gnorm_rel"]
+              and one["grad_rel"] <= tm["grad_rel"]
+              and one["max_over_lr"] * st["lr"] <= 2 * st["lr"] + 1e-6
+              and share_ok and d_loop < loop_tol
+              and (not first or gn_loop < tm["gnorm_rel"]))
+        lines.append(
+            f"step {i} (lr {st['lr']:.3e}{', block 1 failed' if st['failed_block'] is not None else ''}): "
+            f"loss {st['loss']:.6f}, against the one-process step from the "
+            f"same state |dloss| {one['loss']:.2e} (< {tm['loss_atol']}), "
+            f"grad norm rel {one['grad_norm_rel']:.2e} (< "
+            f"{tm['gnorm_rel']}), summed gradient rel {one['grad_rel']:.2e} "
+            f"a leaf at most (<= {tm['grad_rel']:.2e}), params max |d| "
+            f"{one['max_over_lr']:.3f} lr (<= 2 lr + 1e-6), past "
+            f"lr/{1 / tm['near_rel']:.0f} = {one['threshold']:.2e}: "
+            f"{one['off']} of {one['n']} ({held}; past 1e-6: "
+            f"{one['off_1e6']}); "
+            f"against the one-process loop |dloss| {d_loop:.2e} (< "
+            f"{loop_tol}){f', grad norm rel {gn_loop:.2e}' if first else ''}"
+            f" -> {'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            fails.append(f"step {i} out of tolerance")
+    for line in lines:
+        log(f"[train-mesh] {line}")
+    counts = {}
+    for r, o in enumerate(outs):
+        rf = o.get("rollforward")
+        exact = rf is not None and not any(rf["bad"].values())
+        per_step = [(s["launches"]["entangle"], s["launches"]["disentangle"])
+                    for s in o["steps"]]
+        log(f"[train-mesh] rank {r} of {tm['world']}: the summed gradient of "
+            f"step {rf and rf['step']} ({rf and rf['leaves']} leaves) synced "
+            f"healthy and with failed_block 0, 1, 2, 3 on the kernel codec: "
+            f"leaves differing from healthy {rf and rf['bad']} ("
+            f"{'EXACT ROLL-FORWARD' if exact else 'RECOVERY FAILED'} "
+            f"(train-mesh)); entangle / disentangle launches per step "
+            f"{per_step} (gradient leaves {n_leaves}); losses {o['losses']};"
+            f" checkpoint writes {o['writes']}, restored step "
+            f"{o['restored']['step']} equal to the final state: "
+            f"{o['restored']['equal']} ({o['restored']['seconds']:.1f} s)")
+        if not exact:
+            fails.append(f"rank {r}: RECOVERY FAILED {rf}")
+        if any(p != (n_leaves, n_leaves) for p in per_step):
+            fails.append(f"rank {r}: codec launches per step {per_step}, "
+                         f"not {n_leaves} each")
+        other = {n: c for n, c in o["launches"].items()
+                 if n not in ("entangle", "disentangle") and c}
+        if other or not all(s["on_device"] for s in o["steps"]):
+            fails.append(f"rank {r}: launches {other} or state off the card")
+        if o["writes"] != ([tm["steps"]] if r == 0 else []):
+            fails.append(f"rank {r} wrote checkpoints {o['writes']}")
+        if not (o["restored"]["equal"]
+                and o["restored"]["step"] == tm["steps"]):
+            fails.append(f"rank {r}: restored {o['restored']}")
+        if not np.isfinite(o["losses"]).all():
+            fails.append(f"rank {r}: losses {o['losses']}")
+        counts[f"train-mesh rank {r}"] = o["launches"]
+    rank_ms = [s["ms"] for s in r0["steps"]]
+    rec = dict(
+        layers=cfg.n_layers, n_params=n_params, oracle=oracle,
+        one_process_peak_gib=one_peak, tolerances=dict(tm), lines=lines,
+        ranks=[dict(steps=o["steps"], losses=o["losses"],
+                    sum_ms=o["sum_ms"], broadcast_ms=o["broadcast_ms"],
+                    loop_s=o["loop_s"], peak_gib=o["peak_gib"],
+                    launches=o["launches"], rollforward=o["rollforward"],
+                    writes=o["writes"], restored=o["restored"])
+               for o in outs],
+        seconds=time.perf_counter() - t_phase)
+    log(f"[train-mesh] step ms: rank 0 {[round(x, 3) for x in rank_ms]} "
+        f"(rank 1 {[round(s['ms'], 3) for s in outs[1]['steps']]}; its "
+        f"first step includes the ranks' first gloo sums), one process "
+        f"{[round(o['ms'], 3) for o in oracle]}: the ranks share one card "
+        f"and one host, so no speed-up can show; the gloo sum of the "
+        f"gradients (float32, {n_params * 4 / 1e9:.2f} GB) ms per step "
+        f"{[[round(x, 1) for x in o['sum_ms']] for o in outs]}; the initial "
+        f"broadcast of the state {[round(o['broadcast_ms'], 1) for o in outs]}"
+        f" ms; train_loop {[round(o['loop_s'], 1) for o in outs]} s; "
+        f"max_memory_allocated per rank "
+        f"{[round(o['peak_gib'], 2) for o in outs]} GiB (rank 0's holds "
+        f"its one-process step's state too), one process "
+        f"{one_peak:.2f} GiB; phase {rec['seconds']:.1f} s ({smi})")
+    if fails:
+        raise AssertionError("train-mesh: " + "; ".join(fails))
+    return counts, rec
+
+
 def _leaf_rel(grads, ref) -> float:
     """Largest normwise relative difference ``|g - r| / |r|`` over the
     leaves of two gradient trees (a leaf whose reference is all zero must
@@ -4034,7 +4573,8 @@ def flash_backward_check(dev):
 def phase_train_families(dev, kernels):
     """Phase 4b: each family of TRAIN_FAMILIES trained at published widths
     cut to its depth, one at a time (its memory freed before the next):
-    ``train_loop`` with a fail-stopped block (:func:`phase_train`), EXACT
+    ``train_loop`` with a fail-stopped block and no final checkpoint
+    (phases 4 and 4m write and restore theirs; :func:`phase_train`), EXACT
     ROLL-FORWARD (train-<family>) on one backward
     (:func:`train_rollforward`), the step ms per gradient sync (spmd,
     checksum, entangle on the kernel codec) and a profiler window
@@ -4046,7 +4586,7 @@ def phase_train_families(dev, kernels):
     for arch in TRAIN_FAMILIES:
         state, counts[arch], rec[arch] = phase_train(
             dev, kernels, ["entangle", "disentangle"], arch,
-            tag="train-families")
+            tag="train-families", ckpt=False)
         train_rollforward(dev, state, arch, tag="train-families")
         held = [state]
         del state
@@ -5118,14 +5658,16 @@ def autotune_sweeps(dev, smi):
     free_cuda()
     n = AUTOTUNE_CODEC_N
     x = _rand(gen, -2**31, 2**31 - 1, (M, n), dev)
-    codec_bound = dict(bound_ms=1e3 * 2 * 4 * M * n / HBM_BYTES_PER_S,
-                       bound_by="bytes")
-    for op, call, plain in (
+    # each input byte read once, each output byte written once, as
+    # codec_timings counts them: the disentangle never reads row r
+    for op, call, plain, words in (
             ("entangle", lambda b, i: kops.entangle(x, plan, blocks=b),
-             lambda: kent.entangle_plain(x, plan)),
+             lambda: kent.entangle_plain(x, plan), 2 * M * n),
             ("disentangle",
              lambda b, i: kops.disentangle(x, plan, failed=1, blocks=b),
-             lambda: kdis.disentangle_plain(x, plan, 1))):
+             lambda: kdis.disentangle_plain(x, plan, 1), (2 * M - 1) * n)):
+        codec_bound = dict(bound_ms=1e3 * 4 * words / HBM_BYTES_PER_S,
+                           bound_by="bytes")
         rows.append(_sweep(dev, smi, f"{op} [{M}, {n}]", op, call, plain(),
                            (M, n), kops._plan_flags(plan), codec_bound,
                            graph=False))
@@ -5287,7 +5829,7 @@ def roofline_shares(dev, smi, decode_ms, train_ms):
     from repro_torch.train.train_step import make_train_step
 
     meta = isp.META
-    cfg = model_config(LLAMA)
+    cfg = served_config(LLAMA)
     model = get_model(cfg)
     B, S = SERVE["max_batch"], SERVE["max_seq"]
     plan = make_plan(SERVE["ft_M"], 32)
@@ -5425,6 +5967,11 @@ def kernel_table():
     return kernels
 
 
+# the spawned ranks of the phases across ranks, by --dist-phase
+WORKERS = {"dist": "dist_worker", "serve-mesh": "mesh_worker",
+           "train-mesh": "train_mesh_worker"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5433,7 +5980,7 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # a rank of the [dist] phase
     ap.add_argument("--dist-dir", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-phase", default="dist",
-                    choices=("dist", "serve-mesh"), help=argparse.SUPPRESS)
+                    choices=tuple(WORKERS), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -5443,10 +5990,9 @@ def main() -> int:
         return 2
     if args.dist_worker is not None:
         torch.cuda.set_device(0)
-        worker = mesh_worker if args.dist_phase == "serve-mesh" \
-            else dist_worker
-        return worker(args.dist_worker, pathlib.Path(args.dist_dir),
-                      torch.device("cuda", 0))
+        return globals()[WORKERS[args.dist_phase]](
+            args.dist_worker, pathlib.Path(args.dist_dir),
+            torch.device("cuda", 0))
     kernels = kernel_table()
     by_name = {k["name"]: k for k in kernels}
     dev = torch.device("cuda", 0)
@@ -5511,6 +6057,8 @@ def main() -> int:
         dev, smi, paths[LLAMA]["results"]["all"]["step_ms"],
         train["timings"]["entangle/kernel"])
     lap("train timings, roofline")
+    train_mesh_counts, train_mesh = phase_train_mesh(dev, kernels, smi)
+    lap("train-mesh")
     tf_counts, train_families = phase_train_families(dev, kernels)
     lap("train-families")
     stream = run_stream_conv(dev, kernels)
@@ -5552,6 +6100,7 @@ def main() -> int:
         by_path[f"{V3} absorb"] = serve_v3["absorb"]["counts"][name]
         by_path.update({a: c[name] for a, c in dist_counts.items()})
         by_path.update({a: c[name] for a, c in mesh_counts.items()})
+        by_path.update({a: c[name] for a, c in train_mesh_counts.items()})
         by_path["library"] = lib_counts[name]
         by_path.update({a: c[name] for a, c in autotune_counts.items()})
         if name in ("entangled_conv1d", "conv1d_causal"):
@@ -5577,7 +6126,10 @@ def main() -> int:
             head = rows[name]
             extra = dict(launches=train_counts[name],
                          launches_per_train_step=dict(
-                             {LLAMA: train["launches_per_step"][name]},
+                             {LLAMA: train["launches_per_step"][name],
+                              f"{LLAMA} train-mesh (each rank)": [
+                                  st["launches"][name] for st in
+                                  train_mesh["ranks"][0]["steps"]]},
                              **{a: train_families[a]["launches_per_step"][
                                  name] for a in TRAIN_FAMILIES}),
                          timings=[head])
@@ -5640,6 +6192,7 @@ def main() -> int:
     record["serve_v3"] = serve_v3
     record["dist"] = dist_rec
     record["serve_mesh"] = serve_mesh
+    record["train_mesh"] = train_mesh
     record["library"] = library
     record["autotune"] = autotune
     print(smi, flush=True)

@@ -5,10 +5,19 @@ Trains the arch's config (``--smoke``: its reduced config) on the
 synthetic corpus through :func:`repro_torch.train.trainer.train_loop` on
 one device, ``--device`` (default ``cuda``; it raises when no GPU is
 present). The flags are the reference launcher's, and as there the loop
-runs under ``axis_rules(make_local_mesh())``; with no process group yet,
-the launcher makes a one-rank group from a local store (NCCL on the card,
-gloo on the CPU) and ends it afterwards. The CLI exposes no codec flag:
-the entangled sync runs ``TrainConfig.grad_codec``'s default.
+runs under ``axis_rules(make_local_mesh())``, every rank on ``data``;
+``--batch`` is the global batch, of which each rank trains its rows
+(:mod:`repro_torch.train.train_step`). Under ``torchrun`` (``WORLD_SIZE``
+> 1) the launcher joins the group from the environment: NCCL with one
+card a rank (``LOCAL_RANK``), or gloo with ``--device cpu``::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch llama3.2-1b --smoke --device cpu
+
+With no ``WORLD_SIZE`` and no process group yet, it makes a one-rank group
+from a local store (NCCL on the card, gloo on the CPU); it ends the group
+it made. The CLI exposes no codec flag: the entangled sync runs
+``TrainConfig.grad_codec``'s default.
 Every decoder family trains: the dense decoders, MLA + MoE
 (deepseek-v2-lite-16b), Mamba-1 (falcon-mamba-7b), RG-LRU + local
 attention (recurrentgemma-2b) and the vision-language text path; the
@@ -21,6 +30,7 @@ import contextlib
 import os
 import tempfile
 
+import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
@@ -50,7 +60,7 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = _rank_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(
         adamw=AdamWConfig(lr=1e-3, warmup_steps=max(args.steps // 10, 1),
@@ -67,26 +77,48 @@ def main(argv=None):
                       log_every=max(args.steps // 10, 1))
     with _process_group(dev):
         mesh = make_local_mesh()
-        print(f"[launch.train] arch={cfg.name} device={dev} "
+        rank = f"rank {dist.get_rank()} of world {dist.get_world_size()}"
+        print(f"[launch.train] {rank}: arch={cfg.name} device={dev} "
               f"mesh={mesh_shape(mesh)} grad_sync={args.grad_sync} "
-              f"codec={tcfg.grad_codec}")
+              f"codec={tcfg.grad_codec} global batch={args.batch}",
+              flush=True)
         with axis_rules(mesh):
             state, losses = train_loop(cfg, tcfg, dcfg, loop, device=dev)
-    print(f"[launch.train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    print(f"[launch.train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+
+
+def _under_torchrun() -> bool:
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
+def _rank_device(device: str):
+    """This process's device: under ``torchrun`` with a card, the card
+    ``LOCAL_RANK`` (made current), else ``device`` resolved."""
+    if _under_torchrun() and torch.device(device).type == "cuda" \
+            and torch.cuda.is_available():
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    return resolve_device(device)
 
 
 @contextlib.contextmanager
 def _process_group(dev):
-    """The default process group: the caller's if one exists, else a
-    one-rank group from a local store (NCCL on a card, gloo on the CPU),
-    ended on exit. The NCCL group is not bound to the card, so NCCL sets
-    up no communicator until a collective runs, and a one-card loop runs
-    none (the train step syncs with ``axis_name=None``)."""
+    """The default process group: the caller's if one exists; under
+    ``torchrun`` the group joined from the environment (NCCL on the cards,
+    gloo on the CPU); else a one-rank group from a local store. A group
+    made here is ended on exit. The one-rank NCCL group is not bound to
+    the card, so NCCL sets up no communicator until a collective runs,
+    and a one-card loop runs none (the train step syncs with
+    ``axis_name=None``)."""
     if dist.is_initialized():
         yield
         return
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            store=dist.HashStore(), rank=0, world_size=1)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if _under_torchrun():
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
     try:
         yield
     finally:

@@ -413,34 +413,45 @@ def get_model(cfg: ModelConfig) -> Model:
 
 # ------------------------------------------------------------------- loss ----
 
-def lm_loss(logits, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def lm_loss(logits, batch: dict, cfg: ModelConfig,
+            counts=None) -> torch.Tensor:
     """Next-token cross entropy over the batch's ``loss_mask`` (all ones
     when absent): a float32 log-softmax over the whole vocab, or with
     ``loss_impl='streamed'`` (:func:`repro_torch.models.loss.
     streamed_lm_ce`, which saves no [tokens, vocab] residual). ``logits``
     may be the pair ``(logits, mtp_logits)`` (deepseek-v3): the MTP
-    logits' t+2 cross entropy is then added with weight 0.3."""
+    logits' t+2 cross entropy is then added with weight 0.3.
+
+    Each term is a masked sum over its mask's count. ``counts`` (a pair
+    of float32 scalars, the t+1 and the t+2 term's) replaces those
+    counts: a data-parallel rank's share of a global batch's loss divides
+    its rows' sums by the global batch's counts
+    (:func:`repro_torch.train.train_step.mask_counts`)."""
     main, mtp = logits if isinstance(logits, tuple) else (logits, None)
     tokens = batch["tokens"]
     full_mask = batch.get("loss_mask")
     if full_mask is None:
         full_mask = torch.ones_like(tokens)
+    c1, c2 = (None, None) if counts is None else counts
     if cfg.loss_impl == "streamed":
-        loss = streamed_lm_ce(main, tokens, full_mask, shift=1)
+        loss = streamed_lm_ce(main, tokens, full_mask, shift=1, count=c1)
         if mtp is not None:
             loss = loss + 0.3 * streamed_lm_ce(mtp, tokens, full_mask,
-                                               shift=2)
+                                               shift=2, count=c2)
         return loss
-    loss = _naive_ce(main, tokens, full_mask, 1)
+    loss = _naive_ce(main, tokens, full_mask, 1, c1)
     if mtp is not None:
-        loss = loss + 0.3 * _naive_ce(mtp, tokens, full_mask, 2)
+        loss = loss + 0.3 * _naive_ce(mtp, tokens, full_mask, 2, c2)
     return loss
 
 
-def _naive_ce(logits, tokens, full_mask, shift: int) -> torch.Tensor:
-    """Mean masked CE of position t predicting token t + ``shift``."""
+def _naive_ce(logits, tokens, full_mask, shift: int,
+              count=None) -> torch.Tensor:
+    """Masked CE of position t predicting token t + ``shift``, summed over
+    ``count`` (the mask's own sum by default), at least 1."""
     mask = full_mask[:, shift:].to(torch.float32)
     lp = torch.log_softmax(logits[:, :-shift].to(torch.float32), dim=-1)
     ll = torch.take_along_dim(lp, tokens[:, shift:, None].to(torch.int64),
                               dim=-1)[..., 0]
-    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    denom = torch.sum(mask) if count is None else count
+    return -torch.sum(ll * mask) / torch.clamp(denom, min=1.0)

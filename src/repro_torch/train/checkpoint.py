@@ -21,8 +21,12 @@ writes the same bytes — so the same SHA-256 — and reads such a leaf back
 by its manifest dtype, through a ``uint16`` view.
 
 Under a process group of several ranks every rank calls ``save`` (a
-sharded ``DTensor`` leaf is gathered, a collective) and rank 0 writes;
-a blocking save ends with a barrier, so that every rank can restore it.
+sharded ``DTensor`` leaf is gathered, a collective every rank joins) and
+rank 0 alone copies the state to the host and writes it; a blocking save
+ends with a barrier that every rank reaches, rank 0 after its writer has
+finished (or failed: it then raises after the barrier, so that no rank is
+left waiting), so that every rank can restore it. Every rank restores by
+reading the same files.
 """
 from __future__ import annotations
 
@@ -108,16 +112,22 @@ class CheckpointManager:
     def save(self, state, step: int, blocking: bool = False) -> None:
         """Snapshot to host memory synchronously, write files async (on
         rank 0 of a process group)."""
-        host = tree_map(_to_host, state)
-        self.wait()
-        if _rank0():
+        if not _rank0():  # a sharded leaf is gathered all the same
+            for x in leaves(state):
+                if _is_dtensor(x):
+                    x.full_tensor()
+        else:
+            host = tree_map(_to_host, state)
+            self.wait()
             self._thread = threading.Thread(
                 target=self._write_guarded, args=(host, int(step)),
                 daemon=True)
             self._thread.start()
         if blocking:
-            self.wait()
-            _barrier()
+            try:
+                self.wait()
+            finally:
+                _barrier()
 
     def wait(self) -> None:
         """Join the writer; re-raise its failure, if any."""

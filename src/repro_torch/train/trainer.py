@@ -11,6 +11,16 @@ Failure drills (exercised in the tests):
   * fail-stop: at ``fail_block_at_step`` gradient block 1 is lost and
     rolled forward from the other M-1 entangled blocks (the loss curve is
     unaffected).
+
+Across ranks (a process group of several, under ``axis_rules`` of a data
+mesh, as ``launch/train.py`` runs it): every rank starts from rank 0's
+initial state (a broadcast, so that no two cards can seed apart), passes
+the global batch of each step to the train step, which takes its own
+rows of it and sums the gradients over the group
+(:mod:`repro_torch.train.train_step`), runs the fail-stopped step at the
+same step, and resumes from the same latest checkpoint, which rank 0
+alone writes (:mod:`repro_torch.train.checkpoint`). The params are
+replicated, so a checkpoint of n ranks restores on any number of ranks.
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -29,17 +40,30 @@ from repro_torch.data.synthetic import DataConfig, SyntheticLM
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.train_step import (TrainConfig, init_state,
                                           make_train_step)
+from repro_torch.tree import leaves
 
 
 def _default_ckpt_dir() -> str:
     return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
 
 
+def broadcast_state(state: dict) -> dict:
+    """Rank 0's ``state`` on every rank of the default process group, in
+    place (nothing to do in one process)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        with torch.no_grad():
+            for t in leaves(state):
+                dist.broadcast(t, src=0)
+    return state
+
+
 @dataclasses.dataclass
 class LoopConfig:
     total_steps: int = 100
     ckpt_every: int = 25
-    ckpt_dir: str = dataclasses.field(default_factory=_default_ckpt_dir)
+    # None: a loop that neither resumes nor writes a checkpoint
+    ckpt_dir: Optional[str] = dataclasses.field(
+        default_factory=_default_ckpt_dir)
     log_every: int = 10
     seed: int = 0
     fail_block_at_step: Optional[int] = None  # inject fail-stop at this step
@@ -49,7 +73,8 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
                loop: LoopConfig, log: Callable[[str], None] = print,
                device=None) -> tuple:
     """Train ``loop.total_steps`` steps from the latest checkpoint under
-    ``loop.ckpt_dir`` (or from random params seeded by ``loop.seed``) on
+    ``loop.ckpt_dir`` (or from random params seeded by ``loop.seed``; with
+    ``ckpt_dir`` None nothing is restored or written) on
     ``device`` (CUDA unless the caller asks for the CPU). Returns ``(state,
     losses of the steps run)``."""
     # the LR schedule is defined over the run: a loop shorter than the
@@ -67,12 +92,13 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
 
     dev = resolve_device(device)
     data = SyntheticLM(dcfg)
-    ckpt = CheckpointManager(loop.ckpt_dir)
+    ckpt = (CheckpointManager(loop.ckpt_dir) if loop.ckpt_dir is not None
+            else None)
     gen = torch.Generator(device=dev).manual_seed(loop.seed)
 
-    state = init_state(gen, cfg, tcfg, dev)
+    state = broadcast_state(init_state(gen, cfg, tcfg, dev))
     start_step = 0
-    if ckpt.latest_step() is not None:
+    if ckpt is not None and ckpt.latest_step() is not None:
         state, start_step = ckpt.restore(state)
         log(f"[trainer] resumed from step {start_step}")
 
@@ -95,8 +121,10 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, dcfg: DataConfig,
             dt = time.monotonic() - t0
             log(f"[trainer] step {step+1} loss={losses[-1]:.4f} "
                 f"gnorm={float(metrics['grad_norm']):.3f} ({dt:.1f}s)")
-        if (step + 1) % loop.ckpt_every == 0:
+        if ckpt is not None and (step + 1) % loop.ckpt_every == 0:
             ckpt.save(state, step + 1)
+    if ckpt is None:
+        return state, np.array(losses)
     t_save = time.monotonic()
     ckpt.save(state, loop.total_steps, blocking=True)
     log(f"[trainer] checkpoint of step {loop.total_steps} written in "

@@ -974,6 +974,81 @@ def test_train_launcher_on_the_card(cuda_device, tmp_path, capsys):
     assert not dist.is_initialized()
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v2-lite-16b"])
+def test_train_rank_split_on_the_card(cuda_device, arch, tmp_path):
+    """Training across ranks on the card: 2 gloo ranks sharing it
+    (tests/_train_mesh_worker.py; NCCL takes one card a rank) train the
+    arch's smoke config on their halves of a global batch of 4 (entangled
+    sync on the kernel codec, 2 steps). The ranks are bit-identical to
+    each other; each step is within tests/test_torch_train.py's
+    tolerances of one process's step on the card from the same state
+    (under a stand-in mesh of 2 ``data`` shards, the MoE block's 2
+    dispatch groups); every rank launched the entangle and the
+    disentangle kernel once per gradient leaf each step."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    import _train_mesh_worker as W
+    from repro_torch.dist.sharding import StandInMesh, axis_rules
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    case = dict(kind="steps", arch=arch, batches="b", steps=2,
+                device="cuda", failed=[1],
+                tcfg=dict(max_seq=64, grad_sync="entangle",
+                          grad_codec="kernel"))
+    tokens = np.random.default_rng(0).integers(0, 256, size=(2, 4, 32))
+    np.savez(tmp_path / "b.npz", tokens=tokens.astype(np.int32))
+    (tmp_path / "cases.json").write_text(json.dumps({"c": case}))
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(repo / "tests" / "_train_mesh_worker.py"),
+         str(r), "2", str(tmp_path)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    r0, r1 = (dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2))
+    for k in r0:
+        if "/routes/" not in k and "/gaps/" not in k:
+            np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+    cfg, tcfg = W.build(case)
+    n_leaves = len(leaves(W.init(case, tmp_path, cfg, tcfg)["params"]))
+    lr_cfg = adamw.effective_lr_config(tcfg.adamw, cfg.d_model)
+    with axis_rules(StandInMesh({"data": 2, "model": 1})):
+        for s in range(2):
+            state = (W.init(case, tmp_path, cfg, tcfg) if s == 0 else
+                     W.state_from(case, tmp_path, r0, f"c/s{s - 1}/state"))
+            one = W.step_case("c", case, tmp_path, state, s)[1]
+            key = f"c/s{s}"
+            assert list(r0[f"{key}/launches"]) == [n_leaves, n_leaves]
+            assert abs(float(r0[f"{key}/loss"]) - float(one[f"{key}/loss"])
+                       ) < 1e-4
+            assert float(r0[f"{key}/grad_norm"]) == pytest.approx(
+                float(one[f"{key}/grad_norm"]), rel=2e-3)
+            lr = adamw.schedule(lr_cfg, torch.tensor(s, dtype=torch.int32)
+                                ).item()
+            n = (len([k for k in one if k.startswith(f"{key}/state/")])
+                 - 1) // 3
+            n_off = n_all = 0
+            for i in range(2 * n, 3 * n):  # the params' leaves
+                dd = np.abs(r0[f"{key}/state/{i}"] - one[f"{key}/state/{i}"])
+                assert dd.max() <= 2 * lr + 1e-6
+                n_off += int((dd > (1e-6 if s == 0 else lr / 64)).sum())
+                n_all += dd.size
+            assert n_off <= 0.01 * n_all
+    assert bool(r0["c/s0/failed1"])
+
+
 # ---------------------------------------------------------- launch params --
 
 # two shapes per op: (dims of the call) for every candidates_for entry

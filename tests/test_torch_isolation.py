@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` and nothing in
 ``chip_smoke.py``, ``chip_conv_routes.py``, ``chip_autotune_seed.py``,
-``chip_decode_ab.py`` or ``chip_row_bits.py`` imports JAX or the JAX
-package (the machine with the GPU has no JAX)."""
+``chip_decode_ab.py``, ``chip_row_bits.py``, ``chip_train_nccl.py`` or
+the test workers that ranks run (``tests/_*_worker.py``) imports JAX or
+the JAX package (the machine with the GPU has no JAX)."""
 import os
 import pathlib
 import re
@@ -66,7 +67,9 @@ def test_no_source_names_jax_or_the_reference():
                                          ROOT / "chip_conv_routes.py",
                                          ROOT / "chip_autotune_seed.py",
                                          ROOT / "chip_decode_ab.py",
-                                         ROOT / "chip_row_bits.py"]
+                                         ROOT / "chip_row_bits.py",
+                                         ROOT / "chip_train_nccl.py"] + sorted(
+        (ROOT / "tests").glob("_*_worker.py"))
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _BAD.search(f.read_text())]
     assert not offenders, offenders

@@ -460,6 +460,23 @@ def test_trainer_survives_failstop_step(tmp_path, codec):
     np.testing.assert_array_equal(losses_fail, losses_clean)
 
 
+def test_trainer_without_checkpoints(tmp_path):
+    """``ckpt_dir=None``: the loop trains as with a directory, and writes
+    and resumes nothing."""
+    cfg, dcfg, loop = _loop_setup(tmp_path / "a", fail_block_at_step=2)
+    loop = dataclasses.replace(loop, total_steps=3, ckpt_every=1)
+    tcfg = TrainConfig(max_seq=64, grad_sync="entangle")
+    _, want = train_loop(cfg, tcfg, dcfg, loop, log=lambda s: None,
+                         device="cpu")
+    logs = []
+    _, got = train_loop(cfg, tcfg, dcfg,
+                        dataclasses.replace(loop, ckpt_dir=None),
+                        log=logs.append, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert not any("checkpoint" in s or "resumed" in s for s in logs)
+    assert CheckpointManager(str(tmp_path / "a")).all_steps() == [1, 2, 3]
+
+
 def test_train_launcher_on_the_cpu(tmp_path, capsys):
     from repro_torch.launch.train import main
 
