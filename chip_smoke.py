@@ -13,7 +13,8 @@ layers, the dense first layer and one MoE layer: its float32 masters and
 int8 copies at all 27 layers do not fit one 80 GB card, and 8, then 4,
 layers took the script past its time limit on a slow host) served, and
 trained cut to 2 layers, also served across 2 ranks on the one card
-with llama3.2-1b; qwen2-7b (qkv bias), minitron-8b (ungated relu2 MLP)
+with llama3.2-1b and trained across them with MoE dispatch
+"global_sort"; qwen2-7b (qkv bias), minitron-8b (ungated relu2 MLP)
 and granite-20b (MQA, ungated gelu MLP) served cut to a quarter of their
 depth, 7 of 28, 8 of 32 and 5 of 52 layers (granite's 52 hold about 20.3
 G parameters, 81 GB of float32 masters alone); falcon-mamba-7b (Mamba-1)
@@ -68,8 +69,13 @@ exits nonzero:
                modes' tokens compared pairwise under the near-tie rule;
                a cancel in every state and a deadline shed; step ms with
                and without a prefill call, TTFT, tokens/s and the recycle
-               zeroing's launches. deepseek: chunked and packed at scope
-               all;
+               zeroing's launches. llama also through admission batches
+               of ``prefill_batch`` 3 and 1 rows at 4 slots (whole bucket,
+               scope all; the dense shapes they add held against the
+               plain version first): EXACT ROLL-FORWARD (prefill_batch)
+               with ``failed_group=1``, the tokens of ``prefill_batch``
+               = max_batch, the census keyed (Bp, bucket), the s8
+               launches. deepseek: chunked and packed at scope all;
   3s. serve-mesh — right after the two serving paths: one engine split
                across 2 ranks spawned on the one card over gloo
                (``chip_smoke.py --dist-worker R --dist-phase
@@ -193,8 +199,9 @@ exits nonzero:
                ways;
   4. train   — ``train_loop`` trains full-width llama3.2-1b with the
                entangled gradient sync on the kernel codec (a fail-stopped
-               block at one step) and writes its final checkpoint; the
-               losses must be finite. EXACT ROLL-FORWARD (train): one
+               block at one step), with no final checkpoint (4m and
+               train-variants write and restore theirs); the losses must
+               be finite. EXACT ROLL-FORWARD (train): one
                backward, synced healthy and with each of blocks 0-3 failed,
                every synced leaf and the updated state bit-identical.
                Remat and the streamed CE at the same shape: ``remat``
@@ -221,7 +228,7 @@ exits nonzero:
                failed block, and the sync's ms at world size 1 and 4. Then
                the mean step time per gradient sync and a profiler window;
   4m. train-mesh — training across ranks: llama3.2-1b at published
-               widths cut to 8 of its 16 layers (two ranks' training
+               widths cut to 2 of its 16 layers (two ranks' training
                state on one card), global batch 4 x 512, entangled sync on
                the kernel codec, 3 steps with block 1 fail-stopped at step
                1. First the codec kernels against their plain versions at
@@ -242,7 +249,15 @@ exits nonzero:
                rank, the final checkpoint written by rank 0 alone and
                restored on both to the final state bit for bit; step ms
                beside the one-process step, the gloo sum's ms a step,
-               ``max_memory_allocated`` per rank;
+               ``max_memory_allocated`` per rank. Then the same ranks
+               train deepseek-v2-lite-16b (2 of 27 layers) with MoE
+               dispatch "global_sort" (each rank gathers every rank's
+               tokens into one dispatch group; the gather's backward sums
+               its gradient over the ranks), 2 steps with block 1
+               fail-stopped at step 1, no checkpoint: ranks bit-identical,
+               losses within TRAIN_MESH's tolerances of the one-process
+               loop run here, EXACT ROLL-FORWARD (train-mesh global_sort),
+               one codec launch of each kind per leaf and step;
   4b. train-families — deepseek-v2-lite-16b (MLA + MoE; 2 of 27 layers:
                the dense first layer and one MoE layer), falcon-mamba-7b
                (Mamba-1; 1 of 64) and recurrentgemma-2b (RG-LRU + local
@@ -274,8 +289,13 @@ exits nonzero:
                timed in turns against the bound;
   5b. library — ``examples/failstop_demo`` and ``examples/serve_lm`` of
                the port on the card with the reference examples' verdicts,
-               and ``sdc.detect`` / ``localize`` on card tensors held to
-               the same calls on the CPU;
+               ``sdc.detect`` / ``localize`` on card tensors held to
+               the same calls on the CPU, ``run_protected`` at the
+               ``FTConfig(M, w, headroom_bits)`` plans of LIB_PLANS (every
+               op, family and failed stream, card against CPU; EXACT
+               ROLL-FORWARD (run_protected plans)) and the checksum
+               functions along stream axis 1, the codec kernels held to
+               their plain versions at those plans first;
   6. timings — each kernel, its plain version and its bound at its
                main-path shapes (the dense GEMM also at the recurrent
                families' new shapes, and at the odd-width heads in
@@ -331,10 +351,13 @@ DEEPSEEK = "deepseek-v2-lite-16b"
 # depth went 16 -> 4, deepseek's 4 -> 2, the dense decoders' to half and
 # the recurrent families' to a quarter, the admission wave 24 -> 16
 # requests, the timed train steps 2 + 5 -> 1 + 3 a sync, and phase 4b's
-# loops lost their final checkpoints (35 GB of writes; phase 4 and
-# train-mesh still write and restore theirs) after the script ran past
-# its 1200 s limit on a slow host with the train-mesh phase (1034.7 s on
-# another, 688.4 s at the first cuts on a fast one)
+# loops lost their final checkpoints (35 GB of writes) after the script
+# ran past its 1200 s limit on a slow host with the train-mesh phase
+# (1034.7 s on another, 688.4 s at the first cuts on a fast one); to pay
+# for the prefill_batch, run_protected-plan and global_sort runs, phase
+# 4's loop lost its 14.8 GB checkpoint too and train-mesh's llama went
+# 8 -> 2 layers (train-mesh and train-variants still write and restore
+# theirs)
 LLAMA_SERVE_LAYERS = 4
 # the dense first layer and 1 MoE layer of 27 at published widths: 8
 # layers took the script past 1200 s on a slow host (1209.3 s), then 4
@@ -410,6 +433,13 @@ ADMIT_MODES = {"whole": {}, "chunked": dict(prefill_chunk=32),
 # |logit|
 NEAR_TIE = 2.0 ** -6
 LOGIT_TOL = 2.0 ** -5
+# the serve-admission wave (llama) through admission batches of
+# ``prefill_batch`` rows, fewer than the slots: 4 slots, Bp 3 (which M = 4
+# does not divide: every protected site of a prefill program and the
+# landing head pad it to whole groups) and 1, whole-bucket admission at
+# scope all, each healthy and with failed_group=1 on a warm replica,
+# against Bp = max_batch (0) of the same engine
+PREFILL_BATCH = dict(max_batch=4, bps=(3, 1), mode="whole")
 # the training path: llama3.2-1b at published widths; the loop's steps
 # (block 1 of the entangled sync fail-stopped at FAIL_STEP), then the timed
 # steps of each gradient sync
@@ -480,14 +510,30 @@ MESH_PATHS = ((LLAMA, ("head", "all")), (DEEPSEEK, ("moe", "all")))
 # one-process loop: LOSS_ATOL at the first step (the same params),
 # "loop_loss_atol" later (the loops part by the rounding of each step's
 # gradient)
-TRAIN_MESH = dict(world=2, layers=8, batch=4, seq=512, steps=3, fail_step=1,
+TRAIN_MESH = dict(world=2, layers=2, batch=4, seq=512, steps=3, fail_step=1,
                   loss_atol=1e-4, gnorm_rel=2e-3, loop_loss_atol=1e-3,
                   grad_rel=2.0 ** -6, off_share=0.01, near_rel=2.0 ** -6)
+# the phase's second run on the same ranks: deepseek-v2-lite-16b at its
+# served depth (DEEPSEEK_LAYERS: the dense first layer and one MoE layer,
+# 1.085 G params) with MoE dispatch="global_sort" (each rank gathers every
+# rank's tokens into the one dispatch group of the single-device step, and
+# the gather's backward sums that gradient over the ranks), TRAIN_MESH's
+# batch, "steps" steps with block 1 fail-stopped at "fail_step", no
+# checkpoint; its losses held to the one-process loop's with TRAIN_MESH's
+# tolerances (no one-process step on rank 0: three deepseek training
+# states would not fit the card beside each other)
+TRAIN_MESH_GS = dict(steps=2, fail_step=1)
 # the library path: SDC detection over M streams of this many columns, and
 # the kernels its examples and SDC calls must launch
 LIB_SDC_N = 1 << 20
 LIB_KERNELS = ("entangled_matmul", "entangle", "disentangle",
                "conv1d_causal", "checksum")
+# the library path's run_protected at FTConfig(M, w, headroom_bits) plans
+# (two int32-temporary plans: l = 4 at (4, 16, 0), 5 at (3, 16, 0); three
+# dual-word ones: l = 8, 7 and 4), every LSB op at LIB_PLAN_N samples, and
+# the checksum functions along stream axis 1 ([3, M, LIB_PLAN_N])
+LIB_PLANS = ((4, 32, 0), (4, 16, 0), (4, 32, 4), (3, 16, 0), (8, 32, 0))
+LIB_PLAN_N = 4096
 # remat and the streamed CE on the card, at TRAIN's shape: one warm-up and
 # this many timed forward + backward steps per setting; the absolute bounds
 # are tests/test_torch_loss.py's (CE_* on the CE alone, NAIVE_* on the
@@ -769,6 +815,39 @@ def check_dense(dev, chk, shapes, ragged: bool):
         f"check passed")
 
 
+def check_dense_fused(dev, chk, shapes):
+    """The dense kernel at ``shapes`` (``(B, K, N, sites)``) in the serving
+    call only: packed weights, the fused extraction with every failed
+    stream (and none), on the s8 route, each against the plain
+    extraction of one plain entangled product (operands as in
+    :func:`check_dense`)."""
+    import torch
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.ft.quantize import activation_budget
+    from repro_torch.kernels import disentangle as kdis
+    from repro_torch.kernels import entangled_matmul as emm
+    from repro_torch.kernels.codec import pack_int8
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    plan = make_plan(SERVE["ft_M"], 32)
+    for (B, K, N, site) in shapes:
+        bud = activation_budget(plan, K)
+        c = _rand(gen, -bud, bud + 1, (plan.M, B, K), dev)
+        gp = pack_int8(_rand(gen, -127, 128, (K, N), dev), axis=0)
+        delta = emm.entangled_matmul_plain(c, gp, plan, packed=True)
+        for r in [None] + list(range(plan.M)):
+            want = kdis.disentangle_plain(delta.reshape(plan.M, -1), plan,
+                                          0 if r is None else r)
+            got = emm.entangled_matmul_cuda(c, gp, plan, fuse_epilogue=True,
+                                            failed=r, packed=True)
+            chk.equal(got.reshape(plan.M, -1), want,
+                      f"{site} [{plan.M},{B},{K}]x[{K // 4},{N}] failed={r}",
+                      "s8")
+        del c, gp, delta
+        torch.cuda.empty_cache()
+
+
 def check_grouped(dev, chk, shapes, ragged=True, full_range=True):
     """The grouped kernel: ragged small shapes for every plan (when
     ``ragged``), then the main path's ``shapes`` (a list of ``(E, Cg, K,
@@ -899,8 +978,8 @@ def check_codec(dev, checkers, grad_shapes, ragged=True,
             eps[r] = eps_r
 
     n0 = (chk_e.n, chk_d.n)
-    plans = [make_plan(M, 32) for M in range(3, 9)] + [make_plan(3, 16),
-                                                       make_plan(4, 16)]
+    plans = [make_plan(M, 32) for M in range(3, 9)] + [
+        make_plan(3, 16), make_plan(4, 16), make_plan(4, 32, 4)]
     for plan in plans if ragged else ():
         for n in (1, 2, 3, 1023, 1025, 65537):
             one(plan, n, f"plan(M={plan.M},l={plan.l},{plan.temp}) N={n}")
@@ -999,13 +1078,14 @@ def _leaves(node):
         yield node
 
 
-def census_shapes(cfg, census):
+def census_shapes(cfg, census, head_rows=None):
     """The entangled-GEMM shapes of a protected-site census (a set of
-    (site, shape)): dense ``(B, K, N, sites)``, the vocab head first
-    (decode and admission both send it max_batch / M rows per group), and
-    grouped ``(E, Cg, K, N, sites)`` from the census's 5-tuples."""
-    dense = {(SERVE["max_batch"] // SERVE["ft_M"], cfg.d_model,
-              cfg.vocab_size): ["head"]}
+    (site, shape)): dense ``(B, K, N, sites)``, the vocab head first (at
+    each of ``head_rows`` rows per group; by default max_batch / M, which
+    decode and admission both send it), and grouped ``(E, Cg, K, N,
+    sites)`` from the census's 5-tuples."""
+    rows = head_rows or (SERVE["max_batch"] // SERVE["ft_M"],)
+    dense = {(b, cfg.d_model, cfg.vocab_size): ["head"] for b in rows}
     grouped = {}
     for site, shape in sorted(census):
         d = dense if len(shape) == 4 else grouped
@@ -1465,13 +1545,16 @@ def _admission_drill(dev, cfg, params):
 
 
 def phase_serve_admission(dev, kernels, path_kernels, cfg, params, modes,
-                          scopes, smi, seed, drill):
+                          scopes, smi, seed, drill, checked=None):
     """The rest of the serving engine on the card: per admission mode and
     scope, the 16-request wave healthy and with failed_group=1 (EXACT
     ROLL-FORWARD (serve-admission)), misses 0; the healthy modes compared
-    pairwise (llama) under the near-tie rule; the drill once. Every
-    kernel's count is set to 0 just before and read just after; each of
-    ``path_kernels`` must have launched. Returns (counts, record)."""
+    pairwise (llama) under the near-tie rule; with ``checked`` (the dense
+    shapes already held to the plain version), the PREFILL_BATCH runs
+    (:func:`prefill_batch_runs`), their new shapes held first; the drill
+    once. Every kernel's count is set to 0 just before and read just
+    after; each of ``path_kernels`` must have launched. Returns (counts,
+    record)."""
     import numpy as np
     import torch
 
@@ -1479,6 +1562,8 @@ def phase_serve_admission(dev, kernels, path_kernels, cfg, params, modes,
 
     lengths = admission_lengths(seed)
     Recording = _recording_engine()
+    if checked is not None:
+        bp_warm = prefill_batch_setup(dev, kernels, cfg, params, checked)
     reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1554,6 +1639,12 @@ def phase_serve_admission(dev, kernels, path_kernels, cfg, params, modes,
                     f"tokens agree; {pairs[name]}")
     del healthy
     free_cuda()
+    bp_rec = None
+    if checked is not None:
+        bp_rec = prefill_batch_runs(dev, kernels, cfg, params, lengths,
+                                    bp_warm, smi)
+        del bp_warm
+        free_cuda()
     if drill:
         _admission_drill(dev, cfg, params)
     torch.cuda.synchronize()
@@ -1573,7 +1664,118 @@ def phase_serve_admission(dev, kernels, path_kernels, cfg, params, modes,
         raise AssertionError(f"packed GEMMs reached the CUDA-core kernel: "
                              f"{core}")
     return counts, dict(lengths=lengths, modes=per, pairs=pairs,
-                        max_memory_allocated=peak, seconds=secs)
+                        prefill_batch=bp_rec, max_memory_allocated=peak,
+                        seconds=secs)
+
+
+def _prefill_batch_scfg(bp):
+    from repro_torch.serve.engine import ServeConfig
+
+    pb = PREFILL_BATCH
+    return ServeConfig(max_batch=pb["max_batch"], max_seq=SERVE["max_seq"],
+                       ft_mode="entangle", ft_M=SERVE["ft_M"],
+                       ft_scope="all", prefill_batch=bp,
+                       **ADMIT_MODES[pb["mode"]])
+
+
+def prefill_batch_setup(dev, kernels, cfg, params, checked):
+    """Before the serve-admission counts: an engine of each PREFILL_BATCH
+    row count (0: max_batch) at startup, and every dense shape of their
+    censuses and their heads (ceil(rows / M) rows a group) that
+    ``checked`` lacks held against the plain version in the serving call
+    on the s8 route (:func:`check_dense_fused`).
+    Returns their warm states {Bp: state} (census, plans and quantized
+    weights), which the runs start from."""
+    from repro_torch.serve.engine import ServeEngine
+
+    pb, M = PREFILL_BATCH, SERVE["ft_M"]
+    warm, census = {}, set()
+    for bp in (0,) + pb["bps"]:
+        eng = ServeEngine(cfg, _prefill_batch_scfg(bp), params, device=dev)
+        warm[bp] = eng.warm_state()
+        census |= set(eng.protected_census)
+        del eng
+    heads = sorted({-(-n // M) for n in (pb["max_batch"],) + pb["bps"]})
+    dense, _ = census_shapes(cfg, census, head_rows=heads)
+    done = {tuple(sh[:3]) for sh in checked}
+    new = [sh for sh in dense if tuple(sh[:3]) not in done]
+    chk = next(k for k in kernels if k["name"] == "entangled_matmul")[
+        "checker"]
+    part = chk.spawn()
+    check_dense_fused(dev, part, new)
+    chk.absorb(part)
+    log(f"[serve-admission] {cfg.name} prefill_batch {pb['bps']} at "
+        f"max_batch {pb['max_batch']}: {len(new)} dense shapes the "
+        f"max_batch={SERVE['max_batch']} engine never sends "
+        f"({sorted(tuple(sh[:3]) for sh in new)}) held against the plain "
+        f"version: {part.n} comparisons, max_abs_err {part.worst}")
+    free_cuda()
+    return warm
+
+
+def prefill_batch_runs(dev, kernels, cfg, params, lengths, warm, smi):
+    """The serve-admission wave through engines of PREFILL_BATCH row
+    counts, from their warm states: Bp = max_batch healthy, then each Bp
+    healthy and with failed_group=1 (EXACT ROLL-FORWARD (prefill_batch)),
+    its tokens equal to the Bp = max_batch run's, its census keyed (Bp,
+    bucket), no plan miss; the s8 GEMM's launches of each. Returns the
+    record by Bp."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+
+    pb = PREFILL_BATCH
+    emm = next(k for k in kernels if k["name"] == "entangled_matmul")
+    rec, base = {}, None
+    for bp in (0,) + pb["bps"]:
+        t0 = time.perf_counter()
+        before = count(emm)
+        scfg = _prefill_batch_scfg(bp)
+        eng = ServeEngine(cfg, scfg, params, device=dev, warm=warm[bp])
+        outs, st = _admit_wave(eng, cfg, lengths, None)
+        census = {f"{k}": v for k, v in sorted(eng.census["prefill"].items())}
+        keys = {k[0] for k in eng.census["prefill"]}
+        del eng
+        inj = None
+        if bp:
+            inj, _ = _admit_wave(ServeEngine(cfg, scfg, params, device=dev,
+                                             warm=warm[bp]), cfg, lengths, 1)
+        torch.cuda.synchronize()
+        launches = count(emm) - before
+        rows = bp or pb["max_batch"]
+        rec[bp] = dict(census=census, s8_launches=launches,
+                       steps=st["steps"], landings=st["landings"],
+                       ttft_p50_ms=st["ttft_p50_ms"],
+                       seconds=time.perf_counter() - t0)
+        if not bp:
+            base = outs
+            log(f"[serve-admission] {cfg.name} prefill_batch=0 (Bp = "
+                f"max_batch = {rows}), {pb['mode']} bucket, scope all: "
+                f"census {census}; s8 GEMM launches {launches}; "
+                f"{st['steps']} steps")
+            continue
+        bad = sum(not np.array_equal(outs[r], inj[r]) for r in outs)
+        differ = sum(not np.array_equal(outs[r], base[r]) for r in outs)
+        verdict = ("EXACT ROLL-FORWARD (prefill_batch)" if bad == 0
+                   else "RECOVERY FAILED")
+        rec[bp].update(mismatching=bad, differ_from_full_batch=differ)
+        log(f"[serve-admission] {cfg.name} prefill_batch={bp}, "
+            f"{pb['mode']} bucket, scope all, max_batch {pb['max_batch']}: "
+            f"failed_group=1 injected on every step; {len(outs)} requests / "
+            f"{sum(len(v) for v in outs.values())} tokens compared; "
+            f"mismatching requests: {bad} ({verdict}); requests whose "
+            f"tokens differ from the Bp = max_batch run's: {differ}; "
+            f"census (Bp, bucket) keys {census}; s8 GEMM launches "
+            f"{launches} (healthy and injected); {st['steps']} steps, "
+            f"{st['landings']} landings; "
+            f"{rec[bp]['seconds']:.1f} s ({smi})")
+        if bad or differ or keys != {bp}:
+            raise AssertionError(
+                f"prefill_batch={bp}: {verdict}, {differ} requests differ "
+                f"from the full batch's, census keys {keys}")
+        free_cuda()
+    return rec
 
 
 # ------------------------------------------------------------------ fleet --
@@ -2937,6 +3139,7 @@ def phase_library(dev, kernels, smi):
             "bit-identical under a fail-stop in any of the 4 request groups",
             "standalone ft_logits: exact under any single-group fail-stop",
             "deadline drill: group 2 missed the deadline"]}
+    library_plan_kernels(dev, kernels)
     reset_counts(kernels)
     rec = {}
     for mod, lines in want.items():
@@ -2980,6 +3183,7 @@ def phase_library(dev, kernels, smi):
             raise AssertionError(f"sdc missed the corruption at {pos} "
                                  f"({launched} disentangle launches)")
         hits.append(int(loc[pos]) == j)
+    rec["plans"] = library_plans(dev, kernels, smi)
     counts = {k["name"]: count(k) for k in kernels}
     log(f"[library] sdc.detect / localize on [{plan.M}, {LIB_SDC_N}] card "
         f"tensors with one corrupted position each of 4 times: masks and "
@@ -2995,6 +3199,167 @@ def phase_library(dev, kernels, smi):
                seconds=time.perf_counter() - t_phase)
     log(f"[library] phase {rec['seconds']:.1f} s")
     return counts, rec
+
+
+def _plan_operands(M, w, n, seed):
+    """Streams [M, n] and every LSB op's kernel (numpy, seeded) inside a
+    w-bit plan's output range (eq. 13): 16 bits take words and taps in
+    [-1, 1], dot's taps one in 16 nonzero (so that a dot product of 4096
+    stays within M = 3's 480), 32 bits streams in [-50, 50) and taps in
+    [-4, 4]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi, k = (-1, 2, 1) if w == 16 else (-50, 50, 4)
+    c = rng.integers(lo, hi, size=(M, n)).astype(np.int32)
+    dot = rng.integers(-k, k + 1, (n,)).astype(np.int32)
+    if w == 16:
+        dot[rng.random(n) > 1 / 16] = 0
+    return c, {
+        "scale": np.int32(2), "add": np.int32(-3), "sub": np.int32(2),
+        "dot": dot, "outer": rng.integers(-k, k + 1, (7,)).astype(np.int32),
+        "conv": rng.integers(-k, k + 1, (33,)).astype(np.int32),
+        "xcorr": rng.integers(-k, k + 1, (5,)).astype(np.int32),
+        "circconv": rng.integers(-k, k + 1, (9,)).astype(np.int32),
+        "permute": rng.permutation(n), "identity": None}
+
+
+def library_plan_kernels(dev, kernels):
+    """Before the library path's counts: the entangle and disentangle
+    kernels against their plain versions at each LIB_PLANS plan (full-range
+    words, every r, the poison check), and the checksum kernel at the
+    stream-first layout of the axis-1 streams."""
+    import torch
+
+    from repro_torch.core import FTConfig
+    from repro_torch.core.failstop import GARBAGE
+    from repro_torch.kernels import checksum as kcks
+    from repro_torch.kernels import disentangle as kdis
+    from repro_torch.kernels import entangle as kent
+
+    by_name = {k["name"]: k["checker"] for k in kernels}
+    chk_e, chk_d, chk_c = (by_name["entangle"], by_name["disentangle"],
+                           by_name["checksum"])
+    gen = torch.Generator(device=dev).manual_seed(17)
+    n0 = (chk_e.n, chk_d.n, chk_c.n)
+    for M, w, h in LIB_PLANS:
+        plan = FTConfig("entangle", M, w, h).plan()
+        what = f"plan(M={M},w={w},headroom={h}: l={plan.l},{plan.temp})"
+        c = _rand(gen, -2**31, 2**31, (M, LIB_PLAN_N), dev)
+        eps = kent.entangle_cuda(c, plan)
+        chk_e.equal(eps, kent.entangle_plain(c, plan), what)
+        for r in range(M):
+            got = kdis.disentangle_cuda(eps, plan, r)
+            chk_d.equal(got, kdis.disentangle_plain(eps, plan, r),
+                        f"{what} r={r}")
+            bad = eps.clone()
+            bad[r] = GARBAGE
+            chk_d.equal(kdis.disentangle_cuda(bad, plan, r), got,
+                        f"{what} r={r} poisoned")
+    c = _rand(gen, -2**31, 2**31, (3, 4, LIB_PLAN_N), dev)
+    front = torch.movedim(c, 1, 0).contiguous().reshape(4, -1)
+    chk_c.equal(kcks.checksum_cuda(front), kcks.checksum_plain(front),
+                f"checksum of [3, 4, {LIB_PLAN_N}] along axis 1")
+    log(f"[library] entangle / disentangle at the run_protected plans "
+        f"{LIB_PLANS} and the checksum at the axis-1 streams: "
+        f"{chk_e.n - n0[0]} / {chk_d.n - n0[1]} / {chk_c.n - n0[2]} "
+        f"kernel-vs-plain comparisons bit-identical; poison check passed")
+
+
+def library_plans(dev, kernels, smi):
+    """Inside the library path's counts: ``run_protected`` at each
+    LIB_PLANS plan, every LSB op under every family and failed stream, on
+    the card and on the CPU (the plain versions), bit for bit and with the
+    same report; every recovery equals the healthy run (EXACT
+    ROLL-FORWARD (run_protected plans)); the codec kernels' launches per
+    plan. Then the checksum functions along stream axis 1 on the card
+    against the CPU, every lost stream recovered. Returns the record."""
+    import torch
+
+    from repro_torch.core import (OPS, FTConfig, attach_checksum,
+                                  make_checksum_stream,
+                                  recover_from_checksum, run_protected)
+    from repro_torch.core.failstop import GARBAGE
+
+    codec = [k for k in kernels
+             if k["name"] in ("entangle", "disentangle", "checksum")]
+    rec = {}
+    for M, w, h in LIB_PLANS:
+        plan = FTConfig("entangle", M, w, h).plan()
+        c, gs = _plan_operands(M, w, LIB_PLAN_N, M + w + h)
+        before = {k["name"]: count(k) for k in codec}
+        runs = 0
+        for op in sorted(OPS):
+            g = gs[op]
+            on = {k: (torch.as_tensor(c).to(d), None if g is None else
+                      torch.as_tensor(g).to(d))
+                  for k, d in (("card", dev), ("cpu", "cpu"))}
+            truth = None
+            for mode in FAMILIES:
+                cfg = FTConfig(mode, M, w, h)
+                for failed in _failures(mode, M):
+                    got, rep = run_protected(op, *on["card"], cfg, failed)
+                    want, wrep = run_protected(op, *on["cpu"], cfg, failed)
+                    runs += 1
+                    what = f"{op} {mode} failed={failed} at {cfg}"
+                    if not (torch.equal(got.cpu(), want) and rep == wrep):
+                        raise AssertionError(f"run_protected on the card "
+                                             f"!= on the CPU: {what}")
+                    if mode == "none" and failed is None:
+                        truth = want
+                    elif mode == "none":
+                        ok = bool((want[failed] == GARBAGE).all())
+                    else:
+                        ok = rep.recovered and torch.equal(want, truth)
+                    if failed is not None and not ok:
+                        raise AssertionError(f"RECOVERY FAILED: {what}")
+        torch.cuda.synchronize()
+        launched = {k["name"]: count(k) - before[k["name"]] for k in codec}
+        rec[f"{M},{w},{h}"] = dict(l=plan.l, k=plan.k, temp=plan.temp,
+                                   runs=runs, launches=launched)
+        log(f"[library] run_protected at FTConfig(M={M}, w={w}, "
+            f"headroom_bits={h}) = plan(l={plan.l}, k={plan.k}, "
+            f"{plan.temp}): {len(OPS)} ops x 4 families x every failed "
+            f"stream, {runs} runs on [{M}, {LIB_PLAN_N}] card tensors equal "
+            f"to the CPU's bit for bit, every recovery the healthy output "
+            f"(EXACT ROLL-FORWARD (run_protected plans)); codec kernel "
+            f"launches {launched} ({smi})")
+        if not launched["entangle"] or not launched["disentangle"]:
+            raise AssertionError(f"plan {M, w, h}: codec kernels not "
+                                 f"launched: {launched}")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    M = 4
+    c = _rand(gen, -2**31, 2**31, (3, M, LIB_PLAN_N), dev)
+    g = torch.tensor(11, dtype=torch.int32)
+    cks = next(k for k in codec if k["name"] == "checksum")
+    before = count(cks)
+    r = make_checksum_stream(c, axis=1)
+    att = attach_checksum(c, axis=1)
+    outs = att + g.to(dev)  # the op add
+    ok = (torch.equal(r.cpu(), make_checksum_stream(c.cpu(), axis=1))
+          and torch.equal(att.cpu(), attach_checksum(c.cpu(), axis=1)))
+    for failed in [None] + list(range(M + 1)):
+        bad = outs.clone()
+        if failed is not None:
+            bad[:, failed] = GARBAGE
+        got = recover_from_checksum(bad, OPS["add"], g.to(dev), failed,
+                                    axis=1)
+        want = recover_from_checksum(bad.cpu(), OPS["add"], g, failed,
+                                     axis=1)
+        ok &= torch.equal(got.cpu(), want) and torch.equal(want,
+                                                           c.cpu() + g)
+    torch.cuda.synchronize()
+    launched = count(cks) - before
+    log(f"[library] checksum along stream axis 1 of [3, {M}, {LIB_PLAN_N}] "
+        f"card tensors: the checksum stream, the attached {M + 1} streams "
+        f"and the recovery of every lost stream equal to the CPU's bit for "
+        f"bit: {ok} ({'EXACT ROLL-FORWARD' if ok else 'RECOVERY FAILED'} "
+        f"(checksum axis 1)); checksum kernel launches {launched}")
+    if not ok or not launched:
+        raise AssertionError(f"checksum along axis 1: ok {ok}, launches "
+                             f"{launched}")
+    rec["checksum_axis1"] = dict(launches=launched)
+    return rec
 
 
 # ------------------------------------------------------------------ train --
@@ -3935,28 +4300,38 @@ def _train_mesh_cmd(rank: int, d: pathlib.Path) -> list:
     return _dist_cmd(rank, d) + ["--dist-phase", "train-mesh"]
 
 
-def _train_mesh_configs(ckpt_dir):
+def _train_mesh_configs(ckpt_dir, global_sort=False):
     """(model config, TrainConfig, DataConfig, LoopConfig) of the
-    train-mesh path: llama3.2-1b at TRAIN_MESH's depth, batch and steps,
-    the entangled sync on the kernel codec, and an LR schedule over
-    exactly the loop's steps (``train_loop`` keeps it as it is); the final
-    checkpoint alone, into ``ckpt_dir``."""
+    train-mesh path: llama3.2-1b at TRAIN_MESH's depth, batch and steps
+    (``global_sort``: deepseek-v2-lite-16b at its served depth with MoE
+    dispatch "global_sort" and TRAIN_MESH_GS's steps), the entangled sync
+    on the kernel codec, and an LR schedule over exactly the loop's steps
+    (``train_loop`` keeps it as it is); the final checkpoint alone, into
+    ``ckpt_dir`` (None: none)."""
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.train_step import TrainConfig
     from repro_torch.train.trainer import LoopConfig
 
     tm = TRAIN_MESH
-    cfg = dataclasses.replace(model_config(LLAMA), n_layers=tm["layers"])
+    if global_sort:
+        cfg = model_config(DEEPSEEK)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch="global_sort"))
+        steps, fail = TRAIN_MESH_GS["steps"], TRAIN_MESH_GS["fail_step"]
+    else:
+        cfg = dataclasses.replace(model_config(LLAMA),
+                                  n_layers=tm["layers"])
+        steps, fail = tm["steps"], tm["fail_step"]
     tcfg = TrainConfig(
-        adamw=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=tm["steps"]),
+        adamw=AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps),
         grad_sync="entangle", grad_codec="kernel", ft_M=TRAIN["ft_M"],
         max_seq=tm["seq"])
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=tm["seq"],
                       batch_size=tm["batch"])
-    loop = LoopConfig(total_steps=tm["steps"], ckpt_every=tm["steps"] + 1,
-                      ckpt_dir=str(ckpt_dir), log_every=1,
-                      fail_block_at_step=tm["fail_step"])
+    loop = LoopConfig(total_steps=steps, ckpt_every=steps + 1,
+                      ckpt_dir=None if ckpt_dir is None else str(ckpt_dir),
+                      log_every=1, fail_block_at_step=fail)
     return cfg, tcfg, dcfg, loop
 
 
@@ -4042,7 +4417,10 @@ def train_mesh_worker(rank: int, d: pathlib.Path, dev) -> int:
     ``D/go`` (the one-process loop has freed the card), and runs
     ``train_loop`` under ``axis_rules(make_local_mesh())``, every kernel's
     count set to 0 just before and read just after; then restores the
-    final checkpoint. Writes ``D/rank<RANK>.json``. Wrappers record, per
+    final checkpoint. Writes ``D/rank<RANK>.json`` once it has freed its
+    memory; then waits for ``D/go-gs`` and runs the global_sort loop the
+    same way (no checkpoint, no one-process step on rank 0), into
+    ``D/rank<RANK>-gs.json``. Wrappers record, per
     step, its ms, loss, grad norm, params' fingerprint and launches; on
     rank 0, the one-process step from the same state (under a stand-in
     mesh: no split, no sum) and how far the step lies from it; the gloo
@@ -4073,8 +4451,9 @@ def train_mesh_worker(rank: int, d: pathlib.Path, dev) -> int:
     excluded = {k["name"]: 0 for k in kernels}
     # the data-parallel step's summed gradient, until rank 0's one-process
     # step's sync holds it against its own (and drops it before that
-    # step's AdamW update: the card holds two ranks' training states)
-    held = dict(summed=None, grad_rel=None)
+    # step's AdamW update: the card holds two ranks' training states);
+    # whether rank 0 runs that step
+    held = dict(summed=None, grad_rel=None, compare=True)
 
     def counts():
         return {k["name"]: count(k) for k in kernels}
@@ -4150,7 +4529,7 @@ def train_mesh_worker(rank: int, d: pathlib.Path, dev) -> int:
                 on_device=all(t.device == dev for t in _leaves(new)),
                 launches={n: c - before[n] - (excluded[n] - ex0[n])
                           for n, c in counts().items()})
-            if rank == 0:
+            if rank == 0 and held["compare"]:
                 with not_counted(), axis_rules(StandInMesh(
                         mesh_shape(current_mesh()))):
                     one, om = make(cfg_, tcfg_, failed_block=failed_block)(
@@ -4188,7 +4567,29 @@ def train_mesh_worker(rank: int, d: pathlib.Path, dev) -> int:
                                equal=all(torch.equal(a, b) for a, b in zip(
                                    _leaves(back), _leaves(state))))
         del back, state
+        free_cuda()
         (d / f"rank{rank}.json").write_text(json.dumps(out))
+        # the global_sort run, once the parent's one-process loop is done
+        cfg, tcfg, dcfg, loop = _train_mesh_configs(None, global_sort=True)
+        lr_cfg = adamw.effective_lr_config(tcfg.adamw, cfg.d_model)
+        out = dict(steps=[], sum_ms=[], writes=[], log=[])
+        held.update(summed=None, grad_rel=None, compare=False)
+        while not (d / "go-gs").exists():
+            time.sleep(0.1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        excluded.update({n: 0 for n in excluded})
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with axis_rules(make_local_mesh()):
+            state, losses = TR.train_loop(cfg, tcfg, dcfg, loop,
+                                          log=out["log"].append, device=dev)
+        torch.cuda.synchronize(dev)
+        out["loop_s"] = time.perf_counter() - t0
+        out["launches"] = {n: c - excluded[n] for n, c in counts().items()}
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["losses"] = [float(x) for x in losses]
+        del state
+        (d / f"rank{rank}-gs.json").write_text(json.dumps(out))
         dist.barrier()
     finally:
         TR.make_train_step, TS.sync_grads, TS._sum_over = make, sync, sum_over
@@ -4203,12 +4604,11 @@ def phase_train_mesh(dev, kernels, smi):
     this depth's gradient-leaf sizes, runs the one-process loop here (its
     losses, grad norms and step ms kept on the host, its state freed),
     then TRAIN_MESH["world"] ranks on the one card over gloo
-    (:func:`train_mesh_worker`), and checks them. Returns (counts by
-    path, record)."""
-    import numpy as np
+    (:func:`train_mesh_worker`); meanwhile the codec kernels at the
+    global_sort run's leaf sizes, then, once the ranks have freed the
+    card, its one-process loop, and the ranks' global_sort loop. Checks
+    both runs. Returns (counts by path, record)."""
     import torch
-
-    from repro_torch.train.train_step import init_state, make_train_step
 
     tm = TRAIN_MESH
     t_phase = time.perf_counter()
@@ -4248,27 +4648,25 @@ def phase_train_mesh(dev, kernels, smi):
         check_codec(dev, {n: by_name[n]["checker"]
                           for n in ("entangle", "disentangle")}, shapes,
                     ragged=False, what=f"{LLAMA} at {cfg.n_layers} layers")
-        # the one-process loop: train_loop's steps, without its checkpoint
-        torch.cuda.reset_peak_memory_stats(dev)
-        state = init_state(torch.Generator(device=dev).manual_seed(loop.seed),
-                           cfg, tcfg, dev)
-        steps = {None: make_train_step(cfg, tcfg),
-                 1: make_train_step(cfg, tcfg, failed_block=1)}
-        oracle = []
-        for i in range(tm["steps"]):
-            batch = _batch(dcfg, i, dev)
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            state, m = steps[1 if i == tm["fail_step"] else None](state,
-                                                                  batch)
-            loss = float(m["loss"])
-            torch.cuda.synchronize(dev)
-            oracle.append(dict(ms=1e3 * (time.perf_counter() - t0),
-                               loss=loss, grad_norm=float(m["grad_norm"])))
-        one_peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        del state, steps, m, batch
-        free_cuda()
+        oracle, one_peak = _one_process_loop(dev, cfg, tcfg, dcfg, loop)
         (d / "go").touch()
+        gs_cfg, gs_tcfg, gs_dcfg, gs_loop = _train_mesh_configs(
+            None, global_sort=True)
+        gs_shapes = _grad_shapes(gs_cfg)
+        check_codec(dev, {n: by_name[n]["checker"]
+                          for n in ("entangle", "disentangle")}, gs_shapes,
+                    ragged=False,
+                    what=f"{DEEPSEEK} at {gs_cfg.n_layers} layers")
+        # the global_sort loop here once the ranks have freed the card
+        while not all((d / f"rank{r}.json").exists()
+                      for r in range(tm["world"])):
+            if any(p.poll() is not None for p in procs):
+                break
+            time.sleep(0.1)
+        else:
+            gs_oracle, gs_peak = _one_process_loop(dev, gs_cfg, gs_tcfg,
+                                                   gs_dcfg, gs_loop)
+            (d / "go-gs").touch()
         logs = [p.communicate(timeout=900)[0] for p in procs]
         for r, p in enumerate(procs):
             if p.returncode:
@@ -4276,19 +4674,15 @@ def phase_train_mesh(dev, kernels, smi):
                                      f"{p.returncode}:\n{logs[r][-4000:]}")
         outs = [json.loads((d / f"rank{r}.json").read_text())
                 for r in range(tm["world"])]
+        gs_outs = [json.loads((d / f"rank{r}-gs.json").read_text())
+                   for r in range(tm["world"])]
     finally:
         for p in procs:
             p.kill()
         shutil.rmtree(d, ignore_errors=True)
     r0 = outs[0]
     fails = []
-    # the ranks against each other, bit for bit
-    for r, o in enumerate(outs[1:], 1):
-        for i, (a, b) in enumerate(zip(r0["steps"], o["steps"])):
-            for key in ("loss", "grad_norm", "params", "launches"):
-                if a[key] != b[key]:
-                    fails.append(f"step {i}: rank {r}'s {key} differs from "
-                                 f"rank 0's")
+    exact = _rank_checks(outs, n_leaves, fails, "")
     lines = []
     for i, (st, orc) in enumerate(zip(r0["steps"], oracle)):
         one, first = st["one"], i == 0
@@ -4324,36 +4718,16 @@ def phase_train_mesh(dev, kernels, smi):
         log(f"[train-mesh] {line}")
     counts = {}
     for r, o in enumerate(outs):
-        rf = o.get("rollforward")
-        exact = rf is not None and not any(rf["bad"].values())
-        per_step = [(s["launches"]["entangle"], s["launches"]["disentangle"])
-                    for s in o["steps"]]
-        log(f"[train-mesh] rank {r} of {tm['world']}: the summed gradient of "
-            f"step {rf and rf['step']} ({rf and rf['leaves']} leaves) synced "
-            f"healthy and with failed_block 0, 1, 2, 3 on the kernel codec: "
-            f"leaves differing from healthy {rf and rf['bad']} ("
-            f"{'EXACT ROLL-FORWARD' if exact else 'RECOVERY FAILED'} "
-            f"(train-mesh)); entangle / disentangle launches per step "
-            f"{per_step} (gradient leaves {n_leaves}); losses {o['losses']};"
-            f" checkpoint writes {o['writes']}, restored step "
-            f"{o['restored']['step']} equal to the final state: "
-            f"{o['restored']['equal']} ({o['restored']['seconds']:.1f} s)")
-        if not exact:
-            fails.append(f"rank {r}: RECOVERY FAILED {rf}")
-        if any(p != (n_leaves, n_leaves) for p in per_step):
-            fails.append(f"rank {r}: codec launches per step {per_step}, "
-                         f"not {n_leaves} each")
-        other = {n: c for n, c in o["launches"].items()
-                 if n not in ("entangle", "disentangle") and c}
-        if other or not all(s["on_device"] for s in o["steps"]):
-            fails.append(f"rank {r}: launches {other} or state off the card")
+        log(f"[train-mesh] rank {r} of {tm['world']}: {exact[r]} "
+            f"(train-mesh)); losses {o['losses']}; checkpoint writes "
+            f"{o['writes']}, restored step {o['restored']['step']} equal to "
+            f"the final state: {o['restored']['equal']} "
+            f"({o['restored']['seconds']:.1f} s)")
         if o["writes"] != ([tm["steps"]] if r == 0 else []):
             fails.append(f"rank {r} wrote checkpoints {o['writes']}")
         if not (o["restored"]["equal"]
                 and o["restored"]["step"] == tm["steps"]):
             fails.append(f"rank {r}: restored {o['restored']}")
-        if not np.isfinite(o["losses"]).all():
-            fails.append(f"rank {r}: losses {o['losses']}")
         counts[f"train-mesh rank {r}"] = o["launches"]
     rank_ms = [s["ms"] for s in r0["steps"]]
     rec = dict(
@@ -4379,9 +4753,143 @@ def phase_train_mesh(dev, kernels, smi):
         f"{[round(o['peak_gib'], 2) for o in outs]} GiB (rank 0's holds "
         f"its one-process step's state too), one process "
         f"{one_peak:.2f} GiB; phase {rec['seconds']:.1f} s ({smi})")
+    rec["global_sort"] = _check_global_sort(
+        gs_cfg, gs_outs, gs_oracle, gs_peak,
+        sum(map(len, gs_shapes.values())),
+        counts, fails, smi)
     if fails:
         raise AssertionError("train-mesh: " + "; ".join(fails))
     return counts, rec
+
+
+def _rank_checks(outs, n_leaves, fails, what) -> list:
+    """What every train-mesh run holds on its ranks: losses, grad norms,
+    params and launches bit-identical across the ranks after every step;
+    on each rank EXACT ROLL-FORWARD on its summed gradient at the fail
+    step (healthy and blocks 0-3), one entangle and one disentangle launch
+    per gradient leaf and step, no other kernel, the state on the card,
+    finite losses. Adds each failure (prefixed ``what``) to ``fails``;
+    returns per rank the start of its log line."""
+    import numpy as np
+
+    r0 = outs[0]
+    for r, o in enumerate(outs[1:], 1):
+        for i, (a, b) in enumerate(zip(r0["steps"], o["steps"])):
+            for key in ("loss", "grad_norm", "params", "launches"):
+                if a[key] != b[key]:
+                    fails.append(f"{what}step {i}: rank {r}'s {key} differs "
+                                 f"from rank 0's")
+    heads = []
+    for r, o in enumerate(outs):
+        rf = o.get("rollforward")
+        exact = rf is not None and not any(rf["bad"].values())
+        per_step = [(s["launches"]["entangle"], s["launches"]["disentangle"])
+                    for s in o["steps"]]
+        heads.append(
+            f"entangle / disentangle launches per step {per_step} (gradient "
+            f"leaves {n_leaves}); the summed gradient of step "
+            f"{rf and rf['step']} ({rf and rf['leaves']} leaves) synced "
+            f"healthy and with failed_block 0, 1, 2, 3 on the kernel codec: "
+            f"leaves differing from healthy {rf and rf['bad']} ("
+            f"{'EXACT ROLL-FORWARD' if exact else 'RECOVERY FAILED'}")
+        if not exact:
+            fails.append(f"{what}rank {r}: RECOVERY FAILED {rf}")
+        if any(p != (n_leaves, n_leaves) for p in per_step):
+            fails.append(f"{what}rank {r}: codec launches per step "
+                         f"{per_step}, not {n_leaves} each")
+        other = {n: c for n, c in o["launches"].items()
+                 if n not in ("entangle", "disentangle") and c}
+        if other or not all(s["on_device"] for s in o["steps"]):
+            fails.append(f"{what}rank {r}: launches {other} or state off "
+                         f"the card")
+        if not np.isfinite(o["losses"]).all():
+            fails.append(f"{what}rank {r}: losses {o['losses']}")
+    return heads
+
+
+def _one_process_loop(dev, cfg, tcfg, dcfg, loop):
+    """The one-process counterpart of a train-mesh loop: ``train_loop``'s
+    steps on the global batches, block 1 fail-stopped at the loop's fail
+    step, without its checkpoint; each step's ms, loss and grad norm are
+    kept on the host and the state is freed. Returns (steps, peak GiB)."""
+    import torch
+
+    from repro_torch.train.train_step import init_state, make_train_step
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_state(torch.Generator(device=dev).manual_seed(loop.seed),
+                       cfg, tcfg, dev)
+    steps = {None: make_train_step(cfg, tcfg),
+             1: make_train_step(cfg, tcfg, failed_block=1)}
+    oracle = []
+    for i in range(loop.total_steps):
+        batch = _batch(dcfg, i, dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = steps[1 if i == loop.fail_block_at_step else None](
+            state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize(dev)
+        oracle.append(dict(ms=1e3 * (time.perf_counter() - t0), loss=loss,
+                           grad_norm=float(m["grad_norm"])))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del state, steps, m, batch
+    free_cuda()
+    return oracle, peak
+
+
+def _check_global_sort(cfg, outs, oracle, one_peak, n_leaves, counts, fails,
+                       smi) -> dict:
+    """The train-mesh phase's global_sort run: the ranks bit-identical to
+    each other at every step, their losses within TRAIN_MESH's tolerances
+    of the one-process loop's (the first step's grad norm too), EXACT
+    ROLL-FORWARD (train-mesh global_sort) on each rank's summed gradient
+    at the fail step, one entangle and one disentangle launch per
+    gradient leaf and step, no other kernel, the state on the card, no
+    checkpoint. Adds each rank's counts to ``counts`` and each failure to
+    ``fails``; returns the record."""
+    tm = TRAIN_MESH
+    r0 = outs[0]
+    exact = _rank_checks(outs, n_leaves, fails, "global_sort ")
+    lines = []
+    for i, (st, orc) in enumerate(zip(r0["steps"], oracle)):
+        first = i == 0
+        tol = tm["loss_atol"] if first else tm["loop_loss_atol"]
+        d_loss = abs(st["loss"] - orc["loss"])
+        gn = abs(st["grad_norm"] / orc["grad_norm"] - 1)
+        ok = d_loss < tol and (not first or gn < tm["gnorm_rel"])
+        failed = " (block 1 failed)" if st["failed_block"] is not None else ""
+        held = f" (< {tm['gnorm_rel']})" if first else ""
+        lines.append(
+            f"step {i}{failed}: loss {st['loss']:.6f} against the "
+            f"one-process loop's {orc['loss']:.6f}, |dloss| {d_loss:.2e} "
+            f"(< {tol}), grad norm rel {gn:.2e}{held}; step ms rank 0 "
+            f"{st['ms']:.1f}, one process {orc['ms']:.1f} -> "
+            f"{'ok' if ok else 'OUT OF TOLERANCE'}")
+        if not ok:
+            fails.append(f"global_sort step {i} out of tolerance")
+    for line in lines:
+        log(f"[train-mesh] {cfg.name} global_sort {line}")
+    for r, o in enumerate(outs):
+        log(f"[train-mesh] {cfg.name} global_sort rank {r} of "
+            f"{tm['world']}: {exact[r]} (train-mesh global_sort)); losses "
+            f"{o['losses']}; gloo sums {[round(x, 1) for x in o['sum_ms']]}"
+            f" ms; broadcast {o['broadcast_ms']:.1f} ms; train_loop "
+            f"{o['loop_s']:.1f} s; max_memory_allocated "
+            f"{o['peak_gib']:.2f} GiB (one process {one_peak:.2f}) ({smi})")
+        if o["writes"]:
+            fails.append(f"global_sort rank {r} wrote checkpoints "
+                         f"{o['writes']}")
+        counts[f"train-mesh global_sort rank {r}"] = o["launches"]
+    return dict(layers=cfg.n_layers, oracle=oracle, one_process_peak_gib=
+                one_peak, lines=lines,
+                ranks=[dict(steps=o["steps"], losses=o["losses"],
+                            sum_ms=o["sum_ms"],
+                            broadcast_ms=o["broadcast_ms"],
+                            loop_s=o["loop_s"], peak_gib=o["peak_gib"],
+                            launches=o["launches"],
+                            rollforward=o.get("rollforward"))
+                       for o in outs])
 
 
 def _leaf_rel(grads, ref) -> float:
@@ -4574,8 +5082,9 @@ def phase_train_families(dev, kernels):
     """Phase 4b: each family of TRAIN_FAMILIES trained at published widths
     cut to its depth, one at a time (its memory freed before the next):
     ``train_loop`` with a fail-stopped block and no final checkpoint
-    (phases 4 and 4m write and restore theirs; :func:`phase_train`), EXACT
-    ROLL-FORWARD (train-<family>) on one backward
+    (4m and train-variants write and restore theirs;
+    :func:`phase_train`), EXACT ROLL-FORWARD (train-<family>) on one
+    backward
     (:func:`train_rollforward`), the step ms per gradient sync (spmd,
     checksum, entangle on the kernel codec) and a profiler window
     (:func:`train_timings`); then the blocked attention's backward on the
@@ -5896,7 +6405,7 @@ def run_path(dev, kernels, arch, path_kernels, scopes, admission, smi,
     modes, admit_scopes, drill = admission
     admit_counts, admit = phase_serve_admission(
         dev, kernels, path_kernels, cfg, params, modes, admit_scopes, smi,
-        seed, drill)
+        seed, drill, checked=dense if arch == LLAMA else None)
     del params, model
     free_cuda()
     return dict(counts=counts, core_counts=core, results=results,
@@ -6042,7 +6551,7 @@ def main() -> int:
     check_codec(dev, {n: by_name[n]["checker"]
                       for n in ("entangle", "disentangle")}, grad_shapes)
     state, train_counts, train = phase_train(
-        dev, kernels, ["entangle", "disentangle"])
+        dev, kernels, ["entangle", "disentangle"], ckpt=False)
     train_rollforward(dev, state)
     train["remat"] = train_remat_checks(dev, state["params"], smi)
     train["variants"] = train_variants(dev, state, smi)
@@ -6129,7 +6638,12 @@ def main() -> int:
                              {LLAMA: train["launches_per_step"][name],
                               f"{LLAMA} train-mesh (each rank)": [
                                   st["launches"][name] for st in
-                                  train_mesh["ranks"][0]["steps"]]},
+                                  train_mesh["ranks"][0]["steps"]],
+                              f"{DEEPSEEK} train-mesh global_sort (each "
+                              f"rank)": [
+                                  st["launches"][name] for st in
+                                  train_mesh["global_sort"]["ranks"][0][
+                                      "steps"]]},
                              **{a: train_families[a]["launches_per_step"][
                                  name] for a in TRAIN_FAMILIES}),
                          timings=[head])

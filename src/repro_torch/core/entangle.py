@@ -17,13 +17,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.plan import EntanglePlan
 from repro_torch.kernels.codec import disentangle_rows, entangle_block
 
 __all__ = ["entangle", "disentangle", "extract", "entangle_kernel_addsub",
-           "reentangle_stream"]
+           "reentangle_stream", "disentangle_oracle_np"]
 
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
                torch.uint8)
@@ -78,3 +79,30 @@ def reentangle_stream(recovered: torch.Tensor, plan: EntanglePlan,
     d = recovered
     m = stream % plan.M
     return (d[(m - 1) % plan.M] << plan.l) + d[m]
+
+
+def disentangle_oracle_np(delta: np.ndarray, plan: EntanglePlan,
+                          failed: Optional[int] = None) -> np.ndarray:
+    """Disentanglement in numpy int64 (the reference's CPU oracle), streams
+    on the leading axis; stream ``failed`` is never read."""
+    M, l = plan.M, plan.l
+    r = 0 if failed is None else int(failed) % M
+    B = (M - 1) * l
+    sign = -1 if (M % 2) else 1
+    q = (r + M - 1) % M
+
+    d64 = delta.astype(np.int64)
+    t = d64[(r + 1) % M].copy()
+    for m in range(2, M):
+        t = t << l
+        t = (t - d64[(r + m) % M]) if (m % 2 == 0) else (t + d64[(r + m) % M])
+    t_lo = (t << (64 - B)) >> (64 - B)  # the low B bits, sign-extended
+    d_q = sign * t_lo
+    d_r = (t - t_lo) >> B
+
+    out = [None] * M
+    out[r], out[q] = d_r, d_q
+    for m in range(1, M - 1):
+        idx = (r + m) % M
+        out[idx] = d64[idx] - (out[(r + m - 1) % M] << l)
+    return np.stack(out, axis=0).astype(np.int64)

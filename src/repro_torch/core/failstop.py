@@ -39,9 +39,11 @@ class FTConfig:
 
     mode: str = "entangle"  # none | entangle | checksum | mr
     M: int = 4
+    w: int = 32
+    headroom_bits: int = 0
 
     def plan(self) -> EntanglePlan:
-        return make_plan(self.M, 32)
+        return make_plan(self.M, self.w, self.headroom_bits)
 
     @property
     def extra_streams(self) -> int:

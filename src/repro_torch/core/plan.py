@@ -19,6 +19,8 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class EntanglePlan:
@@ -144,3 +146,9 @@ def make_plan(
 def checksum_output_bits(M: int, w: int = 32) -> int:
     """Output bitwidth of the checksum-based method, Table I right column."""
     return w - math.ceil(math.log2(M))
+
+
+def container_dtype(plan: EntanglePlan):
+    """numpy dtype of the stream container of a ``w``-bit plan (the
+    reference's; the port's codec itself keeps int32 words)."""
+    return {8: np.int8, 16: np.int16, 32: np.int32}[plan.container_bits]

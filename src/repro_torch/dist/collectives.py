@@ -156,21 +156,12 @@ def checksum_grad_sync(grads: Any, *, axis_name=None,
     return tree_map(sync_leaf, grads), diag
 
 
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``x`` stacked along dimension 0 in rank order (the
-    ranks' shapes equal), on every rank of ``group``: the all-gather that
-    the reference's GSPMD lowering makes of a row-sharded tensor.
-
-    It runs as one ``all_reduce(SUM)`` of a zero buffer in which each rank
-    fills its own block, summed as int32 words, so that the bits come back
-    as they were (a float sum would turn -0.0 into 0.0). Gloo, which takes
-    the ranks' CUDA tensors when they share one card, runs no other
-    collective on them; NCCL runs it as well. On the ``meta`` device (a
-    shape census) it returns an empty tensor of the gathered shape."""
+def _gather_words(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked along dimension 0, as one int32-word
+    ``all_reduce(SUM)`` of a zero buffer in which each rank fills its own
+    block (bit for bit: a float sum would turn -0.0 into 0.0)."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
     shape = (n * x.shape[0],) + tuple(x.shape[1:])
-    if x.device.type == "meta":
-        return x.new_empty(shape)
     buf = torch.zeros(shape, dtype=x.dtype, device=x.device)
     rows = x.shape[0]
     buf[r * rows:(r + 1) * rows] = x
@@ -181,3 +172,45 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(words.view(torch.int32), op=dist.ReduceOp.SUM,
                     group=group)
     return buf
+
+
+class _GatherRows(torch.autograd.Function):
+    """The gather's backward is a reduce-scatter: the float32 sum over the
+    group of the gathered tensor's gradient, of which each rank keeps its
+    own block (an ``all_reduce`` and a slice, which gloo runs on the
+    ranks' CUDA tensors too)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows, ctx.dtype = group, x.shape[0], x.dtype
+        return _gather_words(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.to(torch.float32).contiguous()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g[r * ctx.rows:(r + 1) * ctx.rows].to(ctx.dtype), None
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked along dimension 0 in rank order (the
+    ranks' shapes equal), on every rank of ``group``: the all-gather that
+    the reference's GSPMD lowering makes of a row-sharded tensor.
+
+    It runs as one ``all_reduce(SUM)`` of a zero buffer in which each rank
+    fills its own block, summed as int32 words, so that the bits come back
+    as they were (a float sum would turn -0.0 into 0.0). Gloo, which takes
+    the ranks' CUDA tensors when they share one card, runs no other
+    collective on them; NCCL runs it as well. A float ``x`` that requires
+    grad gets the gather's backward: the gradient of rank g's block is the
+    float32 sum over the group of the gathered tensor's gradient there
+    (what GSPMD's transpose of the gather computes). On the ``meta``
+    device (a shape census) it returns an empty tensor of the gathered
+    shape."""
+    if x.device.type == "meta":
+        n = dist.get_world_size(group)
+        return x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GatherRows.apply(x, group)
+    return _gather_words(x, group)

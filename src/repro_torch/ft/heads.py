@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.plan import EntanglePlan, make_plan
-from repro_torch.ft.protected import protected_matmul
+from repro_torch.ft.protected import group_order, protected_matmul
 from repro_torch.ft.quantize import quantize_weight as quantize_head  # noqa: F401
 
 
@@ -39,6 +39,13 @@ def ft_logits(h: torch.Tensor, head_q: torch.Tensor, w_scale: torch.Tensor,
                             failed_group=failed_group,
                             fuse_epilogue=fuse_epilogue, contiguous=True,
                             blocks=blocks, backend=backend)
+
+
+def decode_group_order(B: int, M: int) -> tuple:
+    """The engine's slot -> group = slot % M permutation and its inverse
+    (:func:`repro_torch.ft.protected.group_order`, under the reference's
+    older name)."""
+    return group_order(B, M)
 
 
 def ft_logits_decode(h: torch.Tensor, head_q: torch.Tensor,

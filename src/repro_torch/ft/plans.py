@@ -114,6 +114,17 @@ class CompiledPlans:
     def chains(self) -> frozenset:
         return self._chains
 
+    def plans(self) -> tuple:
+        return tuple(self._plans.values())
+
+    def sites(self) -> frozenset:
+        return frozenset(p.site for p in self._plans.values())
+
+    def categories(self) -> frozenset:
+        """Protected scope categories covered by the compiled plans."""
+        return frozenset(p.site.split(".", 1)[0]
+                         for p in self._plans.values())
+
     def __len__(self) -> int:
         return len(self._plans)
 

@@ -85,6 +85,15 @@ class PlanRegistry:
         # activations, which share one quantize/permute pass
         self._chains: set[tuple] = set()
 
+    @staticmethod
+    def key(site: str, shape: tuple, M: Optional[int] = None,
+            backend: Optional[str] = None) -> tuple:
+        """An entry's key, with the reference's signature. A registry
+        holds one plan (one M) and one backend, so the port keys its
+        entries by ``(site, shape)`` alone; ``M`` and ``backend`` are
+        taken and not part of the key."""
+        return (site, shape)
+
     def shape_for(self, rows: int, K: int, N: int,
                   groups: Optional[int] = None) -> tuple:
         """The kernel-call shape key of a site invocation over ``rows``
@@ -98,13 +107,13 @@ class PlanRegistry:
               groups: Optional[int] = None) -> ProtectionPlan:
         """Resolve (creating on first use) the plan for one call site."""
         shape = self.shape_for(rows, K, N, groups)
-        e = self._entries.get((site, shape))
+        e = self._entries.get(self.key(site, shape))
         if e is None:
             e = ProtectionPlan(site=site, shape=shape, plan=self.plan,
                                grouped=groups is not None,
                                backend=self.backend,
                                blocks=self.blocks_policy)
-            self._entries[(site, shape)] = e
+            self._entries[self.key(site, shape)] = e
         return e
 
     def note_chain(self, sites: tuple) -> None:
@@ -122,3 +131,12 @@ class PlanRegistry:
         """{(site, shape): plan} over every registered entry (what
         ``warm_autotune`` iterates; grouped sites carry 5-tuple shapes)."""
         return {(e.site, e.shape): e for e in self._entries.values()}
+
+    def get(self, site: str, shape: tuple,
+            backend: Optional[str] = None) -> Optional[ProtectionPlan]:
+        """The entry of ``(site, shape)``, or None; a ``backend`` other
+        than the one the registry's plans name finds none."""
+        e = self._entries.get(self.key(site, shape))
+        if e is None or (backend is not None and backend != self.backend):
+            return None
+        return e

@@ -17,10 +17,9 @@ Resolution per call: an explicit ``backend=``, then the process default
 ``cuda_sm90`` and CPU operands to ``plain``. A CUDA tensor reaches
 ``plain`` only when the caller names it (the card's yardsticks do). A
 kernel that fails to build or launch raises: no backend gives way to
-another. The reference's ``triton_cuda_stub`` (a namespace reserved for
-kernels the JAX package lacked) is not ported: the port's kernels stand in
-that place; the contract it tested, that a backend missing an op is
-refused, is the registry's own.
+another. :func:`triton_cuda_stub` keeps the reference's placeholder: a
+backend every op of which raises ``NotImplementedError``; the port's
+hand-written kernels are ``cuda_sm90``.
 
 **Launch parameters.** Every wrapper takes ``blocks``:
 
@@ -517,6 +516,22 @@ def _ref_impls() -> dict:
         "entangled_conv1d": econv,
         "conv1d_causal": lambda x, w, *, blocks: ref.conv1d_causal_ref(x, w),
     }
+
+
+def triton_cuda_stub() -> dict:
+    """The reference's placeholder impls dict: one entry for every op in
+    :data:`REQUIRED_OPS`, each of which raises ``NotImplementedError``.
+    Registering it (``register_backend("triton_cuda",
+    triton_cuda_stub())``) reserves the name; the port's hand-written
+    kernels are the ``cuda_sm90`` backend."""
+    def _todo(op):
+        def impl(*a, **k):
+            raise NotImplementedError(
+                f"triton_cuda backend: {op} is not ported yet; the port's "
+                f"hand-written kernels are the 'cuda_sm90' backend")
+        return impl
+
+    return {op: _todo(op) for op in REQUIRED_OPS}
 
 
 register_backend(

@@ -166,6 +166,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 # ----------------------------------------------------------------- dense ----
 
+def init_dense(gen: torch.Generator, d_in: int, d_out: int,
+               bias: bool = False) -> dict:
+    """A dense layer's params: ``w`` [d_in, d_out] He-normal from ``gen``
+    (on its device), and a zero ``b`` [d_out] with ``bias``."""
+    p = {"w": he_init(gen, (d_in, d_out), d_in)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), device=gen.device)
+    return p
+
+
 def _dense_w(p):
     """The startup pre-quantized (wq, scale) pair when installed, else the
     float master."""

@@ -16,7 +16,8 @@ One engine step issues ONE batched decode over the whole slot pool:
 Admission is bucketed batched prefill: queued prompts are padded to a small
 set of length buckets (``ServeConfig.prefill_buckets``; default 8, 16, 32,
 ..., max_seq), and same-bucket requests form one admission batch of
-``Bp = max_batch`` rows that prefills in ``[Bp, width]`` calls. Then:
+``Bp`` rows (``ServeConfig.prefill_batch``; 0 means ``max_batch``) that
+prefills in ``[Bp, width]`` calls. Then:
 
   * ``prefill_chunk = 0``: each batch prefills its whole bucket in one call
     and lands in the same step;
@@ -68,8 +69,7 @@ compile and no weight quantization.
 
 The reference jit-compiles its programs and donates buffers so XLA updates
 them in place; PyTorch runs eagerly, and the port's layers write the
-caches in place themselves. Not ported: ``prefill_batch`` (no ported
-caller sets it; admission batches have ``max_batch`` rows).
+caches in place themselves.
 
 Serving across ranks: the engine reads ``dist.sharding.serve_mesh()`` at
 construction, as the reference does. Under a process group of n >= 2
@@ -79,9 +79,12 @@ reference's ``batch -> data`` rule splits it across devices: rank g holds
 the cache rows of slots ``[g B/n, (g+1) B/n)`` and runs decode and the
 entangled head over them (the M request groups are the rank's own rows).
 An admission batch's ``Bp`` rows (or a packed program's ``Rp``) split into
-n contiguous blocks too, and block g's rows take free slots of block g, so
-prefill and landing stay on that rank. The sampled tokens are all-gathered
-over a gloo group of the same ranks, on the host. Every rank is built from
+n contiguous blocks too where n divides them, and block g's rows take free
+slots of block g (at most ``Bp / n`` of them), so prefill and landing stay
+on that rank; a packed program splits only where its batches' ``Bp``
+splits too, since a landing reads the staged rows of its whole batch. The
+sampled tokens are all-gathered over a gloo group of the same ranks, on
+the host. Every rank is built from
 the same config and params and given the same requests and calls; it makes
 the same host decisions (shedding, EDF order, admission, finishing,
 metrics) from the exchanged state and one clock (rank 0's, broadcast), so
@@ -167,6 +170,7 @@ class ServeConfig:
     blocks: Optional[object] = None
     prefill_buckets: Optional[Sequence[int]] = None  # None = geometric set
     prefill_chunk: int = 0  # > 0: chunked prefill, one chunk per call
+    prefill_batch: int = 0  # admission batch rows; 0 = max_batch
     # > 0: token-packed admission, one [token_budget // prefill_chunk,
     # prefill_chunk] program per step over every in-flight batch (needs
     # prefill_chunk > 0, a multiple of it, and rows <= max_batch)
@@ -226,23 +230,26 @@ class SlotLayout:
                                backend="gloo")
             self._src = dist.get_global_rank(self.host, 0)
 
-    def split(self, X: int) -> bool:
-        return self.procs > 1 and self.blocked and X % self.n == 0
+    def split(self, X: int, *feeds: int) -> bool:
+        """Whether an X-row program splits: n must divide X and every row
+        count in ``feeds`` (the batches its results feed)."""
+        return (self.procs > 1 and self.blocked
+                and all(x % self.n == 0 for x in (X, *feeds)))
 
-    def span(self, X: int) -> tuple:
+    def span(self, X: int, *feeds: int) -> tuple:
         """Rows [lo, hi) of an X-row batch that this process computes."""
-        if not self.split(X):
+        if not self.split(X, *feeds):
             return 0, X
         b = X // self.n
         return self.rank * b, (self.rank + 1) * b
 
-    def rules(self, X: int):
+    def rules(self, X: int, *feeds: int):
         """The sharding rules an X-row batch's program runs under: the
         ranks' mesh where each holds its own rows, else the stand-in
         (this process holds every shard)."""
         if self.mesh is None:
             return contextlib.nullcontext()
-        return sharding.axis_rules(self.mesh if self.split(X)
+        return sharding.axis_rules(self.mesh if self.split(X, *feeds)
                                    else self.whole)
 
     def block_of_slot(self, slot: int) -> int:
@@ -357,16 +364,24 @@ class ServeEngine:
         self.Rp = (scfg.token_budget // scfg.prefill_chunk
                    if scfg.token_budget else 0)
         self.Cp = scfg.prefill_chunk
-        self.Bp = B  # admission batch rows
-        # packed programs keep their rows in the slot blocks when they split
+        self.Bp = scfg.prefill_batch or B  # admission batch rows
+        if not 1 <= self.Bp <= B:
+            # every admission row lands in a distinct slot
+            raise ValueError(
+                f"prefill_batch={self.Bp} must be in [1, max_batch={B}]")
+        # admission and packed rows are kept in the slot blocks (block g's
+        # rows in slots of block g) where n divides their count
+        self._row_blocks = (self.lay.n if self.lay.blocked
+                            and self.Bp % self.lay.n == 0 else 1)
         self._pack_blocks = (self.lay.n if self.Rp and self.lay.blocked
                              and self.Rp % self.lay.n == 0 else 1)
         if self.Rp:
             # slot-indexed staging cache (row i = slot i - stage_lo) of
             # every packed row's mid-prefill state, and its last-prompt
             # hidden states: this rank's slots when the program splits
-            self.stage_lo, stage_hi = (self.lay.span(B)
-                                       if self.lay.split(self.Rp) else (0, B))
+            self.stage_lo, stage_hi = (
+                self.lay.span(B) if self.lay.split(self.Rp, self.Bp)
+                else (0, B))
             self._pack_cache = self.model.init_cache(
                 cfg, stage_hi - self.stage_lo, S, device=self.device)
             self._pack_hlast = torch.zeros(
@@ -488,9 +503,9 @@ class ServeEngine:
         return (self.cfg, dataclasses.replace(self.scfg, clock=None),
                 (self.lay.n, self.lay.procs, self.lay.rank))
 
-    def _local_rows(self, X: int) -> int:
+    def _local_rows(self, X: int, *feeds: int) -> int:
         """How many rows of an X-row batch this process computes."""
-        lo, hi = self.lay.span(X)
+        lo, hi = self.lay.span(X, *feeds)
         return hi - lo
 
     def warm_state(self) -> dict:
@@ -546,8 +561,8 @@ class ServeEngine:
                                                        device=meta),
                 zeros(B), self.cfg, ft=ctx)
         if self.Rp:  # one program shape for every packing mix
-            R = self._local_rows(self.Rp)
-            with self.lay.rules(self.Rp):
+            R = self._local_rows(self.Rp, self.Bp)
+            with self.lay.rules(self.Rp, self.Bp):
                 self.model.prefill_packed(
                     mp, zeros(R, self.Cp), self.cfg,
                     self.model.init_cache(self.cfg, R, S, device=meta),
@@ -670,7 +685,8 @@ class ServeEngine:
             return False
         ordered = self.sched.order_queue(self.queue)
         b0 = self._bucket_for(ordered[0])
-        budget = min(len(free), self.Bp)
+        free = self._batch_slots(free)
+        budget = len(free)
         take, rest = [], []
         for req in ordered:
             (take if len(take) < budget and self._bucket_for(req) == b0
@@ -708,13 +724,27 @@ class ServeEngine:
         self._inflight.append(p)
         return True
 
+    def _batch_slots(self, free: list) -> list:
+        """The free slots an admission batch may take, in order: the first
+        ``Bp``, or, with its rows blocked, the first ``Bp / n`` of each
+        slot block."""
+        if self._row_blocks == 1:
+            return free[: self.Bp]
+        b, used, out = self.Bp // self._row_blocks, [0] * self.lay.n, []
+        for i in free:
+            g = self.lay.block_of_slot(i)
+            if used[g] < b:
+                out.append(i)
+                used[g] += 1
+        return out
+
     def _admission_rows(self, slots: list) -> list:
         """The row of the admission batch each slot's request takes: in
-        order, or, with the slots blocked, the next free row of the slot's
+        order, or, with the rows blocked, the next free row of the slot's
         block (so that a row and its slot lie on one rank)."""
-        if not self.lay.blocked:
+        if self._row_blocks == 1:
             return list(range(len(slots)))
-        b = self.Bp // self.lay.n
+        b = self.Bp // self._row_blocks
         used = [0] * self.lay.n
         rows = []
         for i in slots:
@@ -775,9 +805,11 @@ class ServeEngine:
                 failed_group, ft_logits_prefill), dim=-1).cpu().numpy(),
                 self.Bp)
         dst = [i for _, i, _ in live]
+        # recycled rows ride along as far as the batch's Bp rows have room
+        room = self.Bp - sum(i is not None for i, _ in p["reqs"])
         merge = [i for i in self._dirty
                  if self.slots[i] is None and i not in self._reserved
-                 and i not in dst]
+                 and i not in dst][:room]
         for i in merge:
             self._dirty.remove(i)
         self.metrics["merged_zero_rows"] += len(merge)
@@ -874,7 +906,7 @@ class ServeEngine:
         the first ``n``, or those of the boolean mask ``n`` (the slot-block
         layout). This process runs its own rows of the program."""
         dev = self.device
-        lo, hi = self.lay.span(self.Rp)
+        lo, hi = self.lay.span(self.Rp, self.Bp)
         real = (np.arange(self.Rp) < n if isinstance(n, int)
                 else np.asarray(n))[lo:hi]
         tok = tok[lo:hi]
@@ -889,7 +921,7 @@ class ServeEngine:
             return torch.where(f, rows.new_zeros(()), rows)
 
         rows = tree_map(take, self._pack_cache)
-        with self.lay.rules(self.Rp):
+        with self.lay.rules(self.Rp, self.Bp):
             h, _ = self.model.prefill_packed(
                 self.ft_params, torch.as_tensor(tok, device=dev), self.cfg,
                 rows, pos0=pos_t, lengths=len_t,
@@ -916,11 +948,12 @@ class ServeEngine:
         sids_l = [i for i, _ in p["reqs"]]
         sids_l += [None] * (self.Bp - len(sids_l))
         spare = [s for s in range(self.scfg.max_batch) if s not in sids_l]
-        b = self.Bp // self.lay.n if self.lay.blocked else self.Bp
+        nb = self._row_blocks
+        b = self.Bp // nb
         for j, i in enumerate(sids_l):  # an empty row reads a spare slot
             if i is None:  # of its block
                 i = next(s for s in spare
-                         if self.lay.block_of_slot(s) == j // b)
+                         if nb == 1 or self.lay.block_of_slot(s) == j // b)
                 spare.remove(i)
                 sids_l[j] = i
         lo, hi = self.lay.span(self.Bp)
@@ -991,19 +1024,20 @@ class ServeEngine:
         self.metrics["recycled"] += 1
 
     def _flush_recycled(self) -> None:
-        """Zero the freed rows no landing took, in ONE fill per cache
-        tensor. Re-occupied slots are skipped (their landing overwrote the
-        row); slots reserved by an in-flight batch wait (their landing will
-        overwrite them, or a later flush zeroes them if the row is
-        cancelled)."""
+        """Zero the freed rows no landing took, one fill per cache tensor
+        for every ``Bp`` of them. Re-occupied slots are skipped (their
+        landing overwrote the row); slots reserved by an in-flight batch
+        wait (their landing will overwrite them, or a later flush zeroes
+        them if the row is cancelled)."""
         keep, flush = [], []
         for i in sorted(set(self._dirty)):
             if self.slots[i] is not None:
                 continue
             (keep if i in self._reserved else flush).append(i)
         self._dirty = keep
-        if flush:
-            own = [i - self.slot_lo for i in flush
+        while flush:
+            batch, flush = flush[: self.Bp], flush[self.Bp:]
+            own = [i - self.slot_lo for i in batch
                    if self.slot_lo <= i < self.slot_hi]
             if own:
                 idx = torch.as_tensor(own, dtype=torch.int64,

@@ -41,9 +41,11 @@ The reference lays its activations out with ``constrain(..., "batch",
 which ``constrain`` is the identity, so the port splits the batch once,
 at the step's entry, and adds no call at those sites. The MoE block's
 dispatch groups follow the split (:func:`repro_torch.models.layers.
-moe_groups`: G = 1 on a rank, the reference's group g); a data-parallel
-step refuses ``dispatch="global_sort"``, whose gather of every rank's
-tokens has no backward in the port.
+moe_groups`: G = 1 on a rank, the reference's group g); with
+``dispatch="global_sort"`` every rank gathers all the ranks' tokens into
+the one group of the single-device step and keeps its own rows, and the
+gather's backward sums each rank's block of the gradient over the group
+(:func:`repro_torch.dist.collectives.all_gather_rows`).
 """
 from __future__ import annotations
 
@@ -150,12 +152,6 @@ def accumulated_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
         # whole microbatch on every rank, laid out as n shards
         with axis_rules(StandInMesh(mesh_shape(current_mesh()))):
             return accumulated_grads(cfg, tcfg, params, batch)
-    if group is not None and getattr(cfg.moe, "dispatch",
-                                     "grouped") != "grouped":
-        raise NotImplementedError(
-            f"data-parallel training with MoE dispatch "
-            f"{cfg.moe.dispatch!r}: its gather of every rank's tokens has "
-            f"no backward")
     if k == 1 and group is None:
         return loss_and_grads(cfg, params, batch)
     acc = None

@@ -88,7 +88,8 @@ def requests(case: dict, vocab: int) -> list:
 
 def _recording():
     """A ServeEngine that keeps a digest of every head projection's logits
-    row of a live request, by request id, in program order."""
+    row of a live request in one of this process's slots, by request id,
+    in program order."""
     from repro_torch.serve import ServeEngine
 
     class Recording(ServeEngine):
@@ -104,8 +105,10 @@ def _recording():
         def _head_logits(self, h, mask, failed_group, ft_fn):
             logits = super()._head_logits(h, mask, failed_group, ft_fn)
             if self._landing is not None:  # this process's batch rows
-                lo = self.lay.span(self.Bp)[0]
-                reqs = self._landing["reqs"]
+                lo = self.lay.span(self.Bp)[0]  # of its own slots
+                reqs = [(i, r) if i is not None
+                        and self.slot_lo <= i < self.slot_hi else (i, None)
+                        for i, r in self._landing["reqs"]]
                 rows = [reqs[lo + j][1] if lo + j < len(reqs) else None
                         for j in range(logits.shape[0])]
             else:  # this process's slots
@@ -140,6 +143,7 @@ def serve(case: dict, built=None) -> dict:
             "states": states,
             "rows": [eng.slot_lo, eng.slot_hi],
             "census": sorted(repr(k) for k in eng.protected_census),
+            "prefill": [list(k) for k in eng.census["prefill"]],
             "misses": None if eng.plans is None else eng.plans.misses}
 
 

@@ -25,9 +25,7 @@ A case is a dict:
   * ``kind="loop"``: ``train_loop`` into ``DIR/<name>`` (which may hold a
     checkpoint to resume from); records the losses, the final params, the
     checkpoint writes this process made, the loop's log, and whether the
-    latest checkpoint restores to the final state bit for bit;
-  * ``kind="refuse"``: one step on a global batch of zeros; records
-    whether it raised ``NotImplementedError``.
+    latest checkpoint restores to the final state bit for bit.
 """
 import contextlib
 import dataclasses
@@ -223,22 +221,9 @@ def run_loop(name: str, case: dict, d: pathlib.Path) -> dict:
     return out
 
 
-def run_refuse(name: str, case: dict, d: pathlib.Path) -> dict:
-    from repro_torch.train.train_step import make_train_step
-
-    cfg, tcfg = build(case)
-    state = init(case, d, cfg, tcfg)
-    batch = {"tokens": torch.zeros((4, 8), dtype=torch.int64)}
-    try:
-        make_train_step(cfg, tcfg)(state, batch)
-    except NotImplementedError:
-        return {f"{name}/refused": np.array(True)}
-    return {f"{name}/refused": np.array(False)}
-
-
 def run_case(name: str, case: dict, d: pathlib.Path) -> dict:
-    return {"steps": run_steps, "loop": run_loop,
-            "refuse": run_refuse}[case["kind"]](name, case, d)
+    return {"steps": run_steps, "loop": run_loop}[case["kind"]](name, case,
+                                                                d)
 
 
 def main(argv: list) -> None:

@@ -6,8 +6,9 @@ Same inputs, made from a numpy seed, go through ``repro.core`` and
 ``repro_torch.core``; every integer result must be bit-identical, as must
 each ``FTReport``: every op of ``OPS`` under every family and every failed
 stream (mirrors ``tests/test_ft_engine.py`` and
-``tests/test_entangle_property.py``), and the paper's stream conv at its
-smoke size. The reference runs eagerly: its calls are small, and a jit per
+``tests/test_entangle_property.py``), at the default plan and at the
+other M = 4 plans of ``FTConfig(M, w, headroom_bits)``, and the paper's
+stream conv at its smoke size. The reference runs eagerly: its calls are small, and a jit per
 (op, family, failed stream) would compile hundreds of programs.
 """
 import contextlib
@@ -35,6 +36,7 @@ from repro_torch.core import (GARBAGE, OPS, FTConfig, attach_checksum,
                               make_checksum_stream, make_plan,
                               recover_from_checksum, reentangle_stream,
                               run_protected)
+from test_torch_failstop_plans import check_plan
 
 MODES = ("none", "entangle", "checksum", "mr")
 M = 4
@@ -115,6 +117,16 @@ def test_run_protected_matches_reference(op, mode):
             assert not tr.recovered and (to[failed] == GARBAGE).all()
         else:
             assert tr.recovered and torch.equal(to, truth)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("plan", [(4, 16, 0), (4, 32, 4)],
+                         ids=["M4-w16-h0", "M4-w32-h4"])
+def test_run_protected_at_plan_matches_reference(plan, mode):
+    """``FTConfig(M, w, headroom_bits)``'s other M = 4 plans (an int32
+    temporary at l = 4, a dual word at l = 7), at this file's shapes:
+    tests/test_torch_failstop_plans.py's check."""
+    check_plan(plan, mode)
 
 
 def test_full_range_words_wrap_as_the_reference():

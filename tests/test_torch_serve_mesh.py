@@ -32,6 +32,12 @@ pads each rank's rows).
     no plan misses;
   * a batch that does not divide by 4 (6 slots at M = 3; a packed program
     of 2 rows) runs whole on every rank, with the same tokens;
+  * admission batches of ``prefill_batch`` rows across 2 ranks: 2 rows
+    split (one a rank, in a slot of its own block), 3 rows run whole on
+    every rank (and so does a packed program feeding them): in the whole
+    bucket, chunked and packed modes at scope all, healthy and with
+    failed group 1, the one-rank engine's tokens and logits and the
+    2-shard process's host state, bit for bit;
   * ``apply_moe`` under a stand-in mesh of G = 2 and 4 ``data`` shards
     against the reference's under a mesh of that many CPU devices, with
     drops and with a bucket ``valid`` mask, within tests/test_torch_moe.py's
@@ -106,7 +112,13 @@ GROUPED.update({f"gsort-{m}-all-none": _moe(
 # dropless MoE waves, held to the one-rank engine too
 DROPLESS_CASES = {f"dropless-{m}-all-none": _moe(m, "all", None, DROPLESS)
                   for m in MODES}
-TWO = {**DENSE, **GROUPED, **DROPLESS_CASES}
+# admission batches of 2 rows (split, one a rank) and 3 (whole on every
+# rank) of the 8 slots
+PREFILL_BATCH = {f"llama-bp{bp}-{m}-all-{_fg(fg)}": _case(
+    LLAMA, m, "all", fg, prefill_batch=bp)
+    for bp in (2, 3) for m in ("whole", "chunked", "packed")
+    for fg in (None, 1)}
+TWO = {**DENSE, **GROUPED, **DROPLESS_CASES, **PREFILL_BATCH}
 # 4 ranks: llama's 16 waves again (2 slots a rank, fewer than M = 4, so
 # the head pads each rank's rows; the packed program's 2 rows do not
 # divide by 4 and run whole on every rank), 6 slots at M = 3 (6 % 4 != 0:
@@ -164,9 +176,9 @@ def _collect(d: pathlib.Path, procs: list, names: list) -> list:
 
 # the one-rank engine's waves; the dense waves held to one process of the
 # 2-rank layout (a stand-in mesh) for their host state
-ONE = {**DENSE, **DROPLESS_CASES, **{k: v for k, v in FOUR_GROUPED.items()
-                                     if "llama" in k}}
-ALONE2 = {**GROUPED, **DROPLESS_CASES,
+ONE = {**DENSE, **DROPLESS_CASES, **PREFILL_BATCH,
+       **{k: v for k, v in FOUR_GROUPED.items() if "llama" in k}}
+ALONE2 = {**GROUPED, **DROPLESS_CASES, **PREFILL_BATCH,
           **{k: v for k, v in DENSE.items() if "-all-" in k}}
 
 
@@ -330,6 +342,26 @@ def test_dense_ranks_give_the_one_rank_tokens(served, name):
                                     name[:-2] + "-none"), name
 
 
+@pytest.mark.parametrize("name", sorted(PREFILL_BATCH))
+def test_prefill_batch_ranks_give_the_one_rank_tokens(served, name):
+    """Admission batches of ``prefill_batch`` rows across 2 ranks (2 rows:
+    split; 3: whole on every rank): the one-rank engine's tokens and head
+    logits bit for bit, and the 2-shard process's host state; failed
+    group 1 rolls forward exactly; the census has the batch's rows."""
+    toks = _rank_tokens(served["ranks2"], name)
+    assert toks == served["one"][name]["tokens"], name
+    assert _rank_logits(served["ranks2"], name) == \
+        served["one"][name]["logits"], name
+    for got in served["ranks2"]:
+        assert got[name]["states"] == served["grouped2"][name]["states"]
+    if name.endswith("-1"):
+        assert toks == _rank_tokens(served["ranks2"],
+                                    name[:-2] + "-none"), name
+    bp = PREFILL_BATCH[name]["scfg"]["prefill_batch"]
+    if "packed" not in name:
+        assert {k[0] for k in served["one"][name]["prefill"]} == {bp}, name
+
+
 @pytest.mark.parametrize("name", sorted(GROUPED))
 def test_moe_ranks_give_the_grouped_process_tokens(served, name):
     """deepseek across 2 ranks: the tokens and head logits of one process
@@ -384,9 +416,13 @@ def _census_of_half(case) -> list:
     (and packed rows), which every program of a 2-rank engine's rank
     matches row for row."""
     local = json.loads(json.dumps(case))
-    local["scfg"]["max_batch"] //= 2
-    if local["scfg"].get("token_budget"):
-        local["scfg"]["token_budget"] //= 2
+    sc = local["scfg"]
+    sc["max_batch"] //= 2
+    # a program splits where its rows and the admission batch's divide
+    if sc.get("prefill_batch", 0) % 2 == 0:
+        sc["prefill_batch"] = sc.get("prefill_batch", 0) // 2
+        if sc.get("token_budget"):
+            sc["token_budget"] //= 2
     local["lengths"], local["max_new"], local["failed_group"] = [3], [1], None
     return W.serve(local)["census"]
 

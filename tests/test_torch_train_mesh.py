@@ -37,6 +37,12 @@ oracle: the reference's dispatch groups, G = 2 contiguous halves).
     gradients; a rank that averaged its local mean would be far off;
   * a batch of 3 on 2 ranks: every rank computes it whole, and gives the
     one-process result bit for bit;
+  * deepseek with ``dispatch="global_sort"``: every rank gathers all the
+    ranks' tokens into one dispatch group (the gather's backward sums its
+    gradient over the group), so the oracle is the reference's
+    single-device step itself; the ranks' steps, routes and summed
+    gradient match it and the one-process step as the grouped case's do,
+    and a fail-stopped block rolls forward on the kernel codec;
   * the loop: its checkpoints are written by rank 0 alone and restored by
     every rank; the fail-stop drill changes nothing; resuming 2 ranks in
     one process and 1 process on 2 ranks continues the uninterrupted
@@ -46,6 +52,7 @@ oracle: the reference's dispatch groups, G = 2 contiguous halves).
 """
 import collections
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -139,8 +146,9 @@ LOOP_CASES = {"loop": LOOP,
               "loop-healthy": dict(LOOP, loop=dict(LOOP["loop"],
                                                    fail_block_at_step=None)),
               "resume12": LOOP}
-GLOBAL_SORT = dict(kind="refuse", arch=DEEPSEEK, tcfg=dict(max_seq=64),
-                   cfg=dict(moe=dict(dispatch="global_sort")))
+# every rank's tokens in one dispatch group: the single-device step's
+GLOBAL_SORT = _steps_case(DEEPSEEK, "entangle", 1, "kernel", grads=True,
+                          cfg=dict(moe=dict(dispatch="global_sort")))
 # the ranks run them in this order: the reference's params arrive while
 # they run the first ones, and resume12's checkpoint is the loop's here
 CASES = {**MASK_CASES, **B3_CASES, "global-sort": GLOBAL_SORT,
@@ -182,7 +190,9 @@ def _ref_job(arch: str, d: str) -> None:
     leaves in its flattening order; the ranks wait for the file), then
     its first step from them on ``b4``'s first batch for every flavour of
     SYNCS into ``d/ref_<arch>.npz``: loss, grad norm, new params and
-    routes, and step 0's lr."""
+    routes, and step 0's lr; for an MoE arch also GLOBAL_SORT's first step
+    (``gs/...``), whose one dispatch group is the single-device step's
+    whatever the mesh."""
     d = pathlib.Path(d)
     cfg = jsmoke(arch)
     params = oracle.init_params(cfg, max_seq=64)
@@ -213,9 +223,9 @@ def _ref_job(arch: str, d: str) -> None:
         acc = jax.tree.map(lambda a, x: a + x.astype(jnp.float32), acc, g)
     by_k[2] = (loss / 2, jax.tree.map(lambda g: g / 2, acc))
 
-    def finish(grads_by_k):  # the rest of the step, every flavour at once
-        done = {}
-        for sync, k, _ in SYNCS:
+    def finish(grads_by_k, syncs=SYNCS):  # the rest of the step, every
+        done = {}                          # flavour at once
+        for sync, k, _ in syncs:
             g = grads_by_k[k]
             if sync == "entangle":
                 g, _ = jcoll.ft_grad_sync(g, axis_name=None, n_replicas=1,
@@ -238,6 +248,21 @@ def _ref_job(arch: str, d: str) -> None:
                     for i, x in enumerate(jax.tree.leaves(new))})
         out.update({f"{key}/routes/{i}": r
                     for i, r in enumerate(routes[k])})
+    if cfg.moe is not None:
+        gcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **GLOBAL_SORT["cfg"]["moe"]))
+        gvg = jax.jit(jax.value_and_grad(
+            lambda p, b: jlm_loss(jm.forward_train(p, b, gcfg), b, gcfg)))
+        with oracle.recording_routes() as groutes:
+            gloss, grads = gvg(jp, {"tokens": jnp.asarray(tokens)})
+            jax.block_until_ready(grads)
+        gnorm, new = jax.jit(lambda g: finish(
+            {1: g}, (("entangle", 1, "kernel"),))["entangle1"])(grads)
+        out.update({"gs/loss": np.asarray(gloss),
+                    "gs/grad_norm": np.asarray(gnorm)})
+        out.update({f"gs/params/{i}": np.asarray(x)
+                    for i, x in enumerate(jax.tree.leaves(new))})
+        out.update({f"gs/routes/{i}": r for i, r in enumerate(groutes)})
     np.savez(d / f"ref_{arch}.npz", **out)
 
 
@@ -436,7 +461,8 @@ def test_moe_routes_are_the_reference_groups(runs, name):
 
 
 @pytest.mark.parametrize("name", sorted(
-    k for k, c in {**STEP_CASES, **B3_CASES}.items() if c["failed"]))
+    k for k, c in {**STEP_CASES, **B3_CASES,
+                   "global-sort": GLOBAL_SORT}.items() if c["failed"]))
 def test_failstop_step_bit_identical_on_every_rank(runs, name):
     for r in runs["ranks"]:
         for fb in CASES[name]["failed"]:
@@ -588,20 +614,64 @@ def test_launcher_under_torchrun(runs):
     assert abs(first - want) <= 2e-4
 
 
-def test_data_parallel_step_refuses_global_sort(runs):
-    """The gather of every rank's tokens (``dispatch="global_sort"``) has
-    no backward in the port: a step across ranks refuses it, and one
-    process, with or without the stand-in mesh, trains it."""
-    from repro_torch.train.train_step import init_state, make_train_step
+@pytest.mark.parametrize("s", range(STEPS))
+def test_global_sort_step_matches_one_process(runs, s):
+    """``dispatch="global_sort"`` across 2 ranks: step s against the
+    port's one-process step from the same state (one dispatch group over
+    the global batch, as on the ranks): the loss and grad norm within the
+    grouped case's tolerances, the summed gradient leaf by leaf within
+    GRAD_REL, and the first step's params within test_torch_train.py's
+    rule.
 
+    The gather's backward hands each rank the gradient of its rows of the
+    MoE block's input as one bf16 sum (router and expert rows), to which
+    the shared experts' part is added after; one process adds the three
+    in another order. So the block's input gradient parts by a few bf16
+    ulps (2.8e-3 normwise at the smoke layer, measured), which every
+    earlier layer carries: the summed gradient is 1.1e-2 from one
+    process's here (2.4e-3 in the grouped case, whose ranks keep their
+    tokens), and AdamW's update of a later step turns that into params
+    more than LATER_PARAM_REL of the lr apart on 1.2% of them, so a later
+    step is held by its loss, grad norm and summed gradient."""
+    r0, one = runs["ranks"][0], runs["one"]
+    key = f"global-sort/s{s}"
+    assert abs(float(r0[f"{key}/loss"]) - float(one[f"{key}/loss"])) \
+        < LOSS_ATOL
+    assert float(r0[f"{key}/grad_norm"]) == pytest.approx(
+        float(one[f"{key}/grad_norm"]), rel=GNORM_REL)
+    if s == 0:
+        _params_close(_params_of(r0, "global-sort", s),
+                      _params_of(one, "global-sort", s),
+                      _lr(GLOBAL_SORT, s))
+    got, want = _leaves(r0, f"{key}/grads"), _leaves(one, f"{key}/grads")
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= GRAD_REL
+
+
+def test_global_sort_first_step_matches_reference(runs):
+    """The ranks' first global_sort step against the reference's
+    single-device step on the global batch (its one dispatch group is
+    what every rank routes after the gather): loss and params within
+    MOE_REF and the grad norm within GNORM_REL, as the grouped case's;
+    every rank routes all the global batch's tokens as one process does,
+    and picks the reference's experts but at near-ties."""
+    ref, r0 = runs["ref"][DEEPSEEK], runs["ranks"][0]
+    assert abs(float(r0["global-sort/s0/loss"]) - float(ref["gs/loss"])) \
+        < MOE_REF["loss"]
+    assert float(r0["global-sort/s0/grad_norm"]) == pytest.approx(
+        float(ref["gs/grad_norm"]), rel=GNORM_REL)
+    _params_close(_params_of(r0, "global-sort", 0),
+                  _leaves(ref, "gs/params"), float(ref["lr"]),
+                  off=MOE_REF["off"])
+    want = _leaves(ref, "gs/routes")
+    one = _leaves(runs["one"], "global-sort/s0/routes")
+    gaps = _leaves(runs["one"], "global-sort/s0/gaps")
+    assert len(want) == len(one) > 0
     for r in runs["ranks"]:
-        assert bool(r["global-sort/refused"])
-    cfg, tcfg = W.build(GLOBAL_SORT)
-    state = init_state(torch.Generator().manual_seed(0), cfg, tcfg,
-                       device="cpu")
-    batch = {"tokens": torch.zeros((4, 8), dtype=torch.int64)}
-    for ctx in (contextlib.nullcontext(),
-                axis_rules(StandInMesh({"data": WORLD}))):
-        with ctx:
-            _, metrics = make_train_step(cfg, tcfg)(state, batch)
-        assert torch.isfinite(metrics["loss"])
+        for a, b in zip(_leaves(r, "global-sort/s0/routes"), one):
+            np.testing.assert_array_equal(a, b)
+    for i, w in enumerate(want):
+        assert one[i].shape == w.shape == (B * T, w.shape[1])
+        differ = (np.sort(one[i], -1) != np.sort(w, -1)).any(-1)
+        assert (gaps[i][differ] <= NEAR_TIE).all(), gaps[i][differ]
